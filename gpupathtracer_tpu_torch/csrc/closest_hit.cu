@@ -18,11 +18,9 @@
 // zero padding of pack_rays). The CTA walks its tile's schedule; for each
 // visited block it stages the block's columns into shared memory in chunks
 // of 128 triangles (5 scalars x 16 rows x 128 columns x 4 B = 40 KB, for any
-// tb), with the same [scalar][row][column] layout as w, so staging is a
-// coalesced float4 copy and every thread of the CTA then reads the same
-// float4 (a broadcast: four columns of one row) while it accumulates the five
-// dot products of four columns at once with f32 FMAs. No TF32: the parity bar
-// needs f32 t.
+// tb) and takes the five dot products per column with f32 FMAs (staging,
+// dot products and the CTA max live in decision.cuh, shared with the
+// any-hit kernel). No TF32: the parity bar needs f32 t.
 //
 // Semantics, as the TPU kernel:
 //   accept iff max(s0, s1, s2) <= 0 and D <= -1e-6 and num < 1e-6 * D, then
@@ -45,16 +43,14 @@
 // scalar's column), run the product on the tensor cores with mma.sync or
 // wgmma in 3xTF32, and double-buffer the block loads with cp.async or TMA.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decision.cuh"
+
 #include <stdint.h>
 
 namespace {
 
-constexpr int K = 16;         // feature depth
-constexpr int NS = 5;         // decision scalars per triangle
-constexpr int CHUNK = 128;    // triangle columns staged per pass
-constexpr float EPS = 1e-6f;  // the reference's EPSILON
+using namespace decision;
+
 constexpr float BIG = 3.0e38f;
 
 __global__ void closest_hit_kernel(const int* __restrict__ order,
@@ -65,74 +61,40 @@ __global__ void closest_hit_kernel(const int* __restrict__ order,
                                    float* __restrict__ best_t_out,
                                    int* __restrict__ best_i_out,
                                    int nb, int tb) {
-  // Staged chunk: [scalar][row][column], CHUNK columns per row.
-  __shared__ float4 stage[NS * K * (CHUNK / 4)];
+  __shared__ float4 stage[STAGE_FLOAT4];
   __shared__ float warp_max[32];
   __shared__ float tile_worst;
 
   const int tile = blockIdx.x;
   const int ray = tile * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
 
   float f[K];
-  const float4* f4 = reinterpret_cast<const float4*>(feats + (size_t)ray * K);
-#pragma unroll
-  for (int q = 0; q < K / 4; ++q) {
-    float4 v = f4[q];
-    f[4 * q] = v.x;
-    f[4 * q + 1] = v.y;
-    f[4 * q + 2] = v.z;
-    f[4 * q + 3] = v.w;
-  }
+  load_features(feats, ray, f);
   float best_t = alive[ray] > 0 ? BIG : -INFINITY;
   int best_i = -1;
   float worst = INFINITY;
 
   const int* tile_order = order + (size_t)tile * nb;
   const float* tile_enter = enter + (size_t)tile * nb;
-  const int five_tb = NS * tb;
 
   for (int j = 0; j < nb; ++j) {
     // Uniform across the CTA: every thread reads the same entry and worst.
     if (!(tile_enter[j] < worst)) break;
     const int blk = tile_order[j];
     if (blk < 0 || blk >= nb) break;  // culled sentinel; unreachable while enter is +inf there
-    const float* wb = w + (size_t)blk * K * five_tb;
+    const float* wb = w + (size_t)blk * K * NS * tb;
 
     float blk_min = INFINITY;
     int blk_arg = 0;
     for (int c0 = 0; c0 < tb; c0 += CHUNK) {
       const int cw4 = min(CHUNK, tb - c0) / 4;  // float4 columns in this chunk
       __syncthreads();  // the previous chunk has been read
-      for (int idx = threadIdx.x; idx < NS * K * cw4; idx += blockDim.x) {
-        const int r = idx / cw4;  // r = s * K + k
-        const int q = idx - r * cw4;
-        const int s = r / K;
-        const int k = r - s * K;
-        stage[r * (CHUNK / 4) + q] =
-            *reinterpret_cast<const float4*>(wb + (size_t)k * five_tb + s * tb + c0 + 4 * q);
-      }
+      stage_chunk(stage, wb, tb, c0, cw4);
       __syncthreads();
 
       for (int q = 0; q < cw4; ++q) {
         float acc[NS][4];
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const float4 v = stage[(s * K + k) * (CHUNK / 4) + q];
-            acc[s][0] = fmaf(f[k], v.x, acc[s][0]);
-            acc[s][1] = fmaf(f[k], v.y, acc[s][1]);
-            acc[s][2] = fmaf(f[k], v.z, acc[s][2]);
-            acc[s][3] = fmaf(f[k], v.w, acc[s][3]);
-          }
-        }
+        decision_dot4(f, stage, q, acc);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {  // ascending columns
           const float edge = fmaxf(fmaxf(acc[0][c], acc[1][c]), acc[2][c]);
@@ -151,20 +113,7 @@ __global__ void closest_hit_kernel(const int* __restrict__ order,
       best_t = blk_min;
       if (blk_min < BIG) best_i = blk * tb + blk_arg;
     }
-
-    // worst = max over the tile of best_t.
-    float m = best_t;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) warp_max[warp] = m;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float t = warp_max[0];
-      for (int i = 1; i < nwarps; ++i) t = fmaxf(t, warp_max[i]);
-      tile_worst = t;
-    }
-    __syncthreads();
-    worst = tile_worst;
+    worst = cta_max(best_t, warp_max, &tile_worst);  // the tile's worst lane
   }
   best_t_out[ray] = best_t;
   best_i_out[ray] = best_i;

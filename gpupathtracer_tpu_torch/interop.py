@@ -3,7 +3,9 @@
 Each function takes a mapping from field name to array (for example
 ``np.asarray(getattr(jax_obj, name))``) and builds the port's dataclass on
 ``device``, so both packages can compute on the same scene. Integer fields
-become int64 tensors (indices), bools stay bool, floats are float32.
+become int64 tensors (indices), bools stay bool, floats are float32. A field
+that is None on the JAX side (a scene without image textures) is left out of
+the mapping and stays None in the port.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera
 from gpupathtracer_tpu_torch.models.materials import MaterialTable
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
@@ -33,29 +36,39 @@ def _tensor_fields(cls) -> list[str]:
     return [f.name for f in dataclasses.fields(cls) if f.type in ("torch.Tensor", torch.Tensor)]
 
 
-def material_table_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> MaterialTable:
+def material_table_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> MaterialTable:
+    """MaterialTable from numpy fields, texture columns included."""
+    device = resolve_device(device)
     return MaterialTable(**{k: _tensor(fields[k], device) for k in _tensor_fields(MaterialTable)})
 
 
-def scene_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> TriangleScene:
+def scene_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> TriangleScene:
     """TriangleScene from numpy fields; ``fields["materials"]`` is itself a
-    mapping of MaterialTable fields."""
+    mapping of MaterialTable fields, and ``fields["textures"]``, where
+    present, the (T, H, W, 3) image stack."""
+    device = resolve_device(device)
     tensors = {k: _tensor(fields[k], device) for k in _tensor_fields(TriangleScene)}
-    return TriangleScene(materials=material_table_from_numpy(fields["materials"], device), **tensors)
+    textures = _tensor(fields["textures"], device) if "textures" in fields else None
+    return TriangleScene(
+        materials=material_table_from_numpy(fields["materials"], device), textures=textures, **tensors
+    )
 
 
-def camera_from_numpy(fields: Mapping[str, np.ndarray], width: int, height: int, device="cpu") -> Camera:
+def camera_from_numpy(fields: Mapping[str, np.ndarray], width: int, height: int, device="cuda") -> Camera:
+    device = resolve_device(device)
     return Camera(
         **{k: _tensor(fields[k], device) for k in _tensor_fields(Camera)}, width=width, height=height
     )
 
 
-def packed_from_numpy(fields: Mapping[str, np.ndarray], tri_block: int, device="cpu") -> PackedScene:
+def packed_from_numpy(fields: Mapping[str, np.ndarray], tri_block: int, device="cuda") -> PackedScene:
+    device = resolve_device(device)
     tensors = {k: _tensor(fields[k], device) for k in _tensor_fields(PackedScene)}
     tensors["block_live"] = tensors["block_live"] > 0
     return PackedScene(**tensors, tri_block=tri_block)
 
 
 def numpy_fields(obj, names) -> dict[str, np.ndarray]:
-    """``{name: np.asarray(getattr(obj, name))}`` for the given names."""
-    return {n: np.asarray(getattr(obj, n)) for n in names}
+    """``{name: np.asarray(getattr(obj, name))}`` for the given names whose
+    value is not None."""
+    return {n: np.asarray(v) for n in names if (v := getattr(obj, n)) is not None}

@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from gpupathtracer_tpu_torch.core import mat4
-from gpupathtracer_tpu_torch.core.tensors import to_device
+from gpupathtracer_tpu_torch.core.tensors import resolve_device, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +45,9 @@ class Camera:
         far_clip=1000.0,
         width=800,
         height=800,
-        device="cpu",
+        device="cuda",
     ) -> "Camera":
+        device = resolve_device(device)
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         return cls(
             position=f32(position),

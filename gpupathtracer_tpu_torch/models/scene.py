@@ -4,8 +4,9 @@ Counterpart of ``gpupathtracer_tpu/models/scene.py``. ``GeometrySpec`` holds
 one instance's local-space triangles and TRS; ``build_scene`` pretransforms
 them to world space and concatenates every instance into one flat
 ``TriangleScene``, padded with degenerate ``valid=False`` rows to a multiple
-of ``pad_to_multiple``. Planes are two two-sided triangles (+z normal in
-object space); spheres are icospheres.
+of ``pad_to_multiple``, with the stacked image textures of TEX_IMAGE
+materials. Planes are two two-sided triangles (+z normal in object space);
+spheres are icospheres.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from gpupathtracer_tpu_torch.core import mat4
-from gpupathtracer_tpu_torch.core.tensors import to_device
+from gpupathtracer_tpu_torch.core.tensors import resolve_device, to_device
 from gpupathtracer_tpu_torch.models.materials import MaterialTable, material_table
 from gpupathtracer_tpu_torch.models.obj import MeshData, load_obj
 
@@ -56,6 +57,9 @@ class TriangleScene:
     two_sided: torch.Tensor  # (N,) bool
     valid: torch.Tensor  # (N,) bool — False on padding rows
     materials: MaterialTable
+    # Stacked image textures (T, H, W, 3) float32 for TEX_IMAGE materials;
+    # None when no image texture is used.
+    textures: torch.Tensor | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -173,11 +177,18 @@ def build_scene(
     specs: Sequence[GeometrySpec],
     materials: MaterialTable | list[dict],
     pad_to_multiple: int = 512,
-    device="cpu",
+    textures=None,
+    device="cuda",
 ) -> TriangleScene:
     """Compile geometry specs into one flat world-space TriangleScene on
     ``device``. Padding rows (``valid=False``) are all-zero, so their zero
-    determinant means they are never hit."""
+    determinant means they are never hit. ``textures``: the (T, H, W, 3)
+    image stack that TEX_IMAGE materials index, or None."""
+    device = resolve_device(device)
+    if textures is not None:
+        textures = torch.as_tensor(textures, dtype=torch.float32, device=device)
+        if textures.dim() != 4 or textures.shape[-1] != 3:
+            raise ValueError(f"textures must be (T, H, W, 3), got {tuple(textures.shape)}")
     if isinstance(materials, list):
         materials = material_table(materials, device=device)
     fields: dict[str, list] = {
@@ -220,4 +231,4 @@ def build_scene(
             k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype, device=device)])
             for k, v in out.items()
         }
-    return TriangleScene(materials=materials, **out)
+    return TriangleScene(materials=materials, textures=textures, **out)

@@ -1,10 +1,12 @@
-"""Builds and loads the port's CUDA kernel library.
+"""Builds and loads the port's CUDA kernel libraries.
 
-``csrc/closest_hit.cu`` has a plain C interface. ``nvcc`` compiles it for
-Hopper (``sm_90a``) into ``gpupathtracer_tpu_torch/build/`` at first use,
-and the library is loaded with ``ctypes``. The file name carries a hash of
-the source and flags, so an edited source is rebuilt. Nothing is built or
-loaded when this module is imported.
+Each kernel source in ``csrc/`` (``closest_hit.cu``, ``occlusion.cu``; both
+include ``decision.cuh``) has a plain C interface. ``nvcc`` compiles it for
+Hopper (``sm_90a``) into its own shared library in
+``gpupathtracer_tpu_torch/build/`` at first use, and the library is loaded
+with ``ctypes``. The file name carries a hash of the source, the shared
+header and the flags, so an edit rebuilds. Nothing is built or loaded when
+this module is imported.
 """
 
 from __future__ import annotations
@@ -18,12 +20,25 @@ import subprocess
 import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "closest_hit.cu")
+CSRC = os.path.join(_PKG, "csrc")
+HEADERS = [os.path.join(CSRC, "decision.cuh")]
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Kernel name -> its launch function's argument types (device pointers,
+# then rt, nb, tb, ray_tile, then the stream).
+KERNELS = {
+    "closest_hit": [_P] * 7 + [_I] * 4 + [_P],
+    "occlusion": [_P] * 6 + [_I] * 4 + [_P],
+}
+
+
+def source(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
 
 
 def _nvcc() -> str:
@@ -38,42 +53,61 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libclosest_hit-{digest}.so")
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source(name)] + HEADERS:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernel library into ``BUILD_DIR`` and return ptxas's
-    resource report (registers, shared memory, spills)."""
-    out = library_path()
+def build(names=tuple(KERNELS)) -> dict[str, str]:
+    """Compile the named kernel libraries into ``BUILD_DIR``, one ``nvcc``
+    per source, all started together. Returns ptxas's resource report
+    (registers, shared memory, spills) per name; raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = {}
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+        for name in names:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, source(name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            jobs[name] = (proc, tmp)
+        reports, failed = {}, []
+        for name, (proc, tmp) in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {source(name)} failed with code {proc.returncode}:\n{err}")
+            else:
+                os.replace(tmp, library_path(name))  # atomic: no reader sees a partial file
+                reports[name] = err
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return reports
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stderr
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if it is missing."""
-    path = library_path()
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if it is missing."""
+    path = library_path(name)
     if not os.path.exists(path):
-        build()
+        build((name,))
     lib = ctypes.CDLL(path)
-    lib.closest_hit_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.closest_hit_launch.restype = ctypes.c_int
-    lib.closest_hit_error_string.argtypes = [ctypes.c_int]
-    lib.closest_hit_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = KERNELS[name]
+    launch.restype = ctypes.c_int
+    errstr = getattr(lib, f"{name}_error_string")
+    errstr.argtypes = [ctypes.c_int]
+    errstr.restype = ctypes.c_char_p
     return lib

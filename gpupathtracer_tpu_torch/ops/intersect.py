@@ -4,7 +4,7 @@ Counterpart of ``gpupathtracer_tpu/ops/intersect.py``. ``intersect_brute``
 is the brute-force oracle the packed search is checked against: one-sided
 triangles accept ``det >= 1e-6``, two-sided ones ``|det| >= 1e-6``, hits
 need ``t > 1e-6``, the strictly nearer hit wins and the first row wins ties.
-``resolve_hits`` re-derives t, point, normals and barycentrics from the
+``resolve_hits`` re-derives t, point, normals, barycentrics and UVs from the
 winning rows.
 """
 
@@ -89,6 +89,7 @@ class HitAttributes:
     point: torch.Tensor  # (R, 3) world intersection point
     gn: torch.Tensor  # (R, 3) unit geometric normal
     sn: torch.Tensor | None  # (R, 3) interpolated shading normal
+    uv: torch.Tensor | None  # (R, 2) interpolated texture coordinates
     bary: torch.Tensor  # (R, 2) (u, v)
     mat_id: torch.Tensor  # (R,) int64
     geom_id: torch.Tensor  # (R,) int64
@@ -98,11 +99,14 @@ def _safe_normalize(x):
     return x / torch.sqrt(torch.clamp((x * x).sum(dim=-1, keepdim=True), min=1e-24))
 
 
-def resolve_hits(o, d, scene: TriangleScene, tri: torch.Tensor, need_sn: bool = True) -> HitAttributes:
+def resolve_hits(
+    o, d, scene: TriangleScene, tri: torch.Tensor, need_sn: bool = True, need_uv: bool = True
+) -> HitAttributes:
     """Recompute hit attributes for gathered triangles.
 
     ``tri`` is clamped for the gathers; callers mask with the hit flag.
-    ``need_sn=False`` skips the shading-normal gathers (``sn`` is None).
+    ``need_sn=False`` / ``need_uv=False`` skip the shading-normal / UV
+    gathers and interpolation (``sn`` / ``uv`` is None).
     """
     idx = torch.clamp(tri, min=0)
     v0 = scene.v0[idx]
@@ -119,17 +123,21 @@ def resolve_hits(o, d, scene: TriangleScene, tri: torch.Tensor, need_sn: bool = 
     # |t|; clamp far inside the f32 range so later squares stay finite.
     t = torch.clamp(_dot(e2, qvec) * inv_det, -1e8, 1e8)
     point = o + t[:, None] * d
+    w = 1.0 - u - v
     sn = None
     if need_sn:
-        w = 1.0 - u - v
         sn = _safe_normalize(
             w[:, None] * scene.n0[idx] + u[:, None] * scene.n1[idx] + v[:, None] * scene.n2[idx]
         )
+    uv = None
+    if need_uv:
+        uv = w[:, None] * scene.uv0[idx] + u[:, None] * scene.uv1[idx] + v[:, None] * scene.uv2[idx]
     return HitAttributes(
         t=t,
         point=point,
         gn=_safe_normalize(torch.linalg.cross(e1, e2)),
         sn=sn,
+        uv=uv,
         bary=torch.stack([u, v], dim=-1),
         mat_id=scene.mat_id[idx],
         geom_id=scene.geom_id[idx],

@@ -1,5 +1,5 @@
-"""Packed closest-hit search: scene packing, tile×block culling, the
-front-to-back schedule, and the closest-hit kernel with its plain version.
+"""Packed ray search: scene packing, tile×block culling, the front-to-back
+schedule, and the closest-hit and any-hit kernels with their plain versions.
 
 Counterpart of ``gpupathtracer_tpu/ops/pallas_intersect.py`` (the resident
 path). The scene is packed one-sided: two-sided rows are appended again with
@@ -8,10 +8,14 @@ centroids (dead rows at the tail) and cut into blocks of ``tri_block`` rows,
 each with an AABB. For each tile of ``ray_tile`` rays an interval frustum
 test culls blocks and lower-bounds the hit distance into each survivor
 (``tile_block_mask``); ``plan_block_order`` sorts the survivors front to
-back. ``closest_hit`` then walks each tile's schedule with early exit: on a
-CUDA tensor it launches the kernel in ``csrc/closest_hit.cu``, on a CPU
-tensor it runs ``closest_hit_reference``, the plain PyTorch version of the
-same search.
+back. Two searches walk each tile's schedule with early exit:
+
+- ``closest_hit`` (``csrc/closest_hit.cu``): the nearest accepted hit;
+- ``occluded`` (``csrc/occlusion.cu``): whether any accepted hit lies
+  before a per-ray cutoff ``max_t`` (shadow rays; no division).
+
+On a CUDA tensor each launches its kernel; on a CPU tensor it runs its plain
+PyTorch version (``closest_hit_reference``, ``occluded_reference``).
 """
 
 from __future__ import annotations
@@ -232,19 +236,22 @@ def plan_block_order(mask: torch.Tensor, enter: torch.Tensor):
     return order.to(torch.int32), enter_sorted
 
 
-def _check_inputs(order, enter, feats, alive, w, ray_tile: int) -> None:
-    """Raise on anything the kernel does not take."""
+def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str = "alive") -> None:
+    """Raise on anything the kernels do not take. ``lanes`` is the per-ray
+    input after ``feats``: ``alive`` int32 for the closest hit, ``maxt``
+    float32 for the any hit."""
     if w.dim() != 3 or w.shape[1] != K or w.shape[2] % NSCALARS:
         raise ValueError(f"w must be (nb, {K}, {NSCALARS}*tb), got {tuple(w.shape)}")
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
     if feats.dim() != 2 or feats.shape[1] != K or feats.shape[0] % ray_tile:
         raise ValueError(f"feats must be (rt*{ray_tile}, {K}), got {tuple(feats.shape)}")
     rt = feats.shape[0] // ray_tile
+    lanes_dtype = torch.float32 if lanes_name == "maxt" else torch.int32
     expect = {
         "order": (order, torch.int32, (rt, nb)),
         "enter": (enter, torch.float32, (rt, nb)),
         "feats": (feats, torch.float32, (rt * ray_tile, K)),
-        "alive": (alive, torch.int32, (rt * ray_tile,)),
+        lanes_name: (lanes, lanes_dtype, (rt * ray_tile,)),
         "w": (w, torch.float32, (nb, K, NSCALARS * tb)),
     }
     for name, (x, dtype, shape) in expect.items():
@@ -255,11 +262,22 @@ def _check_inputs(order, enter, feats, alive, w, ray_tile: int) -> None:
         if x.device != feats.device:
             raise ValueError(f"{name} is on {x.device}, feats on {feats.device}")
     if rt == 0 or nb == 0:
-        raise ValueError("closest_hit needs at least one ray tile and one block")
+        raise ValueError("the packed search needs at least one ray tile and one block")
     if ray_tile % 32 or not 32 <= ray_tile <= 1024:
         raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], got {ray_tile}")
     if tb % 4:
         raise ValueError(f"tri_block must be a multiple of 4, got {tb}")
+
+
+def _kernel_device(feats, name: str) -> torch.device | None:
+    """None for CPU tensors (the plain version runs), the CUDA device
+    otherwise; raises for any other device."""
+    dev = feats.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {dev.type}")
+    return dev
 
 
 def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE):
@@ -272,12 +290,10 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE)
     launches.
     """
     _check_inputs(order, enter, feats, alive, w, ray_tile)
-    dev = feats.device
-    if dev.type == "cpu":
+    dev = _kernel_device(feats, "closest_hit")
+    if dev is None:
         return closest_hit_reference(order, enter, feats, alive, w, ray_tile)
-    if dev.type != "cuda":
-        raise ValueError(f"closest_hit runs on CPU or CUDA tensors, not {dev.type}")
-    lib = _build.library()
+    lib = _build.library("closest_hit")
     nb, _, five_tb = w.shape
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
@@ -297,35 +313,56 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE)
 
 closest_hit.launches = 0
 
-# Pairs (ray x column) the plain version evaluates per batched matmul; bounds
-# its (tiles, ray_tile, 5*tb) intermediates to ~128 MB each.
+# Pairs (ray x column) the plain versions evaluate per batched matmul; bounds
+# their (tiles, ray_tile, 5*tb) intermediates to ~128 MB each.
 _REFERENCE_PAIRS = 1 << 25
 
 
-def closest_hit_reference(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE):
-    """Plain PyTorch version of ``closest_hit``: the same schedule, early exit,
-    acceptance and tie-breaks, with one f32 matmul per (tile, block)."""
+def _check_f32_matmul(feats, name: str) -> None:
     if feats.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("closest_hit_reference needs f32 matmuls: TF32 is enabled")
+        raise RuntimeError(f"{name} needs f32 matmuls: TF32 is enabled")
+
+
+def _decision_scalars(ft, w, blk, tb: int):
+    """(s0, s1, s2, D, num), each (tiles, ray_tile, tb): one f32 matmul of
+    each tile's features with its scheduled block."""
+    s = torch.bmm(ft, w[blk]).view(ft.shape[0], ft.shape[1], NSCALARS, tb)
+    return s.unbind(2)
+
+
+def closest_hit_reference(
+    order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False
+):
+    """Plain PyTorch version of ``closest_hit``: the same schedule, early exit,
+    acceptance and tie-breaks, with one f32 matmul per (tile, block).
+
+    ``count_work=True`` also returns ``{"blocks": visited (tile, block)
+    pairs, "lane_blocks": the sum over them of the tile's live lanes}``,
+    the work these inputs need."""
+    _check_f32_matmul(feats, "closest_hit_reference")
     nb, _, five_tb = w.shape
     tb = five_tb // NSCALARS
     rt = feats.shape[0] // ray_tile
     ft = feats.reshape(rt, ray_tile, K)
-    best_t = torch.where(alive.reshape(rt, ray_tile) > 0, BIG, -INF).to(torch.float32)
+    live = alive.reshape(rt, ray_tile) > 0
+    best_t = torch.where(live, BIG, -INF).to(torch.float32)
     best_i = torch.full((rt, ray_tile), -1, dtype=torch.int32, device=feats.device)
     worst = torch.full((rt,), INF, dtype=torch.float32, device=feats.device)
     running = torch.ones((rt,), dtype=torch.bool, device=feats.device)
     per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    blocks = lane_blocks = 0
     for j in range(nb):
         running &= enter[:, j] < worst
         tiles = torch.nonzero(running).flatten()
         if tiles.numel() == 0:
             break
+        if count_work:
+            blocks += tiles.numel()
+            lane_blocks += int(live[tiles].sum())
         for c0 in range(0, tiles.numel(), per_call):
             ti = tiles[c0 : c0 + per_call]
             blk = order[ti, j].long()
-            s = torch.bmm(ft[ti], w[blk]).view(-1, ray_tile, NSCALARS, tb)
-            s0, s1, s2, dd, num = s.unbind(2)
+            s0, s1, s2, dd, num = _decision_scalars(ft[ti], w, blk, tb)
             edge = torch.maximum(torch.maximum(s0, s1), s2)
             ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd)
             t = torch.where(ok, num / dd, BIG)
@@ -336,7 +373,83 @@ def closest_hit_reference(order, enter, feats, alive, w, ray_tile: int = DEFAULT
             arg = (blk_arg + blk[:, None] * tb).to(torch.int32)
             best_i[ti] = torch.where(upd & (blk_min < BIG), arg, best_i[ti])
         worst[tiles] = best_t[tiles].amax(dim=1)
-    return best_t.reshape(-1), best_i.reshape(-1)
+    out = (best_t.reshape(-1), best_i.reshape(-1))
+    return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
+
+
+def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE):
+    """Any-hit search of every ray tile along its schedule: an int32 flag
+    (R_pad,), 1 where some accepted hit has t < ``maxt`` (lanes with
+    ``maxt = 0`` are never tested and report 0).
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/occlusion.cu``) and raises if it cannot; on CPU tensors it runs
+    ``occluded_reference``. ``occluded.launches`` counts kernel launches.
+    """
+    _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt")
+    dev = _kernel_device(feats, "occluded")
+    if dev is None:
+        return occluded_reference(order, enter, feats, maxt, w, ray_tile)
+    lib = _build.library("occlusion")
+    nb, _, five_tb = w.shape
+    occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.occlusion_launch(
+            order.data_ptr(), enter.data_ptr(), feats.data_ptr(), maxt.data_ptr(),
+            w.data_ptr(), occ.data_ptr(),
+            feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.occlusion_error_string(err).decode()
+        raise RuntimeError(f"occluded kernel launch failed: CUDA error {err} ({msg})")
+    occluded.launches += 1
+    return occ
+
+
+occluded.launches = 0
+
+
+def occluded_reference(
+    order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False
+):
+    """Plain PyTorch version of ``occluded``: the same schedule and per-tile
+    bound (the largest cutoff among unoccluded lanes; every lane occluded
+    gives -inf), and the same division-free acceptance, with one f32 matmul
+    per (tile, block).
+
+    ``count_work=True`` also returns ``{"blocks": visited (tile, block)
+    pairs, "lane_blocks": the sum over them of the tile's lanes that still
+    need testing (unoccluded, maxt > 0)}``."""
+    _check_f32_matmul(feats, "occluded_reference")
+    nb, _, five_tb = w.shape
+    tb = five_tb // NSCALARS
+    rt = feats.shape[0] // ray_tile
+    ft = feats.reshape(rt, ray_tile, K)
+    mt = maxt.reshape(rt, ray_tile)
+    occ = torch.zeros((rt, ray_tile), dtype=torch.bool, device=feats.device)
+    running = torch.ones((rt,), dtype=torch.bool, device=feats.device)
+    per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    blocks = lane_blocks = 0
+    for j in range(nb):
+        bound = torch.where(occ, -INF, mt).amax(dim=1)
+        running &= enter[:, j] < bound
+        tiles = torch.nonzero(running).flatten()
+        if tiles.numel() == 0:
+            break
+        if count_work:
+            blocks += tiles.numel()
+            lane_blocks += int((~occ[tiles] & (mt[tiles] > 0)).sum())
+        for c0 in range(0, tiles.numel(), per_call):
+            ti = tiles[c0 : c0 + per_call]
+            s0, s1, s2, dd, num = _decision_scalars(ft[ti], w, order[ti, j].long(), tb)
+            edge = torch.maximum(torch.maximum(s0, s1), s2)
+            # t = num / D lies in (EPSILON, maxt) iff num < EPSILON·D and
+            # num > maxt·D, both strict (D <= -EPSILON < 0 flips them).
+            ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd) & (num > mt[ti][:, :, None] * dd)
+            occ[ti] |= ok.any(dim=-1)
+    out = occ.reshape(-1).to(torch.int32)
+    return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
 
 
 def prepare_rays(o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE):
@@ -381,3 +494,37 @@ def intersect_packed(
     hit = best_i >= 0
     tri = torch.where(hit, packed.tri_map[torch.clamp(best_i, min=0)], -1)
     return Hit(t=torch.where(hit, best_t, BIG), tri=tri, hit=hit)
+
+
+def prepare_shadow_rays(o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE):
+    """The any-hit inputs for rays (R, 3) with unit directions and cutoffs
+    ``max_t`` (R,): ``(order, enter, feats, maxt)``, padded to a
+    ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and
+    ``max_t = 0``; lanes with ``max_t = 0`` are left out of the tile
+    frustums."""
+    r = o.shape[0]
+    feats = pack_rays(o, d)
+    pad = (-r) % ray_tile
+    if pad:
+        feats = torch.cat([feats, feats.new_zeros((pad, K))])
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_ones((pad, 3))])
+        max_t = torch.cat([max_t, max_t.new_zeros((pad,))])
+    maxt = max_t.to(torch.float32).contiguous()
+    mask, enter = tile_block_mask(o, d, packed, ray_tile, alive=maxt > 0)
+    order, enter_sorted = plan_block_order(mask, enter)
+    return order, enter_sorted, feats, maxt
+
+
+def intersect_packed_occluded(
+    o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE, occ_fn=None
+) -> torch.Tensor:
+    """Occlusion of rays (R, 3) with unit directions: (R,) bool, True where
+    some accepted hit has t in (EPSILON, ``max_t``). ``max_t = 0`` marks
+    lanes that need no test; they report False. ``occ_fn`` is the search
+    (``occluded`` by default; ``occluded_reference`` forces the plain
+    version on any device)."""
+    r = o.shape[0]
+    order, enter, feats, maxt = prepare_shadow_rays(o, d, max_t, packed, ray_tile)
+    occ = (occ_fn or occluded)(order, enter, feats, maxt, packed.w, ray_tile)
+    return occ[:r] > 0

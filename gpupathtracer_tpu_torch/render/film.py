@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Film:
@@ -20,7 +22,8 @@ class Film:
     sample_count: torch.Tensor  # () float32
 
     @classmethod
-    def zeros(cls, height: int, width: int, device="cpu") -> "Film":
+    def zeros(cls, height: int, width: int, device="cuda") -> "Film":
+        device = resolve_device(device)
         return cls(
             radiance_sum=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
             sample_count=torch.zeros((), dtype=torch.float32, device=device),

@@ -1,38 +1,45 @@
-"""Wavefront Monte Carlo path-tracing integrator, naive estimator.
+"""Wavefront Monte Carlo path-tracing integrator: naive, NEE and MIS.
 
-Counterpart of ``gpupathtracer_tpu/render/integrator.py`` for the naive
-path: per bounce, intersect, add the background on misses and
-``emissive * intensity`` on emitter hits, and scatter diffuse hits over the
-cosine-weighted hemisphere (throughput factor = albedo). Liveness is data:
-dead lanes keep executing with no effect. Bounce 0 runs uncompacted; the
-later bounces permute live rays to the front (``ops/compaction.py``).
+Counterpart of ``gpupathtracer_tpu/render/integrator.py`` for emitter and
+diffuse materials: per bounce, intersect, add the background on misses and
+the emitter term on emitter hits, and scatter diffuse hits over the
+cosine-weighted hemisphere (throughput factor = the albedo, flat or from the
+material's checker or image texture). With ``estimator="nee"`` every diffuse
+vertex also samples a point on an emitter (area-weighted) and casts a shadow
+ray; ``"mis"`` weights that light sample and the emitter hits of BSDF
+samples with the balance heuristic. Liveness is data: dead lanes keep
+executing with no effect. Bounce 0 runs uncompacted; the later bounces
+permute live rays to the front (``ops/compaction.py``), and shadow rays are
+compacted the same way on every bounce.
 
-Options outside this path (NEE/MIS, mirror and glass, textures, Russian
-roulette, ray sorting, other compaction modes) raise NotImplementedError.
+Options outside this path (mirror and glass, Russian roulette, ray sorting,
+other compaction modes) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import partial
 
 import torch
 
-from gpupathtracer_tpu_torch.models.materials import BxdfType
+from gpupathtracer_tpu_torch.models.materials import BxdfType, textured_albedo
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
 from gpupathtracer_tpu_torch.ops.compaction import compact_rays
 from gpupathtracer_tpu_torch.ops.intersect import Hit, resolve_hits
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, cosine_sample_hemisphere, local_to_world
 
-# Offset along the oriented normal when spawning secondary rays.
+# Offset along the oriented normal when spawning secondary and shadow rays.
 RAY_OFFSET = 1e-4
 
-# Intersector names: "auto" and "pallas" run the closest-hit kernel (its plain
-# version on CPU tensors); "plucker" runs the plain PyTorch version on any
+# Intersector names: "auto" and "pallas" run the kernels (their plain
+# versions on CPU tensors); "plucker" runs the plain PyTorch versions on any
 # device, as the JAX package's "plucker" runs its plain jnp product.
 _KERNEL_INTERSECTORS = ("auto", "pallas")
 _PLAIN_INTERSECTORS = ("plucker",)
+_ESTIMATORS = ("naive", "nee", "mis")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,22 +50,22 @@ class IntegratorOptions:
     tri_block: int = 128
     use_shading_normals: bool = False
     intersector: str = "auto"
-    estimator: str = "naive"
+    estimator: str = "naive"  # "naive", "nee" or "mis"
     sort_rays: bool = False  # not ported
     compact: bool = True
     compact_mode: str = "permute"
     material_set: tuple = (0, 1, 2, 3)
     rng: str = "pcg"
-    textured: bool = False  # not ported
+    # Diffuse albedo from the hit UV (checker / image); narrow_settings turns
+    # it on when a live material uses a texture.
+    textured: bool = False
 
 
 def check_supported(options: IntegratorOptions) -> None:
-    """Raise NotImplementedError for options outside the ported naive path."""
+    """Raise NotImplementedError for options outside the ported path."""
     unsupported = [
-        (options.estimator != "naive", f"estimator {options.estimator!r}"),
         (BxdfType.MIRROR in options.material_set, "mirror materials"),
         (BxdfType.GLASS in options.material_set, "glass materials"),
-        (options.textured, "textured materials"),
         (options.rr_start is not None, "Russian roulette (rr_start)"),
         (options.sort_rays, "ray sorting (sort_rays)"),
         (options.compact_mode != "permute", f"compact_mode {options.compact_mode!r}"),
@@ -70,11 +77,14 @@ def check_supported(options: IntegratorOptions) -> None:
             raise NotImplementedError(f"{what} is not ported to gpupathtracer_tpu_torch yet")
     if options.intersector not in _KERNEL_INTERSECTORS + _PLAIN_INTERSECTORS:
         raise ValueError(f"unknown intersector {options.intersector!r}")
+    if options.estimator not in _ESTIMATORS:
+        raise ValueError(f"unknown estimator {options.estimator!r}")
 
 
 def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=None):
-    """Closest-hit function ``(o, d) -> Hit`` over the packed scene (packed
-    here at ``options.tri_block`` unless ``packed`` is given)."""
+    """Closest-hit function ``(o, d, alive=None) -> Hit`` over the packed
+    scene (packed here at ``options.tri_block`` unless ``packed`` is
+    given)."""
     check_supported(options)
     if packed is None:
         packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
@@ -86,23 +96,57 @@ def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=N
     return partial(packed_intersect.intersect_packed, packed=packed, hit_fn=hit_fn)
 
 
-def _gather_materials(scene: TriangleScene, mat_id: torch.Tensor) -> dict:
-    """Per-ray material attributes via one row gather of a packed table."""
+def make_occlusion_fn(
+    scene: TriangleScene, options: IntegratorOptions, intersect_fn, packed=None, use_kernel: bool = False
+):
+    """``occluded(o, d, max_t) -> bool (R,)``: some accepted hit with
+    t < max_t; lanes with ``max_t = 0`` report False.
+
+    ``use_kernel=True`` runs the any-hit search (``occluded``, or
+    ``occluded_reference`` for the plain intersector) over ``packed``;
+    otherwise the closest hit of ``intersect_fn`` is thresholded, with the
+    ``max_t = 0`` lanes passed as dead. Both answer the same predicate.
+    """
+    if use_kernel:
+        if packed is None:
+            packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
+        occ_fn = (
+            packed_intersect.occluded_reference
+            if options.intersector in _PLAIN_INTERSECTORS
+            else packed_intersect.occluded
+        )
+        return partial(packed_intersect.intersect_packed_occluded, packed=packed, occ_fn=occ_fn)
+
+    def threshold(o, d, mt):
+        h = intersect_fn(o, d, alive=mt > 0)
+        return h.hit & (h.t < mt)
+
+    return threshold
+
+
+def _gather_materials(scene: TriangleScene, mat_id: torch.Tensor, textured: bool = False) -> dict:
+    """Per-ray material attributes via one row gather of a packed table; the
+    texture columns (kind, id, checker color and scale) ride along only when
+    ``textured``."""
     m = scene.materials
-    table = torch.cat(
-        [
-            m.type.to(torch.float32)[:, None],
-            m.albedo,
-            m.specular_color,
-            m.refractive_index[:, None],
-            m.emissive_color,
-            m.intensity[:, None],
-            m.transmittance_color,
-        ],
-        dim=-1,
-    )
-    g = table[mat_id]
-    return {
+    cols = [
+        m.type.to(torch.float32)[:, None],
+        m.albedo,
+        m.specular_color,
+        m.refractive_index[:, None],
+        m.emissive_color,
+        m.intensity[:, None],
+        m.transmittance_color,
+    ]
+    if textured:
+        cols += [
+            m.tex_kind.to(torch.float32)[:, None],
+            m.tex_id.to(torch.float32)[:, None],
+            m.checker_color,
+            m.checker_scale[:, None],
+        ]
+    g = torch.cat(cols, dim=-1)[mat_id]
+    out = {
         "type": g[:, 0].to(torch.int64),
         "albedo": g[:, 1:4],
         "specular": g[:, 4:7],
@@ -111,6 +155,14 @@ def _gather_materials(scene: TriangleScene, mat_id: torch.Tensor) -> dict:
         "intensity": g[:, 11],
         "transmittance": g[:, 12:15],
     }
+    if textured:
+        out.update(
+            tex_kind=g[:, 15].to(torch.int64),
+            tex_id=g[:, 16].to(torch.int64),
+            checker_color=g[:, 17:20],
+            checker_scale=g[:, 20],
+        )
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +174,8 @@ class PathState:
     throughput: torch.Tensor  # (R, 3)
     radiance: torch.Tensor  # (R, 3)
     alive: torch.Tensor  # (R,) bool
+    prev_nee: torch.Tensor  # (R,) bool — the previous vertex sampled a light
+    prev_pdf: torch.Tensor  # (R,) float32 — its solid-angle BSDF pdf (MIS)
     keys: torch.Tensor  # (R, 4) PCG keys
 
 
@@ -134,24 +188,53 @@ def init_path_state(origins, directions, keys) -> PathState:
         throughput=torch.ones((r, 3), dtype=torch.float32, device=dev),
         radiance=torch.zeros((r, 3), dtype=torch.float32, device=dev),
         alive=torch.ones((r,), dtype=torch.bool, device=dev),
+        prev_nee=torch.zeros((r,), dtype=torch.bool, device=dev),  # the camera samples no light
+        prev_pdf=torch.zeros((r,), dtype=torch.float32, device=dev),
         keys=keys,
     )
 
 
-def make_bounce_fn(scene: TriangleScene, options: IntegratorOptions, intersect_fn=None, packed=None):
+def make_bounce_fn(
+    scene: TriangleScene,
+    options: IntegratorOptions,
+    intersect_fn=None,
+    packed=None,
+    occlusion_kernel: bool = False,
+):
     """Build the single-bounce step ``bounce(state, bounce_idx, compact_now=True)``.
 
-    ``intersect_fn(o, d) -> Hit`` defaults to the packed closest-hit search.
-    Per-lane results depend only on the lane's ray and key, so compaction
-    does not change the image.
+    ``intersect_fn(o, d, alive=None) -> Hit`` defaults to the packed
+    closest-hit search over ``packed``. ``occlusion_kernel`` answers NEE
+    shadow rays with the any-hit search over ``packed`` instead of a
+    thresholded closest hit; it cannot be combined with a caller's
+    ``intersect_fn``. Per-lane results depend only on the lane's ray and
+    key, so compaction does not change the image.
     """
     check_supported(options)
+    if occlusion_kernel and intersect_fn is not None:
+        raise ValueError("occlusion_kernel searches the pack, which would bypass the custom intersect_fn")
     if intersect_fn is None:
+        if packed is None:
+            packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
         intersect_fn = make_intersect_fn(scene, options, packed=packed)
     sampler = PcgSampler
     ms = tuple(options.material_set)
     has_emit = BxdfType.EMITTER in ms
     has_diffuse = BxdfType.DIFFUSE in ms
+    # Light sampling needs an emitter to sample and a diffuse vertex to
+    # sample from; without both the estimator is the naive one.
+    nee = options.estimator in ("nee", "mis") and has_emit and has_diffuse
+    mis = options.estimator == "mis" and nee
+    textured = options.textured and has_diffuse
+
+    if nee:
+        occlude = make_occlusion_fn(scene, options, intersect_fn, packed=packed, use_kernel=occlusion_kernel)
+        # Area-weighted light table over the emissive triangles.
+        tri_area = 0.5 * torch.linalg.norm(torch.linalg.cross(scene.e1, scene.e2), dim=-1)
+        tri_is_light = (scene.materials.type[scene.mat_id] == BxdfType.EMITTER) & scene.valid
+        light_w = tri_area * tri_is_light.to(torch.float32)
+        total_light_area = light_w.sum()
+        light_cdf = torch.cumsum(light_w, 0)
 
     def masked_intersect(o, d, mask, compact_now: bool) -> Hit:
         """Closest hit for lanes where ``mask`` holds; others report no hit."""
@@ -162,47 +245,125 @@ def make_bounce_fn(scene: TriangleScene, options: IntegratorOptions, intersect_f
         h = intersect_fn(o_c, d_c)
         return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv] & mask)
 
+    def masked_occluded(o, d, max_t, mask):
+        """Shadow query for lanes where ``mask`` holds (others report
+        unoccluded). Dead lanes carry max_t = 0; with compaction they are
+        also permuted behind the live ones and parked outside the scene."""
+        mt = torch.where(mask, max_t, 0.0)
+        if not options.compact:
+            return occlude(o, d, mt) & mask
+        o_c, d_c, inv = compact_rays(o, d, mask)
+        mt_c = torch.zeros_like(mt)
+        mt_c[inv] = mt  # lane i moves to position inv[i]
+        return occlude(o_c, d_c, mt_c)[inv] & mask
+
     def bounce(state: PathState, bounce_idx: int, compact_now: bool = True) -> PathState:
         o, d, throughput, radiance, alive = state.o, state.d, state.throughput, state.radiance, state.alive
         background = torch.tensor(options.background, dtype=torch.float32, device=o.device)
         hit = masked_intersect(o, d, alive, compact_now)
-        attrs = resolve_hits(o, d, scene, hit.tri, need_sn=options.use_shading_normals)
+        attrs = resolve_hits(o, d, scene, hit.tri, need_sn=options.use_shading_normals, need_uv=textured)
         found = alive & hit.hit
         missed = alive & ~hit.hit
         radiance = radiance + torch.where(missed[:, None], throughput * background[None, :], 0.0)
 
-        mat = _gather_materials(scene, attrs.mat_id)
+        mat = _gather_materials(scene, attrs.mat_id, textured=textured)
+        if textured:
+            albedo = textured_albedo(
+                mat["albedo"], mat["tex_kind"], mat["tex_id"], mat["checker_color"], mat["checker_scale"],
+                attrs.uv, scene.textures,
+            )
+        else:
+            albedo = mat["albedo"]
         no_lanes = torch.zeros_like(found)
         is_emit = (mat["type"] == BxdfType.EMITTER) if has_emit else no_lanes
         is_diffuse = (mat["type"] == BxdfType.DIFFUSE) if has_diffuse else no_lanes
 
         if has_emit:
             # EMITTER: two-sided Le = emissive * intensity; the path ends.
+            # naive counts every hit; nee only hits whose previous vertex
+            # sampled no light (its light sample already covered this one);
+            # mis weights hits from a light-sampling vertex by
+            # pdf_bsdf / (pdf_bsdf + pdf_light), the complement of the light
+            # sample's weight below.
             le = mat["emissive"] * mat["intensity"][:, None]
-            radiance = radiance + torch.where((found & is_emit)[:, None], throughput * le, 0.0)
+            emitted = throughput * le
+            count_emit = found & is_emit
+            if mis:
+                # The light sampler's solid-angle pdf of this hit:
+                # t² / (cosθ_y · A_total).
+                cos_y_hit = (attrs.gn * d).sum(dim=-1).abs()
+                pdf_light_hit = attrs.t * attrs.t / torch.clamp(cos_y_hit * total_light_area, min=1e-12)
+                w_bsdf = state.prev_pdf / torch.clamp(state.prev_pdf + pdf_light_hit, min=1e-12)
+                emitted = emitted * torch.where(state.prev_nee, w_bsdf, 1.0)[:, None]
+            elif nee:
+                count_emit = count_emit & ~state.prev_nee
+            radiance = radiance + torch.where(count_emit[:, None], emitted, 0.0)
 
         # Shading normal oriented against the incident ray.
         n = attrs.sn if options.use_shading_normals else attrs.gn
         facing = -torch.sign((d * n).sum(dim=-1, keepdim=True))
         n_shade = n * torch.where(facing == 0.0, 1.0, facing)
 
-        u = sampler.uniform(sampler.fold(state.keys, bounce_idx), 3)
+        kb = sampler.fold(state.keys, bounce_idx)
+        u = sampler.uniform(kb, 3)
+
+        if nee:
+            # Next-event estimation: a point on an emitter, picked by area,
+            # and a shadow ray to it; adds
+            # throughput · (albedo/π) · Le · cosθ_x·cosθ_y / r² · A_total.
+            ul = sampler.uniform(sampler.fold(kb, 0x11EE), 3)
+            pick = torch.searchsorted(light_cdf, ul[:, 0] * total_light_area, right=True)
+            pick = torch.clamp(pick, 0, scene.num_triangles - 1)
+            su = torch.sqrt(ul[:, 1])
+            b1 = su * (1.0 - ul[:, 2])
+            b2 = su * ul[:, 2]
+            y = scene.v0[pick] + b1[:, None] * scene.e1[pick] + b2[:, None] * scene.e2[pick]
+            # Missed lanes' resolved points are meaningless and may be huge.
+            x = torch.where(found[:, None], attrs.point, o)
+            wi_raw = y - x
+            dist2 = torch.clamp((wi_raw * wi_raw).sum(dim=-1), min=1e-12)
+            dist = torch.sqrt(dist2)
+            wi = wi_raw / dist[:, None]
+            cos_x = (n_shade * wi).sum(dim=-1)
+            cos_y = (scene.gn[pick] * wi).sum(dim=-1).abs()  # two-sided lights
+            # Visible iff nothing lies before the sampled point; the relative
+            # epsilon keeps the light triangle out of its own shadow test.
+            cutoff = dist * (1.0 - 1e-3)
+            lit = ~masked_occluded(x + RAY_OFFSET * n_shade, wi, cutoff, found & is_diffuse)
+            light_mat = scene.mat_id[pick]
+            le_y = scene.materials.emissive_color[light_mat] * scene.materials.intensity[light_mat][:, None]
+            geom = torch.clamp(cos_x, min=0.0) * cos_y / dist2 * total_light_area
+            contrib = throughput * (albedo / math.pi) * le_y * geom[:, None]
+            if mis:
+                # Balance heuristic against the cosine BSDF sampler.
+                pdf_light = dist2 / torch.clamp(cos_y * total_light_area, min=1e-12)
+                pdf_bsdf = torch.clamp(cos_x, min=0.0) / math.pi
+                contrib = contrib * (pdf_light / torch.clamp(pdf_light + pdf_bsdf, min=1e-12))[:, None]
+            use = found & is_diffuse & lit & (total_light_area > 0)
+            radiance = radiance + torch.where(use[:, None], contrib, 0.0)
+
         new_d = d
-        tp_factor = torch.ones_like(mat["albedo"])
+        tp_factor = torch.ones_like(albedo)
         if has_diffuse:
             # DIFFUSE: cosine-weighted hemisphere sample; throughput × albedo.
             local = cosine_sample_hemisphere(u[:, 0], u[:, 1])
             new_d = torch.where(is_diffuse[:, None], local_to_world(local, n_shade), new_d)
-            tp_factor = torch.where(is_diffuse[:, None], mat["albedo"], tp_factor)
+            tp_factor = torch.where(is_diffuse[:, None], albedo, tp_factor)
 
         scatter = found & ~is_emit
         s = scatter[:, None]
+        # Next bounce's emitter accounting: did this vertex sample a light
+        # (diffuse vertices do), and with what pdf (cosθ/π) did it scatter.
+        prev_nee = scatter & is_diffuse
+        cos_scatter = torch.clamp((new_d * n_shade).sum(dim=-1), min=0.0)
         return PathState(
             o=torch.where(s, attrs.point + RAY_OFFSET * n_shade, o),
             d=torch.where(s, new_d, d),
             throughput=torch.where(s, throughput * tp_factor, throughput),
             radiance=radiance,
             alive=scatter,
+            prev_nee=prev_nee,
+            prev_pdf=torch.where(prev_nee, cos_scatter / math.pi, 0.0),
             keys=state.keys,
         )
 
@@ -225,13 +386,18 @@ def trace_paths(
     width for bounces 1..N-1 (images do not depend on the block width).
     It replaces the intersector of those bounces, so it cannot be combined
     with a custom ``intersect_fn``.
+
+    Shadow rays go through the any-hit search only on the bounces built
+    from ``packed_secondary``; bounce 0, and every bounce without a second
+    pack, thresholds the closest hit, as the JAX package's ``render_frame``
+    does (its own intersect function turns the any-hit kernel off there).
     """
     if packed_secondary is not None and intersect_fn is not None:
         raise ValueError("packed_secondary would replace the custom intersect_fn of the later bounces")
     bounce = make_bounce_fn(scene, options, intersect_fn=intersect_fn, packed=packed)
     scan_bounce = bounce
     if packed_secondary is not None and options.bounces > 1:
-        scan_bounce = make_bounce_fn(scene, options, packed=packed_secondary)
+        scan_bounce = make_bounce_fn(scene, options, packed=packed_secondary, occlusion_kernel=True)
     # Bounce 0: every lane is alive and camera-coherent, so compaction is
     # pure overhead there.
     state = bounce(init_path_state(origins, directions, keys), 0, compact_now=False)

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops.packed_intersect import pack_scene
@@ -73,9 +74,14 @@ _FULL_MATERIAL_SET = (0, 1, 2, 3)
 
 def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSettings:
     """Narrow a still-default ``material_set`` to the types the scene's live
-    triangles use, and resolve ``sort_rays="auto"`` (to False)."""
+    triangles use, turn ``textured`` on when a live material uses a texture
+    (never off), and resolve ``sort_rays="auto"`` (to False)."""
     if settings.sort_rays == "auto":
         settings = dataclasses.replace(settings, sort_rays=False)
+    if not settings.textured:
+        used = torch.unique(scene.mat_id[scene.valid])
+        if bool((scene.materials.tex_kind[used] > 0).any()):
+            settings = dataclasses.replace(settings, textured=True)
     if tuple(settings.material_set) == _FULL_MATERIAL_SET:
         mat_id = scene.mat_id[scene.valid] if bool(scene.valid.any()) else scene.mat_id
         used = torch.unique(scene.materials.type[torch.unique(mat_id)])
@@ -88,17 +94,16 @@ def render_frame(
     camera: Camera,
     settings: RenderSettings,
     seed: int | None = None,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
-    """Render a frame on ``device`` (default: the scene's); returns the mean
-    radiance (H, W, 3) float32. ``seed=None`` uses ``settings.seed``.
+    """Render a frame on ``device`` (the card unless the caller passes
+    ``device="cpu"``); returns the mean radiance (H, W, 3) float32.
+    ``seed=None`` uses ``settings.seed``.
 
     The packs are cached on the identity of the scene's tensors, so a scene
     that already lives on ``device`` is packed once across frames; a scene
     moved here is packed again on every call."""
-    device = torch.device(device if device is not None else scene.v0.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render_frame: device 'cuda' requested but CUDA is not available")
+    device = resolve_device(device)
     if settings.aov != "radiance":
         raise NotImplementedError(f"aov {settings.aov!r} is not ported to gpupathtracer_tpu_torch yet")
     h, w = settings.height, settings.width

@@ -1,8 +1,8 @@
 """Declarative scene + render configuration (TOML or JSON).
 
 Counterpart of ``gpupathtracer_tpu/utils/config.py``: the same schema, the
-same asset search directories and the geometry kinds mesh, plane and sphere.
-Image textures are not ported and raise ``NotImplementedError``.
+same asset search directories, the geometry kinds mesh, plane and sphere,
+and ``[[textures]]`` entries stacked into the scene's texture array.
 """
 
 from __future__ import annotations
@@ -11,10 +11,14 @@ import json
 import os
 import tomllib
 
+import numpy as np
+
+from gpupathtracer_tpu_torch.core.tensors import resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera
 from gpupathtracer_tpu_torch.models.materials import BxdfType
 from gpupathtracer_tpu_torch.models.scene import GeometrySpec, build_scene, mesh_spec, plane_spec, sphere_spec
 from gpupathtracer_tpu_torch.render.renderer import RenderSettings
+from gpupathtracer_tpu_torch.utils.image import read_ppm
 
 # The JAX package's default asset directory (gpupathtracer_tpu/utils/config.py).
 DEFAULT_ASSET_DIRS = [os.path.join(os.sep, "root", "reference", "sceneResources")]
@@ -38,9 +42,10 @@ def load_config(path: str) -> dict:
 
 
 def parse_config(cfg: dict, config_dir: str = "."):
-    """Config dict → (geometry specs, material dicts, Camera, RenderSettings)."""
-    if cfg.get("textures"):
-        raise NotImplementedError("image textures are not ported to gpupathtracer_tpu_torch yet")
+    """Config dict → (geometry specs, material dicts, Camera, RenderSettings,
+    textures). Specs and camera are host-side (CPU tensors); ``textures`` is
+    a (T, H, W, 3) float32 numpy stack in ``[[textures]]`` order (the row a
+    material's ``texture_id`` names), or None."""
     search_dirs = [config_dir] + list(cfg.get("asset_dirs", [])) + DEFAULT_ASSET_DIRS
 
     materials = cfg.get("materials", [{"type": "diffuse", "albedo": [0.5, 0.5, 0.5]}])
@@ -105,6 +110,7 @@ def parse_config(cfg: dict, config_dir: str = "."):
         far_clip=cam_cfg.get("far_clip", 1000.0),
         width=width,
         height=height,
+        device="cpu",
     )
     sort_rays = rnd.get("sort_rays", "auto")
     settings = RenderSettings(
@@ -129,13 +135,24 @@ def parse_config(cfg: dict, config_dir: str = "."):
         compact_mode=rnd.get("compact_mode", "permute"),
         rng=rnd.get("rng", "pcg"),
     )
-    return specs, materials, camera, settings
+
+    textures = None
+    if cfg.get("textures"):
+        imgs = [read_ppm(_find_asset(t["file"], search_dirs)).astype(np.float32) / 255.0 for t in cfg["textures"]]
+        shapes = {im.shape for im in imgs}
+        if len(shapes) != 1:
+            raise ValueError(f"texture sizes must match, got {shapes}")
+        textures = np.stack(imgs)
+    return specs, materials, camera, settings, textures
 
 
-def load_scene_file(path: str, pad_to_multiple: int | None = None, device="cpu"):
+def load_scene_file(path: str, pad_to_multiple: int | None = None, device="cuda"):
     """Load a config file → (TriangleScene, Camera, RenderSettings), with the
     scene and camera tensors on ``device``."""
+    device = resolve_device(device)
     cfg = load_config(path)
-    specs, materials, camera, settings = parse_config(cfg, os.path.dirname(os.path.abspath(path)))
-    scene = build_scene(specs, materials, pad_to_multiple=pad_to_multiple or settings.tri_block, device=device)
+    specs, materials, camera, settings, textures = parse_config(cfg, os.path.dirname(os.path.abspath(path)))
+    scene = build_scene(
+        specs, materials, pad_to_multiple=pad_to_multiple or settings.tri_block, textures=textures, device=device
+    )
     return scene, camera.to(device), settings

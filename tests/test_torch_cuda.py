@@ -1,4 +1,5 @@
-"""The closest-hit CUDA kernel against its plain PyTorch version, on the card.
+"""The closest-hit and any-hit CUDA kernels against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it also runs where only the port is installed:
@@ -69,12 +70,54 @@ def test_kernel_matches_plain_version(device, tb, ray_tile):
     assert (bi[dead] == -1).all() and torch.isneginf(bt[dead]).all()
 
 
+@pytest.mark.parametrize("tb,ray_tile", [(128, 128), (512, 128), (64, 64), (100, 32), (36, 256)])
+def test_occlusion_kernel_matches_plain_version(device, tb, ray_tile):
+    """Cutoffs on both sides of each ray's true hit distance, some lanes at
+    maxt = 0."""
+    scene, o, d = _random_scene(device, seed=tb + 1)
+    packed = tpi.pack_scene(scene, tri_block=tb)
+    hit = tpi.intersect_packed(o, d, packed)
+    g = torch.Generator().manual_seed(2)
+    scale = (0.5 + torch.rand(o.shape[0], generator=g)).to(device)
+    maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
+    maxt = torch.where(torch.rand(o.shape[0], generator=g).to(device) < 0.1, 0.0, maxt)
+    args = tpi.prepare_shadow_rays(o, d, maxt, packed, ray_tile=ray_tile) + (packed.w, ray_tile)
+    before = tpi.occluded.launches
+    occ = tpi.occluded(*args)
+    assert tpi.occluded.launches == before + 1
+    ref = tpi.occluded_reference(*args)
+    torch.cuda.synchronize()
+    assert occ.dtype == torch.int32
+    assert (occ == ref).double().mean().item() >= 0.9995
+    assert 0.1 < ref.double().mean().item() < 0.9
+    assert (occ[args[3] == 0] == 0).all()
+
+
 def test_kernel_rejects_mixed_devices(device):
     scene, o, d = _random_scene(device)
     packed = tpi.pack_scene(scene, tri_block=128)
     order, enter, feats, alive = tpi.prepare_rays(o, d, packed)
     with pytest.raises(ValueError):
         tpi.closest_hit(order.cpu(), enter, feats, alive, packed.w)
+
+
+NEE_SCENE = os.path.join(os.path.dirname(SCENE), "config8_icosphere.toml")
+
+
+@pytest.mark.parametrize("estimator", ["nee", "mis"])
+def test_nee_render_kernels_match_plain_version(device, estimator):
+    scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
+    camera = dataclasses.replace(camera, width=64, height=64)
+    settings = dataclasses.replace(settings, width=64, height=64, spp=2, estimator=estimator)
+    tpi.closest_hit.launches = tpi.occluded.launches = 0
+    got = render_frame(scene, camera, settings)
+    assert tpi.closest_hit.launches == settings.spp * (settings.bounces + 1)
+    assert tpi.occluded.launches == settings.spp * (settings.bounces - 1)
+    want = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert diff.mean().item() < 2e-3
+    assert (diff.amax(dim=-1) > 3e-2).double().mean().item() < 5e-3
 
 
 def test_render_kernel_matches_plain_version(device):

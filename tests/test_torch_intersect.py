@@ -28,7 +28,7 @@ HIT_AGREE = 0.9995  # parity bar (tests_tpu/test_onchip.py)
 def to_port(js) -> TriangleScene:
     fields = interop.numpy_fields(js, [f.name for f in dataclasses.fields(TriangleScene) if f.name != "materials"])
     fields["materials"] = interop.numpy_fields(js.materials, [f.name for f in dataclasses.fields(MaterialTable)])
-    return interop.scene_from_numpy(fields)
+    return interop.scene_from_numpy(fields, device="cpu")
 
 
 def random_scene(seed=0, pad=128, rays=800):
@@ -183,7 +183,7 @@ def test_search_on_the_jax_pack(stand_in):
     js, ts, (o, d), _ = stand_in
     jp = jpi.pack_scene(js, tri_block=128)
     fields = interop.numpy_fields(jp, ["w", "tri_map", "box_lo", "box_hi", "block_live"])
-    carried = interop.packed_from_numpy(fields, tri_block=jp.tri_block)
+    carried = interop.packed_from_numpy(fields, tri_block=jp.tri_block, device="cpu")
     own = tpi.pack_scene(ts, tri_block=128)
     o, d = torch.tensor(o), torch.tensor(d)
     h_carried = tpi.intersect_packed(o, d, carried)
@@ -191,3 +191,55 @@ def test_search_on_the_jax_pack(stand_in):
     assert (h_carried.tri == h_own.tri).double().mean().item() > HIT_AGREE
     same = (h_carried.tri == h_own.tri) & h_own.hit
     torch.testing.assert_close(h_carried.t[same], h_own.t[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,tb,ray_tile", [(7, 128, 128), (8, 64, 256), (9, 32, 64)])
+def test_occluded_matches_pallas_and_thresholded_oracle(seed, tb, ray_tile):
+    """Cutoffs on both sides of each ray's true hit distance (as
+    tests/test_pallas_kernel.py draws them), a third of the lanes dead
+    (max_t = 0): the plain any-hit search against
+    ``intersect_pallas_occluded(interpret=True)`` and against the thresholded
+    Möller–Trumbore oracle."""
+    js, o, d = random_scene(seed, pad=128)
+    ts = to_port(js)
+    rng = np.random.default_rng(seed)
+    oracle = t_intersect.intersect_brute(torch.as_tensor(o), torch.as_tensor(d), ts, tri_block=128)
+    t_ref, hit_ref = oracle.t.numpy(), oracle.hit.numpy()
+    scale = rng.uniform(0.3, 2.0, size=t_ref.shape).astype(np.float32)
+    t_finite = np.where(hit_ref, t_ref, 1.0)  # miss lanes carry t = BIG
+    max_t = np.where(hit_ref, t_finite * scale, rng.uniform(0.5, 5.0, t_ref.shape))
+    dead = rng.uniform(size=t_ref.shape) < 1 / 3
+    max_t = np.where(dead, 0.0, max_t).astype(np.float32)
+    want_j = np.asarray(jpi.intersect_pallas_occluded(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(max_t), jpi.pack_scene(js, tri_block=tb),
+        ray_tile=ray_tile, interpret=True,
+    ))
+    got = tpi.intersect_packed_occluded(
+        torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(max_t), tpi.pack_scene(ts, tri_block=tb),
+        ray_tile=ray_tile, occ_fn=tpi.occluded_reference,
+    ).numpy()
+    expect = hit_ref & (t_ref < max_t)
+    assert expect.sum() > 50 and (~expect & ~dead).sum() > 50  # both outcomes exercised
+    assert (got == want_j).mean() >= HIT_AGREE and (got == expect).mean() >= HIT_AGREE
+    assert not got[dead].any()
+
+
+def test_occluded_on_cpu_runs_plain_version(stand_in):
+    """On CPU tensors ``occluded`` runs its plain version (no launch counted),
+    returns int32 flags, and checks its inputs as the closest hit does."""
+    _, ts, _, (o2, d2) = stand_in
+    tp = tpi.pack_scene(ts, tri_block=512)
+    maxt = torch.where(torch.arange(o2.shape[0]) % 4 == 0, 0.0, 3.0)
+    args = tpi.prepare_shadow_rays(torch.tensor(o2), torch.tensor(d2), maxt, tp)
+    assert args[2].shape[0] % tpi.DEFAULT_RAY_TILE == 0 and (args[3][o2.shape[0]:] == 0).all()
+    before = tpi.occluded.launches
+    occ = tpi.occluded(*args, tp.w)
+    assert tpi.occluded.launches == before
+    ref, work = tpi.occluded_reference(*args, tp.w, count_work=True)
+    assert occ.dtype == torch.int32 and torch.equal(occ, ref)
+    assert 0 < occ.sum() < (maxt > 0).sum() and work["blocks"] > 0 and work["lane_blocks"] > 0
+    order, enter, feats, mt = args
+    for bad in [(order, enter, feats, mt.double(), tp.w), (order, enter, feats, mt[:-1], tp.w),
+                (order, enter, feats, mt.to(torch.int32), tp.w)]:
+        with pytest.raises(ValueError):
+            tpi.occluded(*bad)

@@ -1,6 +1,7 @@
 """The port's render path against the JAX package's ``render_frame``, plus the
-port's contracts: options outside the slice raise, a missing GPU raises, and
-the port imports no JAX."""
+port's contracts: the any-hit search runs only where the JAX package runs
+its kernel, options outside the slice raise, entry points default to the
+card and a missing GPU raises, and the port imports no JAX."""
 
 import dataclasses
 import os
@@ -18,10 +19,15 @@ from gpupathtracer_tpu.render.integrator import IntegratorOptions as JOptions
 from gpupathtracer_tpu.render.integrator import trace_paths as j_trace
 from gpupathtracer_tpu.render.renderer import render_frame as j_render
 from gpupathtracer_tpu.utils.config import load_scene_file as j_load
+from gpupathtracer_tpu_torch import interop
+from gpupathtracer_tpu_torch.models.camera import Camera as TCamera
+from gpupathtracer_tpu_torch.models.materials import material_table
+from gpupathtracer_tpu_torch.models.scene import build_scene, sphere_spec
+from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
 from gpupathtracer_tpu_torch.ops import sampling as ts
 from gpupathtracer_tpu_torch.ops.packed_intersect import pack_scene
 from gpupathtracer_tpu_torch.render.film import Film, to_u8
-from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, make_intersect_fn, trace_paths
+from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, make_bounce_fn, make_intersect_fn, trace_paths
 from gpupathtracer_tpu_torch.render.renderer import render_frame
 from gpupathtracer_tpu_torch.utils.config import load_scene_file as t_load
 
@@ -40,7 +46,7 @@ def assert_image_bar(got, want):
 def _resized(config, size, spp):
     path = os.path.join(SCENES, config)
     js, jc, jst = j_load(path)
-    ts_, tc, tst = t_load(path)
+    ts_, tc, tst = t_load(path, device="cpu")
     jc = JCamera.create(position=jc.position, yaw=jc.yaw, pitch=jc.pitch, fov_deg=jc.fov_deg, width=size, height=size)
     tc = dataclasses.replace(tc, width=size, height=size)
     jst = dataclasses.replace(jst, width=size, height=size, spp=spp, intersector="pallas")
@@ -56,14 +62,22 @@ def _resized(config, size, spp):
         # The remaining render options of the naive path, away from their defaults.
         ("config5_invert_target.toml", 24, 2,
          {"use_shading_normals": True, "background": (0.1, 0.2, 0.3), "jitter": False, "bounces": 3}),
+        # NEE and MIS with textures; two packs, so the scan bounces' shadow
+        # rays take the any-hit search.
+        ("config8_icosphere.toml", 32, 2, {}),
+        ("config8_icosphere.toml", 32, 2, {"estimator": "mis"}),
+        # NEE with one pack: every bounce thresholds the closest hit.
+        ("config5_invert_target.toml", 16, 2, {"estimator": "nee"}),
+        ("config5_invert_target.toml", 16, 2, {"estimator": "mis", "use_shading_normals": True}),
     ],
 )
-def test_render_matches_jax(config, size, spp, change):
+def test_render_matches_jax(config, size, spp, change, record_property):
     (js, jc, jst), (ts_, tc, tst) = _resized(config, size, spp)
     jst, tst = dataclasses.replace(jst, **change), dataclasses.replace(tst, **change)
     want = np.asarray(j_render(js, jc, jst))
-    got = render_frame(ts_, tc, tst).numpy()
+    got = render_frame(ts_, tc, tst, device="cpu").numpy()
     assert got.shape == want.shape and want.mean() > 0.05
+    record_property("max_abs_diff", float(np.abs(got - want).max()))
     assert_image_bar(got, want)
 
 
@@ -92,11 +106,83 @@ def test_render_on_missing_cuda_raises():
         render_frame(ts_, tc, tst, device="cuda")
 
 
+def _counting(monkeypatch, name, plain):
+    """Replace ``packed_intersect.<name>`` by a stub that counts its calls
+    and runs the plain version."""
+    def stub(*args):
+        stub.calls += 1
+        return plain(*args)
+
+    stub.calls = 0
+    monkeypatch.setattr(tpi, name, stub)
+    return stub
+
+
+@pytest.mark.parametrize(
+    "change,closest,anyhit",
+    [
+        ({}, 4, 2),  # bounce 0: closest + thresholded shadow rays; scan bounces: closest + any hit
+        ({"tri_block_secondary": None}, 6, 0),  # one pack: thresholded closest hit on every bounce
+        ({"bounces": 1}, 2, 0),
+        ({"estimator": "naive"}, 3, 0),
+    ],
+)
+def test_any_hit_search_runs_only_on_secondary_pack_bounces(monkeypatch, change, closest, anyhit):
+    """Per sample, as the JAX package's render_frame: shadow rays take the
+    any-hit search only on the scan bounces built from the second pack."""
+    (_, _, _), (ts_, tc, tst) = _resized("config8_icosphere.toml", 16, 1)
+    ch = _counting(monkeypatch, "closest_hit", tpi.closest_hit_reference)
+    oc = _counting(monkeypatch, "occluded", tpi.occluded_reference)
+    img = render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
+    assert torch.isfinite(img).all()
+    assert (ch.calls, oc.calls) == (closest, anyhit)
+
+
+def test_custom_intersector_keeps_the_threshold_path(monkeypatch):
+    (_, _, _), (ts_, tc, tst) = _resized("config8_icosphere.toml", 16, 1)
+    opts = IntegratorOptions(bounces=3, estimator="nee", material_set=(0, 1), textured=True)
+    ch = _counting(monkeypatch, "closest_hit", tpi.closest_hit_reference)
+    oc = _counting(monkeypatch, "occluded", tpi.occluded_reference)
+    custom = make_intersect_fn(ts_, opts)
+    from gpupathtracer_tpu_torch.models.camera import generate_rays
+
+    o, d = generate_rays(tc)
+    trace_paths(ts_, o, d, ts.path_keys(0, torch.arange(o.shape[0])), opts, intersect_fn=custom)
+    assert (ch.calls, oc.calls) == (6, 0)
+    with pytest.raises(ValueError, match="custom intersect_fn"):
+        make_bounce_fn(ts_, opts, intersect_fn=custom, occlusion_kernel=True)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: t_load(os.path.join(SCENES, "config8_icosphere.toml")),
+        lambda: build_scene([sphere_spec()], [{"type": "diffuse"}]),
+        lambda: material_table([{"type": "diffuse"}]),
+        lambda: TCamera.create(),
+        lambda: Film.zeros(2, 2),
+        lambda: render_frame(*_resized("config5_invert_target.toml", 8, 1)[1]),
+        lambda: interop.camera_from_numpy(
+            {k: np.zeros(3 if k in ("position", "world_up") else (), np.float32)
+             for k in ("position", "yaw", "pitch", "world_up", "fov_deg", "near_clip", "far_clip")}, 4, 4),
+    ],
+    ids=["load_scene_file", "build_scene", "material_table", "Camera.create", "Film.zeros", "render_frame",
+         "camera_from_numpy"],
+)
+def test_entry_points_default_to_the_card(entry):
+    """With no ``device`` the entry points ask for the card; without one they
+    raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry()
+
+
 @pytest.mark.parametrize(
     "change",
     [
-        {"estimator": "nee"},
-        {"estimator": "mis"},
+        {"estimator": "nee", "rr_start": 2},
+        {"estimator": "mis", "material_set": (0, 1, 2)},
         {"rr_start": 2},
         {"sort_rays": True},
         {"compact_mode": "mask"},
@@ -112,7 +198,7 @@ def test_render_on_missing_cuda_raises():
 def test_options_outside_the_slice_raise(change):
     (_, _, _), (ts_, tc, tst) = _resized("config5_invert_target.toml", 8, 1)
     with pytest.raises(NotImplementedError):
-        render_frame(ts_, tc, dataclasses.replace(tst, **change))
+        render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
 
 
 def test_packed_secondary_with_custom_intersector_raises():
@@ -127,7 +213,7 @@ def test_packed_secondary_with_custom_intersector_raises():
 
 
 def test_film_accumulates_and_converts():
-    film = Film.zeros(2, 3)
+    film = Film.zeros(2, 3, device="cpu")
     film = film.add_samples(torch.full((2, 3, 3), 0.5)).add_samples(torch.full((2, 3, 3), 1.5))
     assert torch.allclose(film.to_image(), torch.ones((2, 3, 3)))
     u8 = to_u8(film.to_image() * 2.0)

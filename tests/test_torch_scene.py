@@ -19,9 +19,8 @@ from gpupathtracer_tpu_torch import interop
 from gpupathtracer_tpu_torch.models import obj as t_obj
 from gpupathtracer_tpu_torch.models import scene as t_scene
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels as t_rays
-from gpupathtracer_tpu_torch.models.materials import MaterialTable, material_table
+from gpupathtracer_tpu_torch.models.materials import MaterialTable
 from gpupathtracer_tpu_torch.utils.config import load_scene_file as t_load
-from gpupathtracer_tpu_torch.utils.config import parse_config
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 SCENE_FIELDS = [f.name for f in dataclasses.fields(t_scene.TriangleScene) if f.name != "materials"]
@@ -30,6 +29,9 @@ CAMERA_FIELDS = ["position", "yaw", "pitch", "world_up", "fov_deg", "near_clip",
 
 
 def _assert_field(name, want, got):
+    if want is None or got is None:
+        assert want is None and got is None, name
+        return
     want = np.asarray(want)
     got = got.cpu().numpy()
     assert want.shape == got.shape, name
@@ -47,11 +49,11 @@ def assert_scene_equal(js, ts):
         _assert_field(name, getattr(js.materials, name), getattr(ts.materials, name))
 
 
-@pytest.mark.parametrize("config", ["config3_icosphere.toml", "config5_invert_target.toml"])
+@pytest.mark.parametrize("config", ["config3_icosphere.toml", "config5_invert_target.toml", "config8_icosphere.toml"])
 def test_config_loads_equal_jax(config):
     path = os.path.join(SCENES, config)
     js, jc, jst = j_load(path)
-    ts, tc, tst = t_load(path)
+    ts, tc, tst = t_load(path, device="cpu")
     assert_scene_equal(js, ts)
     for name in CAMERA_FIELDS:
         _assert_field(name, getattr(jc, name), getattr(tc, name))
@@ -87,7 +89,7 @@ def test_hand_built_specs_equal_jax():
         ]
 
     js = j_scene.build_scene(specs(j_scene, j_obj), materials, pad_to_multiple=64)
-    ts = t_scene.build_scene(specs(t_scene, t_obj), materials, pad_to_multiple=64)
+    ts = t_scene.build_scene(specs(t_scene, t_obj), materials, pad_to_multiple=64, device="cpu")
     assert ts.num_triangles == js.num_triangles
     assert_scene_equal(js, ts)
 
@@ -95,7 +97,7 @@ def test_hand_built_specs_equal_jax():
 def test_stand_in_primary_rays_match_jax():
     path = os.path.join(SCENES, "config3_icosphere.toml")
     _, jc, _ = j_load(path)
-    _, tc, _ = t_load(path)
+    _, tc, _ = t_load(path, device="cpu")
     jc = JCamera.create(position=jc.position, yaw=jc.yaw, pitch=jc.pitch, fov_deg=jc.fov_deg, width=96, height=64)
     tc = dataclasses.replace(tc, width=96, height=64)
     rng = np.random.default_rng(5)
@@ -124,16 +126,9 @@ def test_obj_loader_matches_jax(tmp_path):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
 
 
-def test_textures_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        material_table([{"type": "diffuse", "texture": "checker"}])
-    with pytest.raises(NotImplementedError):
-        parse_config({"textures": [{"file": "plaid32.ppm"}]})
-
-
 def test_camera_from_numpy_gives_jax_rays():
     _, jc, _ = j_load(os.path.join(SCENES, "config5_invert_target.toml"))
-    tc = interop.camera_from_numpy(interop.numpy_fields(jc, CAMERA_FIELDS), jc.width, jc.height)
+    tc = interop.camera_from_numpy(interop.numpy_fields(jc, CAMERA_FIELDS), jc.width, jc.height, device="cpu")
     pixels = np.arange(0, jc.width * jc.height, 7)
     jo, jd = j_rays(jc, jnp.asarray(pixels, jnp.uint32))
     to, td = t_rays(tc, torch.as_tensor(pixels))
