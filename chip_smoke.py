@@ -4,19 +4,20 @@
 
 Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds csrc/closest_hit.cu and csrc/occlusion.cu from this
-   checkout, both started together;
-3. the closest-hit kernel against its plain PyTorch version at the naive
+2. build: nvcc builds the four kernel sources of csrc/ from this checkout,
+   all started together;
+3. the closest-hit kernel K1 against its plain PyTorch version at the naive
    path's shapes: 640,000 camera rays against the tri_block-128 pack and
    640,000 bounce-1 rays (traced with the plain version, compacted as the
    render does) against the tri_block-512 pack, with the hit parity bar, the
    median time of each over 5 runs and the bound;
-4. naive render_frame at 256x256, spp 2 through the kernel against the same
-   render through the plain version, with the image parity bar;
+4. naive render_frame at 256x256, spp 2 through the kernels against the same
+   render through the plain versions, with the image parity bar;
 5. the naive path at full size (800x800, spp 4, 4 bounces): a finite image,
-   exactly spp x bounces closest-hit launches, and the median frame time and
-   rays/s (rays = W*H*spp*bounces) over 3 frames with varied seeds;
-6. the any-hit kernel against its plain version on the shadow rays that
+   exactly spp x bounces K1 launches and none of the others, and the median
+   frame time and rays/s (rays = W*H*spp*bounces) over 3 frames with varied
+   seeds;
+6. the any-hit kernel K2 against its plain version on the shadow rays that
    bounce 1 of the NEE path casts at 512x512 (bounce 0 traced with the plain
    version, the shadow rays compacted as the render does) against the
    tri_block-512 pack, with the flag bar, the median time of each over 5
@@ -24,14 +25,38 @@ Phases, one line each; any failure raises and exits non-zero:
 7. NEE and MIS render_frame at 128x128, spp 2 through the kernels against
    the plain versions, with the image parity bar;
 8. the NEE path at full width (512x512, spp 4, 3 bounces): a finite image,
-   exactly spp x (bounces + 1) closest-hit and spp x (bounces - 1) any-hit
-   launches, the median frame time and rays/s over 3 frames with varied
-   seeds, and one more frame under torch.profiler split into kernel and
-   other device time and the device's idle share;
-then a JSON line that summarises both kernels, and a JSON result line last.
+   exactly spp x (bounces + 1) K1 and spp x (bounces - 1) K2 launches, the
+   median frame time and rays/s over 3 frames with varied seeds, and one
+   more frame under torch.profiler split by kernel, with the device's idle
+   share;
+then the streamed path, on a pack past the 16 MiB resident budget:
+9. the streamed closest-hit kernel K3 against its plain version at the
+   streamed path's shapes: 640,000 camera rays against the tri_block-256
+   pack (64-ray tiles, 12 blocks per cluster) and 640,000 bounce-1 rays
+   (traced with the plain version, coherent-compacted with the origin key as
+   the render does) against the tri_block-1024 pack (3 blocks per cluster),
+   with the hit bar, the median time of each over 5 runs, the computed
+   blocks and the bound;
+10. the split, measured: K1 on the same rays and packs with its own 128-ray
+    tiles and block schedule (a diagnostic: which route is faster here);
+11. the streamed any-hit kernel K4 against its plain version on the shadow
+    rays that bounce 1 of the NEE path casts at 800x800, with the flag bar;
+12. naive and NEE render_frame at 128x128, spp 2 through the kernels against
+    the plain versions, with the image bar;
+13. the streamed naive path (800x800, spp 2, 4 bounces): exactly spp x
+    bounces K3 launches and none of the others, a finite image, the median
+    frame time and rays/s over 3 frames, and one profiled frame;
+14. the streamed NEE path (800x800, spp 1, 3 bounces): exactly
+    spp x (bounces + 1) K3 and spp x (bounces - 1) K4 launches, and the
+    frame time;
+15. the light CDF of a scene with 1,200 emitter triangles is bit-equal on
+    the card and the CPU;
+then a JSON line that summarises the four kernels, and a JSON result line
+last.
 
-The naive path renders scenes/config3_icosphere.toml and the NEE path
-scenes/config8_icosphere.toml: configs 3 and 8 with their OBJ meshes
+The naive path renders scenes/config3_icosphere.toml, the NEE path
+scenes/config8_icosphere.toml and the streamed path
+scenes/config6_icosphere.toml: configs 3, 8 and 6 with their OBJ meshes
 replaced by icospheres, so the run needs no asset files.
 """
 
@@ -44,29 +69,46 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
+from gpupathtracer_tpu_torch.models.materials import BxdfType
+from gpupathtracer_tpu_torch.models.obj import MeshData
+from gpupathtracer_tpu_torch.models.scene import build_scene, mesh_spec, plane_spec, sphere_spec
 from gpupathtracer_tpu_torch.ops import _build, packed_intersect
-from gpupathtracer_tpu_torch.ops.compaction import compact_rays
+from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent
 from gpupathtracer_tpu_torch.ops.packed_intersect import (
     DEFAULT_RAY_TILE,
+    STREAM_RAY_TILE,
     closest_hit,
     closest_hit_reference,
+    closest_hit_streamed,
+    closest_hit_streamed_reference,
+    is_resident,
     occluded,
     occluded_reference,
+    occluded_streamed,
+    occluded_streamed_reference,
     pack_scene,
     prepare_rays,
+    prepare_rays_streamed,
 )
 from gpupathtracer_tpu_torch.ops.plucker import NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
-from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, init_path_state, make_bounce_fn
+from gpupathtracer_tpu_torch.render.integrator import (
+    IntegratorOptions,
+    init_path_state,
+    light_table,
+    make_bounce_fn,
+)
 from gpupathtracer_tpu_torch.render.renderer import narrow_settings, render_frame
 from gpupathtracer_tpu_torch.utils.config import load_scene_file
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config3_icosphere.toml")
 NEE_SCENE = os.path.join(ROOT, "scenes", "config8_icosphere.toml")
+STREAM_SCENE = os.path.join(ROOT, "scenes", "config6_icosphere.toml")
 KERNELS = {
     "closest_hit": {
         "source": "gpupathtracer_tpu_torch/csrc/closest_hit.cu",
@@ -78,8 +120,17 @@ KERNELS = {
         "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:882",
         "counter": occluded,
     },
+    "closest_hit_streamed": {
+        "source": "gpupathtracer_tpu_torch/csrc/closest_hit_streamed.cu",
+        "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:647",
+        "counter": closest_hit_streamed,
+    },
+    "occluded_streamed": {
+        "source": "gpupathtracer_tpu_torch/csrc/occlusion_streamed.cu",
+        "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:960",
+        "counter": occluded_streamed,
+    },
 }
-BUILD_NAMES = {"closest_hit": "closest_hit", "occluded": "occlusion"}
 
 # The least time the card could take (H100 SXM data sheet, dense, at the
 # 700 W limit): f32 outside the tensor cores, the precision the parity bar
@@ -154,7 +205,7 @@ def bound(flop: float, nbytes: float) -> dict:
 
 
 def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
 def sample0_bounce0(scene, camera, settings, packed):
@@ -168,7 +219,8 @@ def sample0_bounce0(scene, camera, settings, packed):
     narrowed = narrow_settings(scene, settings)
     opts = IntegratorOptions(
         bounces=settings.bounces, estimator=settings.estimator, material_set=narrowed.material_set,
-        textured=narrowed.textured, intersector="plucker",
+        textured=narrowed.textured, intersector="plucker", sort_rays=narrowed.sort_rays,
+        sort_key=narrowed.sort_key,
     )
     state = make_bounce_fn(scene, opts, packed=packed)(init_path_state(o, d, keys), 0, compact_now=False)
     return (o, d), state, opts
@@ -177,42 +229,43 @@ def sample0_bounce0(scene, camera, settings, packed):
 def main_path_rays(scene, camera, settings, packed):
     """Sample 0's camera rays, and the rays of bounce 1 after bounce 0 was
     traced with the plain version and compacted as the scan bounces are."""
-    (o, d), state, _ = sample0_bounce0(scene, camera, settings, packed)
-    o2, d2, _ = compact_rays(state.o, state.d, state.alive)
+    (o, d), state, opts = sample0_bounce0(scene, camera, settings, packed)
+    if opts.sort_rays:
+        o2, d2, _ = compact_rays_coherent(state.o, state.d, state.alive, key_mode=opts.sort_key)
+    else:
+        o2, d2, _ = compact_rays(state.o, state.d, state.alive)
     return (o, d), (o2, d2)
 
 
-def nee_shadow_inputs(scene, camera, settings, packed, packed2):
-    """The any-hit inputs ``(order, enter, feats, maxt, w, ray_tile)`` of the
-    shadow rays that bounce 1 casts, as the render builds them (compacted,
-    padded, culled and scheduled), taken from a plain-version trace."""
+def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str):
+    """The any-hit inputs of the shadow rays that bounce 1 casts, as the
+    render builds them (compacted, padded, culled and scheduled), taken from
+    a plain-version trace by catching the call of ``plain_name``."""
     _, state, opts = sample0_bounce0(scene, camera, settings, packed)
+    bounce1 = make_bounce_fn(scene, opts, packed=packed2, occlusion_kernel=True)
     captured = []
-    plain = packed_intersect.occluded_reference
+    plain = getattr(packed_intersect, plain_name)
 
     def capture(*args):
         captured.append(args)
         return plain(*args)
 
-    # The scan bounce looks the search up when it is built.
-    packed_intersect.occluded_reference = capture
+    # The search is looked up when it is called.
+    setattr(packed_intersect, plain_name, capture)
     try:
-        bounce1 = make_bounce_fn(scene, opts, packed=packed2, occlusion_kernel=True)
+        bounce1(state, 1)
     finally:
-        packed_intersect.occluded_reference = plain
-    bounce1(state, 1)
+        setattr(packed_intersect, plain_name, plain)
     if len(captured) != 1:
-        raise AssertionError(f"bounce 1 cast {len(captured)} shadow-ray batches, expected 1")
+        raise AssertionError(f"bounce 1 cast {len(captured)} shadow-ray batches through {plain_name}, expected 1")
     return captured[0]
 
 
-def phase_kernel_check(label: str, o, d, packed, reps: int = 5) -> dict:
-    """The kernel against closest_hit_reference on the same inputs."""
-    device = o.device
-    order, enter, feats, alive = prepare_rays(o, d, packed)
-    args = (order, enter, feats, alive, packed.w, DEFAULT_RAY_TILE)
-    bt_k, bi_k = closest_hit(*args)
-    bt_r, bi_r, work = closest_hit_reference(*args, count_work=True)
+def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5) -> dict:
+    """A closest-hit kernel against its plain version on the same inputs."""
+    device = args[0].device
+    bt_k, bi_k = kernel(*args)
+    bt_r, bi_r, work = plain(*args, count_work=True)
     _sync(device)
     tri_map = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
     tri_k, tri_r = tri_map(bi_k), tri_map(bi_r)
@@ -221,47 +274,77 @@ def phase_kernel_check(label: str, o, d, packed, reps: int = 5) -> dict:
     err = (bt_k[same] - bt_r[same]).abs()
     max_abs_err = err.max().item() if err.numel() else 0.0
     t_ok = bool((err <= T_TOL + T_TOL * bt_r[same].abs()).all())
-    kernel_ms = median_ms(lambda: closest_hit(*args), device, reps)
-    plain_ms = median_ms(lambda: closest_hit_reference(*args), device, reps)
-    b = bound(
-        FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block,
-        _nbytes(order, enter, feats, alive, packed.w, bt_k, bi_k),
-    )
+    kernel_ms = median_ms(lambda: kernel(*args), device, reps)
+    plain_ms = median_ms(lambda: plain(*args), device, reps)
+    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block, _nbytes(*args, bt_k, bi_k))
+    ray_tile = args[-1]
     row = {
-        "rays": o.shape[0], "tri_block": packed.tri_block, "hit_share": (bi_r >= 0).double().mean().item(),
-        "same_tri": agree, "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "visited_blocks": work["blocks"], "lane_blocks": work["lane_blocks"], **b,
+        "rays": args[-4].shape[0], "tri_block": packed.tri_block,
+        "ray_tile": ray_tile, "blocks_per_schedule_entry": args[-2].shape[0] // args[0].shape[1],
+        "hit_share": (bi_r >= 0).double().mean().item(), "same_tri": agree, "max_abs_err": max_abs_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "visited_blocks": work["blocks"],
+        "lane_blocks": work["lane_blocks"], **b,
     }
-    print(f"closest_hit {label} (bar: same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|): {json.dumps(row)}", flush=True)
+    print(f"{name} {label} (bar: same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|): {json.dumps(row)}",
+          flush=True)
     if agree < HIT_AGREE or not t_ok:
-        raise AssertionError(f"closest_hit {label} misses the hit parity bar: same_tri {agree}, t ok {t_ok}")
+        raise AssertionError(f"{name} {label} misses the hit parity bar: same_tri {agree}, t ok {t_ok}")
     return row
 
 
-def phase_occlusion_check(args, reps: int = 5) -> dict:
-    """The any-hit kernel against occluded_reference on the same inputs."""
-    order, enter, feats, maxt, w, ray_tile = args
+def phase_kernel_check(label: str, o, d, packed) -> dict:
+    """K1 against closest_hit_reference at its main-path shapes."""
+    args = prepare_rays(o, d, packed) + (packed.w, DEFAULT_RAY_TILE)
+    return hit_check("closest_hit", label, closest_hit, closest_hit_reference, args, packed)
+
+
+def phase_streamed_check(label: str, o, d, packed) -> dict:
+    """K3 against closest_hit_streamed_reference at its main-path shapes."""
+    if is_resident(packed):
+        raise AssertionError(f"the streamed check needs a pack past the resident budget ({label})")
+    args = prepare_rays_streamed(o, d, packed) + (STREAM_RAY_TILE,)
+    return hit_check("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference, args, packed)
+
+
+def phase_split(label: str, o, d, packed, k3_row: dict) -> dict:
+    """K1 with its own 128-ray tiles and block schedule on the rays and pack
+    K3 ran on: time and the share of rays with the same packed row."""
+    device = o.device
+    args = prepare_rays(o, d, packed) + (packed.w, DEFAULT_RAY_TILE)
+    _, bi1 = closest_hit(*args)
+    _, bi3 = closest_hit_streamed(*prepare_rays_streamed(o, d, packed), STREAM_RAY_TILE)
+    ms = median_ms(lambda: closest_hit(*args), device)
+    row = {"k1_ms": ms, "k3_ms": k3_row["ms"], "k1_over_k3": ms / k3_row["ms"],
+           "same_row": (bi1[: o.shape[0]] == bi3[: o.shape[0]]).double().mean().item()}
+    print(f"split {label}: K1 (128-ray tiles, block schedule) vs K3 (64-ray tiles, cluster schedule), "
+          f"tri_block {packed.tri_block}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5) -> dict:
+    """An any-hit kernel against its plain version on the same inputs."""
+    feats, maxt, w = args[-4], args[-3], args[-2]
     device = feats.device
-    occ_k = occluded(*args)
-    occ_r, work = occluded_reference(*args, count_work=True)
+    occ_k = kernel(*args)
+    occ_r, work = plain(*args, count_work=True)
     _sync(device)
     agree = (occ_k == occ_r).double().mean().item()
     dead_occluded = int((occ_k[maxt == 0] != 0).sum())
-    kernel_ms = median_ms(lambda: occluded(*args), device, reps)
-    plain_ms = median_ms(lambda: occluded_reference(*args), device, reps)
+    kernel_ms = median_ms(lambda: kernel(*args), device, reps)
+    plain_ms = median_ms(lambda: plain(*args), device, reps)
     tb = w.shape[2] // NSCALARS
-    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * tb, _nbytes(order, enter, feats, maxt, w, occ_k))
+    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * tb, _nbytes(*args, occ_k))
     row = {
-        "rays": feats.shape[0], "live_rays": int((maxt > 0).sum()), "tri_block": tb,
+        "rays": feats.shape[0], "live_rays": int((maxt > 0).sum()), "tri_block": tb, "ray_tile": args[-1],
         "occluded_share": (occ_r > 0).double().mean().item(), "same_flag": agree,
         "dead_lanes_occluded": dead_occluded, "max_abs_err": (occ_k - occ_r).abs().max().item(),
         "ms": kernel_ms, "plain_ms": plain_ms,
         "visited_blocks": work["blocks"], "lane_blocks": work["lane_blocks"], **b,
     }
-    print(f"occluded bounce-1 shadow rays (bar: same_flag >= {HIT_AGREE}, no maxt = 0 lane occluded): "
-          f"{json.dumps(row)}", flush=True)
+    print(f"{name} {label} (bar: same_flag >= {HIT_AGREE}, no maxt = 0 lane occluded): {json.dumps(row)}",
+          flush=True)
     if agree < HIT_AGREE or dead_occluded:
-        raise AssertionError(f"occluded misses the flag bar: same_flag {agree}, {dead_occluded} dead lanes occluded")
+        raise AssertionError(f"{name} misses the flag bar: same_flag {agree}, {dead_occluded} dead lanes occluded")
     return row
 
 
@@ -309,11 +392,17 @@ def profile_frame(scene, camera, settings) -> dict:
             busy_us += b - max(a, end)
             end = b
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_launches": len(spans)}
-    for kname in ("closest_hit_kernel", "occlusion_kernel"):
+    knames = ("closest_hit_kernel", "occlusion_kernel", "closest_hit_streamed_kernel", "occlusion_streamed_kernel")
+    for kname in knames:
         out[f"{kname}_ms"] = sum(v for k, v in by_name.items() if kname in k)
-    out["other_device_ms"] = sum(by_name.values()) - out["closest_hit_kernel_ms"] - out["occlusion_kernel_ms"]
+    out["other_device_ms"] = sum(by_name.values()) - sum(out[f"{k}_ms"] for k in knames)
     out["idle_share_profiled"] = 1.0 - out["device_busy_ms"] / wall_ms if spans else None
     return out
+
+
+def expect_launches(**counts) -> dict:
+    """Expected launches per kernel in one frame; kernels not named: 0."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: int = 3, profiled: bool = False) -> dict:
@@ -354,6 +443,64 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     return out
 
 
+def many_lights_scene(device):
+    """A floor and a sphere under 1,200 random emitter triangles (areas over
+    three decades), made from seed 21."""
+    rng = np.random.default_rng(21)
+    n = 1200
+    centers = np.stack([rng.uniform(-3, 3, n), rng.uniform(3.0, 4.0, n), rng.uniform(-3, 3, n)], axis=1)
+    size = 10.0 ** rng.uniform(-2.0, -0.5, n)
+    tris = (centers[:, None, :] + rng.normal(size=(n, 3, 3)) * size[:, None, None]).astype(np.float32)
+    mesh = MeshData(vertices=tris, normals=np.zeros_like(tris), uvs=np.zeros((n, 3, 2), np.float32))
+    materials = [{"type": "diffuse", "albedo": (0.7, 0.6, 0.5)},
+                 {"type": "emitter", "emissive_color": (1.0, 0.9, 0.8), "intensity": 5.0}]
+    specs = [plane_spec((0.0, -1.0, 0.0), (90.0, 0.0, 0.0), (20.0, 20.0, 20.0)),
+             sphere_spec(radius=1.0, subdivisions=2), mesh_spec(mesh, mat_id=1, two_sided=True)]
+    return build_scene(specs, materials, pad_to_multiple=128, device=device)
+
+
+def phase_light_cdf(device) -> None:
+    """The light CDF of one scene's tensors is bit-equal on the card and the
+    CPU. Also counts, on the same tensors, the entries where the float32
+    areas and a float32 cumsum of them differ between the two devices."""
+    scene = many_lights_scene(device)
+    host = scene.to("cpu")
+    cdf_gpu, total_gpu = light_table(scene)
+    cdf_cpu, total_cpu = light_table(host)
+    differ = int((cdf_gpu.cpu() != cdf_cpu).sum())
+
+    def f32_table(s):
+        area = 0.5 * torch.linalg.norm(torch.linalg.cross(s.e1, s.e2), dim=-1)
+        return area, torch.cumsum(area * (s.materials.type[s.mat_id] == BxdfType.EMITTER).float(), 0)
+
+    area_g, cum_g = f32_table(scene)
+    area_c, cum_c = f32_table(host)
+    built_cpu = many_lights_scene("cpu")
+    row = {
+        "entries": cdf_cpu.numel(), "cdf_entries_differ": differ,
+        "total_card": total_gpu.item(), "total_cpu": total_cpu.item(),
+        "f32_areas_differ": int((area_g.cpu() != area_c).sum()),
+        "f32_cumsum_differ": int((cum_g.cpu() != cum_c).sum()),
+        "e1_differ_card_vs_cpu_build": int((scene.e1.cpu() != built_cpu.e1).any(dim=-1).sum()),
+    }
+    print(f"light CDF, 1,200 emitters, same scene tensors on card and CPU (bar: cdf_entries_differ = 0): "
+          f"{json.dumps(row)}", flush=True)
+    if differ:
+        raise AssertionError(f"the light CDF differs between card and CPU in {differ} entries")
+
+
+def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
+    """The summary entry of one kernel over its checks at main-path shapes."""
+    b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
+    return {
+        "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
+        "launches": launches, "launches_by_path": launches_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": b["bound_by"], "library_ms": None,
+    }
+
+
 def main() -> None:
     phase_device()
     device = torch.device("cuda")
@@ -368,13 +515,13 @@ def main() -> None:
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
     (o, d), (o2, d2) = main_path_rays(scene, camera, settings, packed)
-    rows = [
+    k1_rows = [
         phase_kernel_check("camera rays", o, d, packed),
         phase_kernel_check("bounce-1 rays", o2, d2, packed2),
     ]
     phase_image_check(scene, camera, settings, size=256, spp=2)
     naive = phase_full_frame(
-        "naive", scene, camera, settings, {"closest_hit": settings.spp * settings.bounces, "occluded": 0}
+        "naive", scene, camera, settings, expect_launches(closest_hit=settings.spp * settings.bounces)
     )
 
     # The NEE path (config 8 stand-in).
@@ -382,36 +529,65 @@ def main() -> None:
     settings = dataclasses.replace(settings, spp=4)
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
-    occ_row = phase_occlusion_check(nee_shadow_inputs(scene, camera, settings, packed, packed2))
+    k2_row = occlusion_check(
+        "occluded", "bounce-1 shadow rays", occluded, occluded_reference,
+        nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference"),
+    )
     for estimator in ("nee", "mis"):
         phase_image_check(scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2)
     nee = phase_full_frame(
         "nee", scene, camera, settings,
-        {"closest_hit": settings.spp * (settings.bounces + 1), "occluded": settings.spp * (settings.bounces - 1)},
+        expect_launches(closest_hit=settings.spp * (settings.bounces + 1), occluded=settings.spp * (settings.bounces - 1)),
         profiled=True,
     )
+    del scene, packed, packed2
 
-    # closest_hit: one bounce-0 call plus one scan-bounce call of the naive
-    # path, each at its main-path shape; occluded: one scan-bounce call.
-    k1 = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
+    # The streamed path (config 6 stand-in): both packs past the budget.
+    scene, camera, settings = load_scene_file(STREAM_SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=2)  # the bench's spp for config 6
+    packed = pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
+    (o, d), (o2, d2) = main_path_rays(scene, camera, settings, packed)
+    k3_rows = [
+        phase_streamed_check("camera rays", o, d, packed),
+        phase_streamed_check("bounce-1 rays", o2, d2, packed2),
+    ]
+    split = [
+        phase_split("camera rays", o, d, packed, k3_rows[0]),
+        phase_split("bounce-1 rays", o2, d2, packed2, k3_rows[1]),
+    ]
+    del o, d, o2, d2
+    nee_settings = dataclasses.replace(settings, estimator="nee")
+    k4_row = occlusion_check(
+        "occluded_streamed", "bounce-1 shadow rays", occluded_streamed, occluded_streamed_reference,
+        nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference"),
+    )
+    for st in (settings, nee_settings):
+        phase_image_check(scene, camera, st, size=128, spp=2)
+    streamed = phase_full_frame(
+        "streamed naive", scene, camera, settings,
+        expect_launches(closest_hit_streamed=settings.spp * settings.bounces), profiled=True,
+    )
+    nee_settings = dataclasses.replace(nee_settings, spp=1, bounces=3)
+    streamed_nee = phase_full_frame(
+        "streamed nee", scene, camera, nee_settings,
+        expect_launches(
+            closest_hit_streamed=nee_settings.spp * (nee_settings.bounces + 1),
+            occluded_streamed=nee_settings.spp * (nee_settings.bounces - 1),
+        ),
+    )
+    phase_light_cdf(device)
+    print(json.dumps({"split": split}), flush=True)
+
+    paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee}
+    by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     summary = [
-        {
-            "name": "closest_hit", "route": "cuda",
-            "source": KERNELS["closest_hit"]["source"], "replaces": KERNELS["closest_hit"]["replaces"],
-            "launches": nee["launches"]["closest_hit"],
-            "launches_by_path": {"naive": naive["launches"]["closest_hit"], "nee": nee["launches"]["closest_hit"]},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": k1["bound_by"], "library_ms": None,
-        },
-        {
-            "name": "occluded", "route": "cuda",
-            "source": KERNELS["occluded"]["source"], "replaces": KERNELS["occluded"]["replaces"],
-            "launches": nee["launches"]["occluded"],
-            "launches_by_path": {"naive": naive["launches"]["occluded"], "nee": nee["launches"]["occluded"]},
-            "max_abs_err": occ_row["max_abs_err"], "ms": occ_row["ms"], "plain_ms": occ_row["plain_ms"],
-            "bound_ms": occ_row["bound_ms"], "bound_by": occ_row["bound_by"], "library_ms": None,
-        },
+        kernel_summary("closest_hit", k1_rows, nee["launches"]["closest_hit"], by_path("closest_hit")),
+        kernel_summary("occluded", [k2_row], nee["launches"]["occluded"], by_path("occluded")),
+        kernel_summary("closest_hit_streamed", k3_rows, streamed["launches"]["closest_hit_streamed"],
+                       by_path("closest_hit_streamed")),
+        kernel_summary("occluded_streamed", [k4_row], streamed_nee["launches"]["occluded_streamed"],
+                       by_path("occluded_streamed")),
     ]
     print(json.dumps({"kernels": summary}), flush=True)
     result = {

@@ -19,8 +19,8 @@
 // visited block it stages the block's columns into shared memory in chunks
 // of 128 triangles (5 scalars x 16 rows x 128 columns x 4 B = 40 KB, for any
 // tb) and takes the five dot products per column with f32 FMAs (staging,
-// dot products and the CTA max live in decision.cuh, shared with the
-// any-hit kernel). No TF32: the parity bar needs f32 t.
+// dot products, the block test and the CTA max live in decision.cuh, shared
+// with the other three searches). No TF32: the parity bar needs f32 t.
 //
 // Semantics, as the TPU kernel:
 //   accept iff max(s0, s1, s2) <= 0 and D <= -1e-6 and num < 1e-6 * D, then
@@ -33,8 +33,9 @@
 //   sit at -inf, so they never update and never hold the loop open.
 //
 // Memory: the pack (1.7 MB at 5,248 rows) stays in the 50 MB L2, so blocks
-// are re-read from L2 per visiting tile; there is no resident/streamed split
-// and the kernel takes a pack of any size.
+// are re-read from L2 per visiting tile. The kernel itself takes a pack of
+// any size; the host sends packs over 16 MiB to closest_hit_streamed.cu, by
+// the JAX package's resident/streamed rule.
 //
 // What bounds it on this card: the per-pair arithmetic, 5 x 16 FMAs plus the
 // epilogue, and the shared-memory broadcasts that feed them (one 16-byte load
@@ -50,8 +51,6 @@
 namespace {
 
 using namespace decision;
-
-constexpr float BIG = 3.0e38f;
 
 __global__ void closest_hit_kernel(const int* __restrict__ order,
                                    const float* __restrict__ enter,
@@ -82,37 +81,7 @@ __global__ void closest_hit_kernel(const int* __restrict__ order,
     if (!(tile_enter[j] < worst)) break;
     const int blk = tile_order[j];
     if (blk < 0 || blk >= nb) break;  // culled sentinel; unreachable while enter is +inf there
-    const float* wb = w + (size_t)blk * K * NS * tb;
-
-    float blk_min = INFINITY;
-    int blk_arg = 0;
-    for (int c0 = 0; c0 < tb; c0 += CHUNK) {
-      const int cw4 = min(CHUNK, tb - c0) / 4;  // float4 columns in this chunk
-      __syncthreads();  // the previous chunk has been read
-      stage_chunk(stage, wb, tb, c0, cw4);
-      __syncthreads();
-
-      for (int q = 0; q < cw4; ++q) {
-        float acc[NS][4];
-        decision_dot4(f, stage, q, acc);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {  // ascending columns
-          const float edge = fmaxf(fmaxf(acc[0][c], acc[1][c]), acc[2][c]);
-          const float dd = acc[3][c];
-          const float num = acc[4][c];
-          float t = BIG;
-          if (edge <= 0.0f && dd <= -EPS && num < EPS * dd) t = __fdiv_rn(num, dd);
-          if (t < blk_min) {  // strict <: the lower column wins ties
-            blk_min = t;
-            blk_arg = c0 + 4 * q + c;
-          }
-        }
-      }
-    }
-    if (blk_min < best_t) {  // strict <: earlier blocks win ties
-      best_t = blk_min;
-      if (blk_min < BIG) best_i = blk * tb + blk_arg;
-    }
+    closest_in_block(f, stage, w + (size_t)blk * K * NS * tb, tb, blk, best_t, best_i);
     worst = cta_max(best_t, warp_max, &tile_worst);  // the tile's worst lane
   }
   best_t_out[ray] = best_t;

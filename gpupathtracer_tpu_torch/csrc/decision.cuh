@@ -1,7 +1,8 @@
-// The parts the packed-search kernels share (closest_hit.cu, occlusion.cu):
-// loading a ray's features, staging a block's triangle columns into shared
-// memory, the five decision dot products, and the CTA-wide max that bounds
-// each tile's early exit.
+// The parts the packed-search kernels share (closest_hit.cu, occlusion.cu,
+// closest_hit_streamed.cu, occlusion_streamed.cu): loading a ray's features,
+// staging a block's triangle columns into shared memory, the five decision
+// dot products, the closest-hit and any-hit tests of one block, and the
+// CTA-wide max that bounds each tile's early exit.
 //
 // Layouts (row-major, contiguous):
 //   feats  float (rt*TR, 16)    ray features [d, o x d, o, 1, 0...]
@@ -22,6 +23,7 @@ constexpr int K = 16;         // feature depth
 constexpr int NS = 5;         // decision scalars per triangle
 constexpr int CHUNK = 128;    // triangle columns staged per pass
 constexpr float EPS = 1e-6f;  // the reference's EPSILON
+constexpr float BIG = 3.0e38f;  // the miss distance
 constexpr int STAGE_FLOAT4 = NS * K * (CHUNK / 4);  // 40 KB of shared memory
 
 // The ray's 16 features into registers.
@@ -68,6 +70,76 @@ __device__ __forceinline__ void decision_dot4(const float f[K], const float4* __
       acc[s][1] = fmaf(f[k], v.y, acc[s][1]);
       acc[s][2] = fmaf(f[k], v.z, acc[s][2]);
       acc[s][3] = fmaf(f[k], v.w, acc[s][3]);
+    }
+  }
+}
+
+// Closest hit of this thread's ray in block `blk` (its columns at `wb`),
+// folded into the running (best_t, best_i). Accept iff max(s0, s1, s2) <= 0
+// and D <= -1e-6 and num < 1e-6 * D, then t = num / D (IEEE division), else
+// BIG; the block minimum is taken over ascending columns with strict < (the
+// lower column wins ties); the running best is replaced only on strict <
+// (earlier blocks win ties), and best_i only when the minimum is below BIG.
+// Every thread of the CTA must call it (it stages with barriers).
+__device__ __forceinline__ void closest_in_block(const float f[K], float4* __restrict__ stage,
+                                                 const float* __restrict__ wb, int tb, int blk,
+                                                 float& best_t, int& best_i) {
+  float blk_min = INFINITY;
+  int blk_arg = 0;
+  for (int c0 = 0; c0 < tb; c0 += CHUNK) {
+    const int cw4 = min(CHUNK, tb - c0) / 4;  // float4 columns in this chunk
+    __syncthreads();  // the previous chunk has been read
+    stage_chunk(stage, wb, tb, c0, cw4);
+    __syncthreads();
+
+    for (int q = 0; q < cw4; ++q) {
+      float acc[NS][4];
+      decision_dot4(f, stage, q, acc);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {  // ascending columns
+        const float edge = fmaxf(fmaxf(acc[0][c], acc[1][c]), acc[2][c]);
+        const float dd = acc[3][c];
+        const float num = acc[4][c];
+        float t = BIG;
+        if (edge <= 0.0f && dd <= -EPS && num < __fmul_rn(EPS, dd)) t = __fdiv_rn(num, dd);
+        if (t < blk_min) {  // strict <: the lower column wins ties
+          blk_min = t;
+          blk_arg = c0 + 4 * q + c;
+        }
+      }
+    }
+  }
+  if (blk_min < best_t) {  // strict <: earlier blocks win ties
+    best_t = blk_min;
+    if (blk_min < BIG) best_i = blk * tb + blk_arg;
+  }
+}
+
+// Any hit of this thread's ray in the block at `wb` with t in (1e-6, mt),
+// or'ed into `occ`: max(s0, s1, s2) <= 0 and D <= -1e-6 and num < 1e-6 * D
+// and num > mt * D (with D < 0 that is t = num / D in (1e-6, mt), both
+// strict, with no division). The products are rounded on their own
+// (__fmul_rn) so that no FMA contraction moves a comparison. A lane already
+// occluded, or with mt = 0, skips the arithmetic but joins every barrier.
+__device__ __forceinline__ void occluded_in_block(const float f[K], float4* __restrict__ stage,
+                                                  const float* __restrict__ wb, int tb, float mt, int& occ) {
+  for (int c0 = 0; c0 < tb; c0 += CHUNK) {
+    const int cw4 = min(CHUNK, tb - c0) / 4;  // float4 columns in this chunk
+    __syncthreads();  // the previous chunk has been read
+    stage_chunk(stage, wb, tb, c0, cw4);
+    __syncthreads();
+    if (occ || !(mt > 0.0f)) continue;  // nothing left to test on this lane
+
+    for (int q = 0; q < cw4 && !occ; ++q) {
+      float acc[NS][4];
+      decision_dot4(f, stage, q, acc);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float edge = fmaxf(fmaxf(acc[0][c], acc[1][c]), acc[2][c]);
+        const float dd = acc[3][c];
+        const float num = acc[4][c];
+        if (edge <= 0.0f && dd <= -EPS && num < __fmul_rn(EPS, dd) && num > __fmul_rn(mt, dd)) occ = 1;
+      }
     }
   }
 }

@@ -14,7 +14,8 @@
 //   w      float (nb, 16, 5*tb) triangle columns [s0 | s1 | s2 | D | num]
 // Output: occ int32 (rt*TR), 1 where some accepted hit has t < maxt.
 //
-// Design: the layout of closest_hit.cu (decision.cuh). One CTA per ray
+// Design: the layout of closest_hit.cu (decision.cuh, which holds the
+// block test shared with occlusion_streamed.cu). One CTA per ray
 // tile, one thread per ray with its features in registers; each scheduled
 // block is staged into shared memory in 128-column chunks (40 KB) and each
 // thread takes five f32 FMA dot products per column. A thread keeps one
@@ -76,27 +77,7 @@ __global__ void occlusion_kernel(const int* __restrict__ order,
     if (!(tile_enter[j] < bound)) break;
     const int blk = tile_order[j];
     if (blk < 0 || blk >= nb) break;  // culled sentinel; unreachable while enter is +inf there
-    const float* wb = w + (size_t)blk * K * NS * tb;
-
-    for (int c0 = 0; c0 < tb; c0 += CHUNK) {
-      const int cw4 = min(CHUNK, tb - c0) / 4;  // float4 columns in this chunk
-      __syncthreads();  // the previous chunk has been read
-      stage_chunk(stage, wb, tb, c0, cw4);
-      __syncthreads();
-      if (occ || !(mt > 0.0f)) continue;  // nothing left to test on this lane
-
-      for (int q = 0; q < cw4 && !occ; ++q) {
-        float acc[NS][4];
-        decision_dot4(f, stage, q, acc);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float edge = fmaxf(fmaxf(acc[0][c], acc[1][c]), acc[2][c]);
-          const float dd = acc[3][c];
-          const float num = acc[4][c];
-          if (edge <= 0.0f && dd <= -EPS && num < __fmul_rn(EPS, dd) && num > __fmul_rn(mt, dd)) occ = 1;
-        }
-      }
-    }
+    occluded_in_block(f, stage, w + (size_t)blk * K * NS * tb, tb, mt, occ);
   }
   occ_out[ray] = occ;
 }

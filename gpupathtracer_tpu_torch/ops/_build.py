@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernel libraries.
 
-Each kernel source in ``csrc/`` (``closest_hit.cu``, ``occlusion.cu``; both
-include ``decision.cuh``) has a plain C interface. ``nvcc`` compiles it for
+Each kernel source in ``csrc/`` (``closest_hit.cu``, ``occlusion.cu``,
+``closest_hit_streamed.cu``, ``occlusion_streamed.cu``; all include
+``decision.cuh``) has a plain C interface. ``nvcc`` compiles it for
 Hopper (``sm_90a``) into its own shared library in
 ``gpupathtracer_tpu_torch/build/`` at first use, and the library is loaded
 with ``ctypes``. The file name carries a hash of the source, the shared
@@ -29,11 +30,14 @@ NVCC_FLAGS = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# Kernel name -> its launch function's argument types (device pointers,
-# then rt, nb, tb, ray_tile, then the stream).
+# Kernel name -> its launch function's argument types: device pointers,
+# then rt, nb, tb, ray_tile (resident) or rt, nc, bpc, tb, ray_tile
+# (streamed), then the stream.
 KERNELS = {
     "closest_hit": [_P] * 7 + [_I] * 4 + [_P],
     "occlusion": [_P] * 6 + [_I] * 4 + [_P],
+    "closest_hit_streamed": [_P] * 8 + [_I] * 5 + [_P],
+    "occlusion_streamed": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -5,11 +5,15 @@ Counterpart of ``gpupathtracer_tpu/ops/compaction.py`` (permute mode).
 ``compact_rays`` permutes the rays with it and parks dead lanes on a ray far
 outside the scene pointing away, so whole tiles of dead lanes fail the
 tile×block frustum test and cost the kernel nothing.
+``compact_rays_coherent`` does the same with one stable sort that also
+groups live rays by direction octant and Morton codes (ray sorting).
 """
 
 from __future__ import annotations
 
 import torch
+
+from gpupathtracer_tpu_torch.ops.packed_intersect import _morton_codes
 
 # A parked ray: far outside any practical scene, pointing further away.
 DEAD_ORIGIN = (3.0e7, 3.0e7, 3.0e7)
@@ -36,6 +40,43 @@ def compact_rays(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor):
     Returns ``(o_c, d_c, inv)``; gather results with ``res[inv]``.
     """
     perm, inv = partition_alive(alive)
+    alive_c = alive[perm][:, None]
+    o_c = torch.where(alive_c, o[perm], o.new_tensor(DEAD_ORIGIN))
+    d_c = torch.where(alive_c, d[perm], d.new_tensor(DEAD_DIR))
+    return o_c, d_c, inv
+
+
+def compact_rays_coherent(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor, key_mode: str = "dir"):
+    """Compaction and a coherence sort in one stable permutation, as the JAX
+    package's ``compact_rays_coherent``. The int64 key is, from the most
+    significant field down: the dead flag (bit 31), the direction octant,
+    then for ``"dir"`` the top 12 bits of the direction Morton code and the
+    top 12 of the origin's, for ``"origin"`` the top 15 of the origin's and
+    the top 13 of the direction's. The origin box is the live origins'
+    (0 and 1 when there are none). Dead lanes park on the far ray as in
+    ``compact_rays``.
+
+    Returns ``(o_c, d_c, inv)``; gather results with ``res[inv]``.
+    """
+    if key_mode not in ("dir", "origin"):
+        raise ValueError(f"unknown sort key {key_mode!r}")
+    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+    dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
+    # nanmin / nanmax over the live origins.
+    use = alive[:, None] & ~torch.isnan(o)
+    lo = torch.where(use, o, torch.inf).amin(dim=0)
+    hi = torch.where(use, o, -torch.inf).amax(dim=0)
+    lo = torch.where(torch.isfinite(lo), lo, 0.0)
+    hi = torch.where(torch.isfinite(hi), hi, 1.0)
+    om = _morton_codes(o, lo, hi)
+    dead = (~alive).long() << 31
+    if key_mode == "origin":
+        key = dead | (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
+    else:
+        key = dead | (octant << 28) | ((dm >> 18) << 16) | ((om >> 18) << 4)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     alive_c = alive[perm][:, None]
     o_c = torch.where(alive_c, o[perm], o.new_tensor(DEAD_ORIGIN))
     d_c = torch.where(alive_c, d[perm], d.new_tensor(DEAD_DIR))

@@ -1,21 +1,30 @@
 """Packed ray search: scene packing, tile×block culling, the front-to-back
 schedule, and the closest-hit and any-hit kernels with their plain versions.
 
-Counterpart of ``gpupathtracer_tpu/ops/pallas_intersect.py`` (the resident
-path). The scene is packed one-sided: two-sided rows are appended again with
-flipped winding, rows are sorted by a stable 30-bit Morton code of their
-centroids (dead rows at the tail) and cut into blocks of ``tri_block`` rows,
-each with an AABB. For each tile of ``ray_tile`` rays an interval frustum
-test culls blocks and lower-bounds the hit distance into each survivor
-(``tile_block_mask``); ``plan_block_order`` sorts the survivors front to
-back. Two searches walk each tile's schedule with early exit:
+Counterpart of ``gpupathtracer_tpu/ops/pallas_intersect.py``. The scene is
+packed one-sided: two-sided rows are appended again with flipped winding,
+rows are sorted by a stable 30-bit Morton code of their centroids (dead rows
+at the tail) and cut into blocks of ``tri_block`` rows, each with an AABB.
+For each tile of ``ray_tile`` rays an interval frustum test culls blocks and
+lower-bounds the hit distance into each survivor (``tile_block_mask``);
+``plan_block_order`` sorts the survivors front to back.
 
-- ``closest_hit`` (``csrc/closest_hit.cu``): the nearest accepted hit;
-- ``occluded`` (``csrc/occlusion.cu``): whether any accepted hit lies
-  before a per-ray cutoff ``max_t`` (shadow rays; no division).
+Two routes, chosen per pack as the JAX package chooses them: a pack of at
+most ``RESIDENT_BUDGET_BYTES`` takes the resident route, a larger one the
+streamed route. The streamed route pads the blocks to a multiple of ``bpc``
+(blocks per cluster, about ``CLUSTER_TARGET_BYTES`` each), schedules whole
+clusters front to back, skips single blocks inside a cluster by their own
+entry bound, and uses ``STREAM_RAY_TILE``-ray tiles unless the caller pins a
+width. Four searches walk the schedules with early exit:
+
+- ``closest_hit`` (``csrc/closest_hit.cu``) and ``closest_hit_streamed``
+  (``csrc/closest_hit_streamed.cu``): the nearest accepted hit;
+- ``occluded`` (``csrc/occlusion.cu``) and ``occluded_streamed``
+  (``csrc/occlusion_streamed.cu``): whether any accepted hit lies before a
+  per-ray cutoff ``max_t`` (shadow rays; no division).
 
 On a CUDA tensor each launches its kernel; on a CPU tensor it runs its plain
-PyTorch version (``closest_hit_reference``, ``occluded_reference``).
+PyTorch version (the same name with ``_reference``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,14 @@ from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS, pack_rays
 
 DEFAULT_RAY_TILE = 128
 INF = float("inf")
+
+# Route choice and streamed shapes, the JAX package's values; read at call
+# time, so a test may patch them. Packs of at most RESIDENT_BUDGET_BYTES
+# take the resident route. The streamed route groups blocks into clusters of
+# about CLUSTER_TARGET_BYTES and tiles rays by STREAM_RAY_TILE.
+RESIDENT_BUDGET_BYTES = 16 * 1024 * 1024
+CLUSTER_TARGET_BYTES = 1024 * 1024
+STREAM_RAY_TILE = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,24 +253,77 @@ def plan_block_order(mask: torch.Tensor, enter: torch.Tensor):
     return order.to(torch.int32), enter_sorted
 
 
-def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str = "alive") -> None:
+def is_resident(packed: PackedScene) -> bool:
+    """Whether the pack takes the resident route (the JAX package's rule)."""
+    return packed.w.numel() * 4 <= RESIDENT_BUDGET_BYTES
+
+
+def _plan_stream_shape(nb: int, tri_block: int) -> int:
+    """Blocks per cluster of the streamed route: as many as fit in
+    ``CLUSTER_TARGET_BYTES`` (at least 1, at most ``nb``)."""
+    block_bytes = K * NSCALARS * tri_block * 4
+    return min(max(1, CLUSTER_TARGET_BYTES // block_bytes), max(nb, 1))
+
+
+def _pad_blocks(packed: PackedScene, bpc: int) -> PackedScene:
+    """The pack with its block axis padded to a multiple of ``bpc`` by dead
+    blocks: zero columns, box lo 0 and hi -1, ``block_live`` False.
+    ``tri_map`` is not padded (no hit lands in a dead block)."""
+    nb = packed.w.shape[0]
+    pad = (-nb) % bpc
+    if pad == 0:
+        return packed
+    return dataclasses.replace(
+        packed,
+        w=torch.cat([packed.w, packed.w.new_zeros((pad,) + tuple(packed.w.shape[1:]))]),
+        box_lo=torch.cat([packed.box_lo, packed.box_lo.new_zeros((pad, 3))]),
+        box_hi=torch.cat([packed.box_hi, packed.box_hi.new_full((pad, 3), -1.0)]),
+        block_live=torch.cat([packed.block_live, packed.block_live.new_zeros((pad,))]),
+    )
+
+
+def cluster_schedule(mask: torch.Tensor, enter: torch.Tensor, bpc: int):
+    """The streamed route's schedule from the block-level cull data (both
+    (ray_tiles, nb), nb a multiple of ``bpc``): ``(order, enter_sorted,
+    enter_blk)``. A cluster is scheduled iff one of its blocks survives, keyed
+    by the least entry bound among them; ``order``/``enter_sorted`` are
+    (ray_tiles, nb // bpc) as ``plan_block_order`` gives them (culled
+    clusters at the tail, id nb // bpc, +inf), and ``enter_blk`` (ray_tiles,
+    nb) is each block's entry bound, +inf where culled."""
+    rt = mask.shape[0]
+    enter_blk = torch.where(mask > 0, enter, INF)
+    cmask = mask.reshape(rt, -1, bpc).amax(dim=-1)
+    ckey = enter_blk.reshape(rt, -1, bpc).amin(dim=-1)
+    order, enter_sorted = plan_block_order(cmask, ckey)
+    return order, enter_sorted, enter_blk
+
+
+def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str = "alive", enter_blk=None) -> None:
     """Raise on anything the kernels do not take. ``lanes`` is the per-ray
     input after ``feats``: ``alive`` int32 for the closest hit, ``maxt``
-    float32 for the any hit."""
+    float32 for the any hit. With ``enter_blk`` (the streamed searches) the
+    schedule has one column per cluster of ``nb // order.shape[1]`` blocks."""
     if w.dim() != 3 or w.shape[1] != K or w.shape[2] % NSCALARS:
         raise ValueError(f"w must be (nb, {K}, {NSCALARS}*tb), got {tuple(w.shape)}")
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
     if feats.dim() != 2 or feats.shape[1] != K or feats.shape[0] % ray_tile:
         raise ValueError(f"feats must be (rt*{ray_tile}, {K}), got {tuple(feats.shape)}")
     rt = feats.shape[0] // ray_tile
+    nsched = nb
+    if enter_blk is not None:
+        nsched = order.shape[1] if order.dim() == 2 else 0
+        if nsched == 0 or nb % nsched:
+            raise ValueError(f"order must have one column per cluster of the {nb} blocks, got {tuple(order.shape)}")
     lanes_dtype = torch.float32 if lanes_name == "maxt" else torch.int32
     expect = {
-        "order": (order, torch.int32, (rt, nb)),
-        "enter": (enter, torch.float32, (rt, nb)),
+        "order": (order, torch.int32, (rt, nsched)),
+        "enter": (enter, torch.float32, (rt, nsched)),
         "feats": (feats, torch.float32, (rt * ray_tile, K)),
         lanes_name: (lanes, lanes_dtype, (rt * ray_tile,)),
         "w": (w, torch.float32, (nb, K, NSCALARS * tb)),
     }
+    if enter_blk is not None:
+        expect["enter_blk"] = (enter_blk, torch.float32, (rt, nb))
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
@@ -280,6 +350,19 @@ def _kernel_device(feats, name: str) -> torch.device | None:
     return dev
 
 
+def _launch(name: str, library: str, dev: torch.device, tensors, ints) -> None:
+    """Launch ``<library>_launch`` on the current stream of ``dev`` with the
+    tensors' device pointers, then the ints; raise if CUDA refused it."""
+    lib = _build.library(library)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{library}_launch")(
+            *(t.data_ptr() for t in tensors), *ints, torch.cuda.current_stream(dev).cuda_stream
+        )
+    if err != 0:
+        msg = getattr(lib, f"{library}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
 def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE):
     """Closest hit of every ray tile along its schedule: ``(best_t, best_i)``,
     (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1).
@@ -293,20 +376,13 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE)
     dev = _kernel_device(feats, "closest_hit")
     if dev is None:
         return closest_hit_reference(order, enter, feats, alive, w, ray_tile)
-    lib = _build.library("closest_hit")
     nb, _, five_tb = w.shape
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.closest_hit_launch(
-            order.data_ptr(), enter.data_ptr(), feats.data_ptr(), alive.data_ptr(),
-            w.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
-            feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        msg = lib.closest_hit_error_string(err).decode()
-        raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err} ({msg})")
+    _launch(
+        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, w, best_t, best_i),
+        (feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile),
+    )
     closest_hit.launches += 1
     return best_t, best_i
 
@@ -328,6 +404,27 @@ def _decision_scalars(ft, w, blk, tb: int):
     each tile's features with its scheduled block."""
     s = torch.bmm(ft, w[blk]).view(ft.shape[0], ft.shape[1], NSCALARS, tb)
     return s.unbind(2)
+
+
+def _block_min(ft, w, blk, tb: int):
+    """Per lane of each (tile, block) pair, the least accepted t (BIG if
+    none) and its packed row; ties go to the lower column."""
+    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb)
+    edge = torch.maximum(torch.maximum(s0, s1), s2)
+    ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd)
+    t = torch.where(ok, num / dd, BIG)
+    blk_min, blk_arg = t.min(dim=-1)  # first index wins ties
+    return blk_min, (blk_arg + blk[:, None] * tb).to(torch.int32)
+
+
+def _blocked(ft, mt, w, blk, tb: int):
+    """Per lane of each (tile, block) pair: some accepted hit with t in
+    (EPSILON, mt). t = num / D lies there iff num < EPSILON·D and
+    num > mt·D, both strict (D <= -EPSILON < 0 flips them)."""
+    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb)
+    edge = torch.maximum(torch.maximum(s0, s1), s2)
+    ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd) & (num > mt[:, :, None] * dd)
+    return ok.any(dim=-1)
 
 
 def closest_hit_reference(
@@ -361,17 +458,101 @@ def closest_hit_reference(
             lane_blocks += int(live[tiles].sum())
         for c0 in range(0, tiles.numel(), per_call):
             ti = tiles[c0 : c0 + per_call]
-            blk = order[ti, j].long()
-            s0, s1, s2, dd, num = _decision_scalars(ft[ti], w, blk, tb)
-            edge = torch.maximum(torch.maximum(s0, s1), s2)
-            ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd)
-            t = torch.where(ok, num / dd, BIG)
-            blk_min, blk_arg = t.min(dim=-1)  # first index wins ties
+            blk_min, arg = _block_min(ft[ti], w, order[ti, j].long(), tb)
             bt = best_t[ti]
             upd = blk_min < bt  # strict <: earlier blocks win ties
             best_t[ti] = torch.where(upd, blk_min, bt)
-            arg = (blk_arg + blk[:, None] * tb).to(torch.int32)
             best_i[ti] = torch.where(upd & (blk_min < BIG), arg, best_i[ti])
+        worst[tiles] = best_t[tiles].amax(dim=1)
+    out = (best_t.reshape(-1), best_i.reshape(-1))
+    return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
+
+
+def closest_hit_streamed(order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE):
+    """Closest hit of every ray tile along its cluster schedule (the streamed
+    route): ``(best_t, best_i)`` as ``closest_hit`` gives them. ``order`` and
+    ``enter`` are (rt, nc), ``enter_blk`` (rt, nb) and ``w`` (nb, K, 5·tb)
+    with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/closest_hit_streamed.cu``) and raises if it cannot; on CPU
+    tensors it runs ``closest_hit_streamed_reference``.
+    ``closest_hit_streamed.launches`` counts kernel launches.
+    """
+    _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
+    dev = _kernel_device(feats, "closest_hit_streamed")
+    if dev is None:
+        return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile)
+    nb, _, five_tb = w.shape
+    nc = order.shape[1]
+    best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
+    best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
+    _launch(
+        "closest_hit_streamed", "closest_hit_streamed", dev,
+        (order, enter, enter_blk, feats, alive, w, best_t, best_i),
+        (feats.shape[0] // ray_tile, nc, nb // nc, five_tb // NSCALARS, ray_tile),
+    )
+    closest_hit_streamed.launches += 1
+    return best_t, best_i
+
+
+closest_hit_streamed.launches = 0
+
+
+def closest_hit_streamed_reference(
+    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False
+):
+    """Plain PyTorch version of ``closest_hit_streamed``, as the TPU kernel
+    ``_kernel_streamed`` runs in its default single-phase mode: lanes start
+    at BIG (live) or -inf (dead), and the tile's worst lane is their max.
+    Clusters go in schedule order while their entry bound is below the
+    worst; inside a cluster a block is computed iff its own entry bound is
+    below the worst *at the cluster's start*, blocks ascending, with
+    ``closest_hit``'s acceptance and tie rules. After each cluster the worst
+    is the tile's max best_t again.
+
+    ``count_work=True`` also returns ``{"blocks": computed (tile, block)
+    pairs, "lane_blocks": the sum over them of the tile's live lanes}``."""
+    _check_f32_matmul(feats, "closest_hit_streamed_reference")
+    nb, _, five_tb = w.shape
+    tb = five_tb // NSCALARS
+    nc = order.shape[1]
+    bpc = nb // nc
+    rt = feats.shape[0] // ray_tile
+    dev = feats.device
+    ft = feats.reshape(rt, ray_tile, K)
+    live = alive.reshape(rt, ray_tile) > 0
+    best_t = torch.where(live, BIG, -INF).to(torch.float32)
+    best_i = torch.full((rt, ray_tile), -1, dtype=torch.int32, device=dev)
+    worst = best_t.amax(dim=1)
+    running = torch.ones((rt,), dtype=torch.bool, device=dev)
+    per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    blocks = lane_blocks = 0
+    for j in range(nc):
+        running &= enter[:, j] < worst
+        tiles = torch.nonzero(running).flatten()
+        if tiles.numel() == 0:
+            break
+        # Every block of a cluster is tested against the cluster-start worst,
+        # so the cluster's blocks are evaluated together and folded in block
+        # order: min over blocks with the first block winning ties is the
+        # chain of strict-< updates block by block.
+        blk = order[tiles, j].long()[:, None] * bpc + torch.arange(bpc, device=dev)  # (n, bpc)
+        pt, pb = torch.nonzero(enter_blk[tiles[:, None], blk] < worst[tiles][:, None], as_tuple=True)
+        if count_work:
+            blocks += pt.numel()
+            lane_blocks += int(live[tiles[pt]].sum())
+        m = torch.full((tiles.numel(), bpc, ray_tile), BIG, dtype=torch.float32, device=dev)
+        a = torch.zeros((tiles.numel(), bpc, ray_tile), dtype=torch.int32, device=dev)
+        for c0 in range(0, pt.numel(), per_call):
+            qt, qb = pt[c0 : c0 + per_call], pb[c0 : c0 + per_call]
+            m[qt, qb], a[qt, qb] = _block_min(ft[tiles[qt]], w, blk[qt, qb], tb)
+        cmin, cb = m.min(dim=1)  # first block wins ties
+        carg = torch.gather(a, 1, cb[:, None]).squeeze(1)
+        bt = best_t[tiles]
+        upd = cmin < bt  # strict <: earlier clusters win ties
+        best_t[tiles] = torch.where(upd, cmin, bt)
+        best_i[tiles] = torch.where(upd & (cmin < BIG), carg, best_i[tiles])
         worst[tiles] = best_t[tiles].amax(dim=1)
     out = (best_t.reshape(-1), best_i.reshape(-1))
     return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
@@ -390,19 +571,12 @@ def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE):
     dev = _kernel_device(feats, "occluded")
     if dev is None:
         return occluded_reference(order, enter, feats, maxt, w, ray_tile)
-    lib = _build.library("occlusion")
     nb, _, five_tb = w.shape
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.occlusion_launch(
-            order.data_ptr(), enter.data_ptr(), feats.data_ptr(), maxt.data_ptr(),
-            w.data_ptr(), occ.data_ptr(),
-            feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        msg = lib.occlusion_error_string(err).decode()
-        raise RuntimeError(f"occluded kernel launch failed: CUDA error {err} ({msg})")
+    _launch(
+        "occluded", "occlusion", dev, (order, enter, feats, maxt, w, occ),
+        (feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile),
+    )
     occluded.launches += 1
     return occ
 
@@ -442,53 +616,145 @@ def occluded_reference(
             lane_blocks += int((~occ[tiles] & (mt[tiles] > 0)).sum())
         for c0 in range(0, tiles.numel(), per_call):
             ti = tiles[c0 : c0 + per_call]
-            s0, s1, s2, dd, num = _decision_scalars(ft[ti], w, order[ti, j].long(), tb)
-            edge = torch.maximum(torch.maximum(s0, s1), s2)
-            # t = num / D lies in (EPSILON, maxt) iff num < EPSILON·D and
-            # num > maxt·D, both strict (D <= -EPSILON < 0 flips them).
-            ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd) & (num > mt[ti][:, :, None] * dd)
-            occ[ti] |= ok.any(dim=-1)
+            occ[ti] |= _blocked(ft[ti], mt[ti], w, order[ti, j].long(), tb)
     out = occ.reshape(-1).to(torch.int32)
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
 
 
-def prepare_rays(o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE):
-    """The closest-hit inputs for rays (R, 3) with unit directions:
-    ``(order, enter, feats, alive_i)``, padded to a ``ray_tile`` multiple.
-    Padded lanes carry d = (1, 1, 1) and are dead."""
-    r = o.shape[0]
-    feats = pack_rays(o, d)
-    alive_i = (
-        torch.ones((r,), dtype=torch.int32, device=o.device)
-        if alive is None
-        else alive.to(torch.int32)
+def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE):
+    """Any-hit search of every ray tile along its cluster schedule (the
+    streamed route): int32 flags as ``occluded`` gives them, with the
+    schedule inputs of ``closest_hit_streamed``.
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/occlusion_streamed.cu``) and raises if it cannot; on CPU tensors
+    it runs ``occluded_streamed_reference``. ``occluded_streamed.launches``
+    counts kernel launches.
+    """
+    _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt", enter_blk=enter_blk)
+    dev = _kernel_device(feats, "occluded_streamed")
+    if dev is None:
+        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile)
+    nb, _, five_tb = w.shape
+    nc = order.shape[1]
+    occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
+    _launch(
+        "occluded_streamed", "occlusion_streamed", dev, (order, enter, enter_blk, feats, maxt, w, occ),
+        (feats.shape[0] // ray_tile, nc, nb // nc, five_tb // NSCALARS, ray_tile),
     )
-    pad = (-r) % ray_tile
+    occluded_streamed.launches += 1
+    return occ
+
+
+occluded_streamed.launches = 0
+
+
+def occluded_streamed_reference(
+    order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False
+):
+    """Plain PyTorch version of ``occluded_streamed``, as the TPU kernel
+    ``_kernel_occlusion_streamed`` runs: flags start at 0 and the tile's
+    bound at +inf, so the first scheduled cluster is always visited. Clusters
+    go in schedule order while their entry bound is below the bound; inside
+    a cluster a block is tested iff its own entry bound is below the bound
+    at the cluster's start, blocks ascending, with ``occluded``'s
+    acceptance. After each cluster the bound is the largest cutoff among
+    unoccluded lanes (-inf once all are occluded).
+
+    ``count_work=True`` also returns ``{"blocks": tested (tile, block)
+    pairs, "lane_blocks": the sum over them of the tile's lanes that still
+    need testing (unoccluded, maxt > 0)}``."""
+    _check_f32_matmul(feats, "occluded_streamed_reference")
+    nb, _, five_tb = w.shape
+    tb = five_tb // NSCALARS
+    nc = order.shape[1]
+    bpc = nb // nc
+    rt = feats.shape[0] // ray_tile
+    dev = feats.device
+    ft = feats.reshape(rt, ray_tile, K)
+    mt = maxt.reshape(rt, ray_tile)
+    occ = torch.zeros((rt, ray_tile), dtype=torch.bool, device=dev)
+    bound = torch.full((rt,), INF, dtype=torch.float32, device=dev)
+    running = torch.ones((rt,), dtype=torch.bool, device=dev)
+    per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    blocks = lane_blocks = 0
+    for j in range(nc):
+        running &= enter[:, j] < bound
+        tiles = torch.nonzero(running).flatten()
+        if tiles.numel() == 0:
+            break
+        first = order[tiles, j].long() * bpc
+        start = bound[tiles]
+        # Block by block: a lane occluded in one block is not tested in the
+        # next, which the work count follows.
+        for b in range(bpc):
+            go = enter_blk[tiles, first + b] < start
+            ti, blk = tiles[go], first[go] + b
+            if count_work:
+                blocks += ti.numel()
+                lane_blocks += int((~occ[ti] & (mt[ti] > 0)).sum())
+            for c0 in range(0, ti.numel(), per_call):
+                tc = ti[c0 : c0 + per_call]
+                occ[tc] |= _blocked(ft[tc], mt[tc], w, blk[c0 : c0 + per_call], tb)
+        bound[tiles] = torch.where(occ[tiles], -INF, mt[tiles]).amax(dim=1)
+    out = occ.reshape(-1).to(torch.int32)
+    return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
+
+
+def _padded_rays(o, d, lanes, ray_tile: int):
+    """``(o, d, feats, lanes, pad)`` padded to a ``ray_tile`` multiple; padded
+    lanes carry o = 0, d = (1, 1, 1) and lane value 0."""
+    feats = pack_rays(o, d)
+    pad = (-o.shape[0]) % ray_tile
     if pad:
         feats = torch.cat([feats, feats.new_zeros((pad, K))])
         o = torch.cat([o, o.new_zeros((pad, 3))])
         d = torch.cat([d, d.new_ones((pad, 3))])
-        alive_i = torch.cat([alive_i, alive_i.new_zeros((pad,))])
-    mask, enter = tile_block_mask(
-        o, d, packed, ray_tile, alive=None if alive is None and not pad else alive_i > 0
+        lanes = torch.cat([lanes, lanes.new_zeros((pad,))])
+    return o, d, feats, lanes, pad
+
+
+def _alive_lanes(o, d, alive, ray_tile: int):
+    """The closest-hit lane inputs: ``(o, d, feats, alive_i, cull_alive)``,
+    where ``cull_alive`` is the live mask the tile frustums follow (None
+    when every lane is live)."""
+    alive_i = (
+        torch.ones((o.shape[0],), dtype=torch.int32, device=o.device)
+        if alive is None
+        else alive.to(torch.int32)
     )
+    o, d, feats, alive_i, pad = _padded_rays(o, d, alive_i, ray_tile)
+    return o, d, feats, alive_i, None if alive is None and not pad else alive_i > 0
+
+
+def _stream_pack(packed: PackedScene):
+    """``(padded pack, bpc)`` of the streamed route."""
+    bpc = _plan_stream_shape(packed.w.shape[0], packed.tri_block)
+    return _pad_blocks(packed, bpc), bpc
+
+
+def prepare_rays(o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE):
+    """The closest-hit inputs of the resident route for rays (R, 3) with
+    unit directions: ``(order, enter, feats, alive_i)``, padded to a
+    ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and are dead."""
+    o, d, feats, alive_i, cull = _alive_lanes(o, d, alive, ray_tile)
+    mask, enter = tile_block_mask(o, d, packed, ray_tile, alive=cull)
     order, enter_sorted = plan_block_order(mask, enter)
     return order, enter_sorted, feats, alive_i
 
 
-def intersect_packed(
-    o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE, hit_fn=None
-) -> Hit:
-    """Closest hit of rays (R, 3) against the packed scene; ``d`` must be
-    unit directions. ``tri`` holds scene rows (``tri_map`` applied).
+def prepare_rays_streamed(o, d, packed: PackedScene, alive=None, ray_tile: int = STREAM_RAY_TILE):
+    """The closest-hit inputs of the streamed route: ``(order, enter,
+    enter_blk, feats, alive_i, w)``, with the pack's blocks padded to whole
+    clusters (``w`` is the padded pack's)."""
+    padded, bpc = _stream_pack(packed)
+    o, d, feats, alive_i, cull = _alive_lanes(o, d, alive, ray_tile)
+    mask, enter = tile_block_mask(o, d, padded, ray_tile, alive=cull)
+    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
+    return order, enter_sorted, enter_blk, feats, alive_i, padded.w
 
-    ``alive`` (R,) bool: dead lanes are left out of the tile frustums and
-    report no hit. ``hit_fn`` is the search (``closest_hit`` by default;
-    ``closest_hit_reference`` forces the plain version on any device).
-    """
-    r = o.shape[0]
-    order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
-    best_t, best_i = (hit_fn or closest_hit)(order, enter, feats, alive_i, packed.w, ray_tile)
+
+def _hits(best_t, best_i, packed: PackedScene, r: int) -> Hit:
     best_t = best_t[:r]
     best_i = best_i[:r].long()
     hit = best_i >= 0
@@ -496,35 +762,97 @@ def intersect_packed(
     return Hit(t=torch.where(hit, best_t, BIG), tri=tri, hit=hit)
 
 
+def intersect_packed(
+    o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False
+) -> Hit:
+    """Closest hit of rays (R, 3) against the packed scene; ``d`` must be
+    unit directions. ``tri`` holds scene rows (``tri_map`` applied).
+
+    The pack's size picks the route (``is_resident``); the streamed route
+    tiles rays by ``STREAM_RAY_TILE`` unless ``ray_tile`` is not the
+    default. ``alive`` (R,) bool: dead lanes are left out of the tile
+    frustums and report no hit. ``plain=True`` runs the plain versions on
+    any device.
+    """
+    if is_resident(packed):
+        search = closest_hit_reference if plain else closest_hit
+        order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
+        best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile)
+    else:
+        search = closest_hit_streamed_reference if plain else closest_hit_streamed
+        ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
+        best_t, best_i = search(*prepare_rays_streamed(o, d, packed, alive, ray_tile), ray_tile)
+    return _hits(best_t, best_i, packed, o.shape[0])
+
+
+def _shadow_lanes(o, d, max_t, ray_tile: int):
+    o, d, feats, maxt, _ = _padded_rays(o, d, max_t.to(torch.float32), ray_tile)
+    return o, d, feats, maxt.contiguous()
+
+
 def prepare_shadow_rays(o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE):
-    """The any-hit inputs for rays (R, 3) with unit directions and cutoffs
-    ``max_t`` (R,): ``(order, enter, feats, maxt)``, padded to a
-    ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and
+    """The any-hit inputs of the resident route for rays (R, 3) with unit
+    directions and cutoffs ``max_t`` (R,): ``(order, enter, feats, maxt)``,
+    padded to a ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and
     ``max_t = 0``; lanes with ``max_t = 0`` are left out of the tile
     frustums."""
-    r = o.shape[0]
-    feats = pack_rays(o, d)
-    pad = (-r) % ray_tile
-    if pad:
-        feats = torch.cat([feats, feats.new_zeros((pad, K))])
-        o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, d.new_ones((pad, 3))])
-        max_t = torch.cat([max_t, max_t.new_zeros((pad,))])
-    maxt = max_t.to(torch.float32).contiguous()
+    o, d, feats, maxt = _shadow_lanes(o, d, max_t, ray_tile)
     mask, enter = tile_block_mask(o, d, packed, ray_tile, alive=maxt > 0)
     order, enter_sorted = plan_block_order(mask, enter)
     return order, enter_sorted, feats, maxt
 
 
+def prepare_shadow_rays_streamed(o, d, max_t, packed: PackedScene, ray_tile: int = STREAM_RAY_TILE):
+    """The any-hit inputs of the streamed route: ``(order, enter, enter_blk,
+    feats, maxt, w)``, as ``prepare_rays_streamed`` builds them."""
+    padded, bpc = _stream_pack(packed)
+    o, d, feats, maxt = _shadow_lanes(o, d, max_t, ray_tile)
+    mask, enter = tile_block_mask(o, d, padded, ray_tile, alive=maxt > 0)
+    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
+    return order, enter_sorted, enter_blk, feats, maxt, padded.w
+
+
 def intersect_packed_occluded(
-    o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE, occ_fn=None
+    o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False
 ) -> torch.Tensor:
     """Occlusion of rays (R, 3) with unit directions: (R,) bool, True where
     some accepted hit has t in (EPSILON, ``max_t``). ``max_t = 0`` marks
-    lanes that need no test; they report False. ``occ_fn`` is the search
-    (``occluded`` by default; ``occluded_reference`` forces the plain
-    version on any device)."""
-    r = o.shape[0]
-    order, enter, feats, maxt = prepare_shadow_rays(o, d, max_t, packed, ray_tile)
-    occ = (occ_fn or occluded)(order, enter, feats, maxt, packed.w, ray_tile)
-    return occ[:r] > 0
+    lanes that need no test; they report False. The route, the ray tile
+    and ``plain`` as in ``intersect_packed``."""
+    if is_resident(packed):
+        search = occluded_reference if plain else occluded
+        occ = search(*prepare_shadow_rays(o, d, max_t, packed, ray_tile), packed.w, ray_tile)
+    else:
+        search = occluded_streamed_reference if plain else occluded_streamed
+        ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
+        occ = search(*prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile), ray_tile)
+    return occ[: o.shape[0]] > 0
+
+
+def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir"):
+    """Wrap a closest-hit function ``(o, d, alive=None) -> Hit`` with a sort
+    of its rays for tile coherence, as the JAX package's
+    ``make_sorted_intersect``: the key is (direction octant, direction
+    Morton, origin Morton) for ``"dir"`` and (octant, origin Morton,
+    direction Morton) for ``"origin"``, the origin box is the pack's, and
+    results are scattered back to the caller's order."""
+    if key_mode not in ("dir", "origin"):
+        raise ValueError(f"unknown sort key {key_mode!r}")
+    lo = packed.box_lo.amin(dim=0)
+    hi = packed.box_hi.amax(dim=0)
+
+    def wrapped(o, d, alive=None) -> Hit:
+        octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+        dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
+        om = _morton_codes(o, lo, hi)
+        if key_mode == "origin":
+            key = (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
+        else:
+            key = (octant << 27) | ((dm >> 18) << 15) | (om >> 15)
+        perm = torch.argsort(key, stable=True)
+        h = intersect_fn(o[perm], d[perm], alive=None if alive is None else alive[perm])
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv])
+
+    return wrapped

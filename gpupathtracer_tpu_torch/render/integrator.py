@@ -9,11 +9,12 @@ vertex also samples a point on an emitter (area-weighted) and casts a shadow
 ray; ``"mis"`` weights that light sample and the emitter hits of BSDF
 samples with the balance heuristic. Liveness is data: dead lanes keep
 executing with no effect. Bounce 0 runs uncompacted; the later bounces
-permute live rays to the front (``ops/compaction.py``), and shadow rays are
-compacted the same way on every bounce.
+permute live rays to the front (``ops/compaction.py``), sorted for tile
+coherence with ``sort_rays``, and shadow rays are compacted (never sorted)
+on every bounce.
 
-Options outside this path (mirror and glass, Russian roulette, ray sorting,
-other compaction modes) raise NotImplementedError.
+Options outside this path (mirror and glass, Russian roulette, other
+compaction modes) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from gpupathtracer_tpu_torch.models.materials import BxdfType, textured_albedo
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
-from gpupathtracer_tpu_torch.ops.compaction import compact_rays
+from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent
 from gpupathtracer_tpu_torch.ops.intersect import Hit, resolve_hits
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, cosine_sample_hemisphere, local_to_world
 
@@ -40,6 +41,7 @@ RAY_OFFSET = 1e-4
 _KERNEL_INTERSECTORS = ("auto", "pallas")
 _PLAIN_INTERSECTORS = ("plucker",)
 _ESTIMATORS = ("naive", "nee", "mis")
+_SORT_KEYS = ("dir", "origin")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +53,11 @@ class IntegratorOptions:
     use_shading_normals: bool = False
     intersector: str = "auto"
     estimator: str = "naive"  # "naive", "nee" or "mis"
-    sort_rays: bool = False  # not ported
+    # Sort rays for tile coherence: folded into the compaction permutation
+    # of the scan bounces (compact_rays_coherent), or, with compaction off, a
+    # sort around every closest-hit call (make_sorted_intersect).
+    sort_rays: bool = False
+    sort_key: str = "dir"  # "dir" or "origin": the sort key's layout
     compact: bool = True
     compact_mode: str = "permute"
     material_set: tuple = (0, 1, 2, 3)
@@ -67,7 +73,6 @@ def check_supported(options: IntegratorOptions) -> None:
         (BxdfType.MIRROR in options.material_set, "mirror materials"),
         (BxdfType.GLASS in options.material_set, "glass materials"),
         (options.rr_start is not None, "Russian roulette (rr_start)"),
-        (options.sort_rays, "ray sorting (sort_rays)"),
         (options.compact_mode != "permute", f"compact_mode {options.compact_mode!r}"),
         (options.intersector in ("bvh", "brute"), f"the {options.intersector} intersector"),
         (options.rng != "pcg", f"rng {options.rng!r}"),
@@ -79,21 +84,25 @@ def check_supported(options: IntegratorOptions) -> None:
         raise ValueError(f"unknown intersector {options.intersector!r}")
     if options.estimator not in _ESTIMATORS:
         raise ValueError(f"unknown estimator {options.estimator!r}")
+    if options.sort_key not in _SORT_KEYS:
+        raise ValueError(f"unknown sort key {options.sort_key!r}")
 
 
 def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=None):
     """Closest-hit function ``(o, d, alive=None) -> Hit`` over the packed
     scene (packed here at ``options.tri_block`` unless ``packed`` is
-    given)."""
+    given). With ``sort_rays`` and compaction off it sorts every call's rays
+    (``make_sorted_intersect``); with compaction on the sort is part of the
+    compaction permutation instead."""
     check_supported(options)
     if packed is None:
         packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
-    hit_fn = (
-        packed_intersect.closest_hit_reference
-        if options.intersector in _PLAIN_INTERSECTORS
-        else packed_intersect.closest_hit
+    fn = partial(
+        packed_intersect.intersect_packed, packed=packed, plain=options.intersector in _PLAIN_INTERSECTORS
     )
-    return partial(packed_intersect.intersect_packed, packed=packed, hit_fn=hit_fn)
+    if options.sort_rays and not options.compact:
+        return packed_intersect.make_sorted_intersect(fn, packed, key_mode=options.sort_key)
+    return fn
 
 
 def make_occlusion_fn(
@@ -102,26 +111,37 @@ def make_occlusion_fn(
     """``occluded(o, d, max_t) -> bool (R,)``: some accepted hit with
     t < max_t; lanes with ``max_t = 0`` report False.
 
-    ``use_kernel=True`` runs the any-hit search (``occluded``, or
-    ``occluded_reference`` for the plain intersector) over ``packed``;
-    otherwise the closest hit of ``intersect_fn`` is thresholded, with the
-    ``max_t = 0`` lanes passed as dead. Both answer the same predicate.
+    ``use_kernel=True`` runs the any-hit search over ``packed`` (its plain
+    version for the plain intersector); otherwise the closest hit of
+    ``intersect_fn`` is thresholded, with the ``max_t = 0`` lanes passed as
+    dead. Both answer the same predicate.
     """
     if use_kernel:
         if packed is None:
             packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
-        occ_fn = (
-            packed_intersect.occluded_reference
-            if options.intersector in _PLAIN_INTERSECTORS
-            else packed_intersect.occluded
+        return partial(
+            packed_intersect.intersect_packed_occluded, packed=packed,
+            plain=options.intersector in _PLAIN_INTERSECTORS,
         )
-        return partial(packed_intersect.intersect_packed_occluded, packed=packed, occ_fn=occ_fn)
 
     def threshold(o, d, mt):
         h = intersect_fn(o, d, alive=mt > 0)
         return h.hit & (h.t < mt)
 
     return threshold
+
+
+def light_table(scene: TriangleScene):
+    """The area-weighted light table over the live emitter triangles:
+    ``(light_cdf, total_light_area)``, both float32. Areas and their prefix
+    sums are taken in float64 and the CDF is rounded once, so it is the same
+    on the CPU and the card: in float32 both the cross product's rounding
+    and the cumsum's scan order differ between devices. The total is a
+    plain float32 sum of the rounded areas."""
+    tri_area = 0.5 * torch.linalg.norm(torch.linalg.cross(scene.e1.double(), scene.e2.double()), dim=-1)
+    tri_is_light = (scene.materials.type[scene.mat_id] == BxdfType.EMITTER) & scene.valid
+    light_w = tri_area * tri_is_light.to(torch.float64)
+    return torch.cumsum(light_w, 0).float(), light_w.float().sum()
 
 
 def _gather_materials(scene: TriangleScene, mat_id: torch.Tensor, textured: bool = False) -> dict:
@@ -229,19 +249,16 @@ def make_bounce_fn(
 
     if nee:
         occlude = make_occlusion_fn(scene, options, intersect_fn, packed=packed, use_kernel=occlusion_kernel)
-        # Area-weighted light table over the emissive triangles.
-        tri_area = 0.5 * torch.linalg.norm(torch.linalg.cross(scene.e1, scene.e2), dim=-1)
-        tri_is_light = (scene.materials.type[scene.mat_id] == BxdfType.EMITTER) & scene.valid
-        light_w = tri_area * tri_is_light.to(torch.float32)
-        total_light_area = light_w.sum()
-        light_cdf = torch.cumsum(light_w, 0)
+        light_cdf, total_light_area = light_table(scene)
+
+    compact = partial(compact_rays_coherent, key_mode=options.sort_key) if options.sort_rays else compact_rays
 
     def masked_intersect(o, d, mask, compact_now: bool) -> Hit:
         """Closest hit for lanes where ``mask`` holds; others report no hit."""
         if not (options.compact and compact_now):
             h = intersect_fn(o, d)
             return Hit(t=h.t, tri=h.tri, hit=h.hit & mask)
-        o_c, d_c, inv = compact_rays(o, d, mask)
+        o_c, d_c, inv = compact(o, d, mask)
         h = intersect_fn(o_c, d_c)
         return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv] & mask)
 

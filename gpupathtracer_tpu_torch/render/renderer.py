@@ -16,7 +16,8 @@ import torch
 from gpupathtracer_tpu_torch.core.tensors import resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
-from gpupathtracer_tpu_torch.ops.packed_intersect import pack_scene
+from gpupathtracer_tpu_torch.ops import packed_intersect
+from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
 from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, check_supported, trace_paths
 
@@ -41,9 +42,11 @@ class RenderSettings:
     use_shading_normals: bool = False
     intersector: str = "auto"  # see render/integrator.py
     estimator: str = "naive"
-    # "auto" resolves to False: the JAX package sorts only scenes too large
-    # for its VMEM-resident kernel, and the port's kernel takes any size.
+    # "auto" resolves by the pack's size (narrow_settings): a pack on the
+    # streamed route sorts with the "origin" key, a resident one does not
+    # sort and keeps "dir".
     sort_rays: bool | str = "auto"
+    sort_key: str = "auto"
     compact: bool = True
     compact_mode: str = "permute"
     rng: str = "pcg"
@@ -61,6 +64,7 @@ def _integrator_options(s: RenderSettings) -> IntegratorOptions:
         intersector=s.intersector,
         estimator=s.estimator,
         sort_rays=s.sort_rays if isinstance(s.sort_rays, bool) else False,
+        sort_key=s.sort_key if s.sort_key != "auto" else "dir",
         compact=s.compact,
         compact_mode=s.compact_mode,
         material_set=s.material_set,
@@ -75,9 +79,20 @@ _FULL_MATERIAL_SET = (0, 1, 2, 3)
 def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSettings:
     """Narrow a still-default ``material_set`` to the types the scene's live
     triangles use, turn ``textured`` on when a live material uses a texture
-    (never off), and resolve ``sort_rays="auto"`` (to False)."""
-    if settings.sort_rays == "auto":
-        settings = dataclasses.replace(settings, sort_rays=False)
+    (never off), and resolve the sort autos as the JAX package does: the
+    primary pack's size (live rows plus two-sided duplicates, rounded up to
+    whole blocks of ``tri_block``) against ``RESIDENT_BUDGET_BYTES`` decides
+    ``sort_rays`` (on when streamed) and ``sort_key`` ("origin" when
+    streamed, else "dir"). An explicit value wins."""
+    if settings.sort_rays == "auto" or settings.sort_key == "auto":
+        rows = int(scene.valid.sum()) + int((scene.two_sided & scene.valid).sum())
+        tb = settings.tri_block
+        rows_padded = -(-rows // tb) * tb
+        streamed = rows_padded * K * NSCALARS * 4 > packed_intersect.RESIDENT_BUDGET_BYTES
+        if settings.sort_rays == "auto":
+            settings = dataclasses.replace(settings, sort_rays=streamed)
+        if settings.sort_key == "auto":
+            settings = dataclasses.replace(settings, sort_key="origin" if streamed else "dir")
     if not settings.textured:
         used = torch.unique(scene.mat_id[scene.valid])
         if bool((scene.materials.tex_kind[used] > 0).any()):
@@ -114,10 +129,10 @@ def render_frame(
     settings = narrow_settings(scene, settings)
     check_supported(_integrator_options(settings))
     with torch.no_grad():
-        packed = pack_scene(scene, tri_block=settings.tri_block)
+        packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)
         packed2 = None
         if settings.tri_block_secondary is not None and settings.bounces > 1:
-            packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
+            packed2 = packed_intersect.pack_scene(scene, tri_block=settings.tri_block_secondary)
         pixel_idx = torch.arange(h * w, device=device)
         key_data = prng_key_data(settings.seed if seed is None else seed)
         film_sum = accumulate_radiance(

@@ -131,6 +131,7 @@ def parse_config(cfg: dict, config_dir: str = "."):
         intersector=rnd.get("intersector", "auto"),
         estimator=rnd.get("estimator", "naive"),
         sort_rays=sort_rays if sort_rays == "auto" else bool(sort_rays),
+        sort_key=rnd.get("sort_key", "auto"),
         compact=bool(rnd.get("compact", True)),
         compact_mode=rnd.get("compact_mode", "permute"),
         rng=rnd.get("rng", "pcg"),

@@ -30,3 +30,23 @@ def test_compact_rays_equal_jax():
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
     np.testing.assert_array_equal(to.numpy()[tinv.numpy()][alive], o[alive])
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 0.9, 1.0])
+@pytest.mark.parametrize("key_mode", ["dir", "origin"])
+def test_compact_rays_coherent_equal_jax(key_mode, share):
+    """Compaction with the coherence sort: the same permutation, rays and
+    parked lanes as the JAX package's, for both key layouts."""
+    rng = np.random.default_rng(int(share * 10) + 7)
+    o = (rng.normal(size=(1500, 3)) * 3).astype(np.float32)
+    d = rng.normal(size=(1500, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    alive = rng.uniform(size=1500) < share
+    jo, jd, jinv = jc.compact_rays_coherent(jnp.asarray(o), jnp.asarray(d), jnp.asarray(alive), key_mode=key_mode)
+    to, td, tinv = tc.compact_rays_coherent(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(alive),
+                                            key_mode=key_mode)
+    np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(to.numpy()[tinv.numpy()][alive], o[alive])
+    assert (tinv.numpy()[alive] < alive.sum()).all()  # live lanes first

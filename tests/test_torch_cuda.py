@@ -1,5 +1,5 @@
-"""The closest-hit and any-hit CUDA kernels against their plain PyTorch
-versions, on the card.
+"""The closest-hit and any-hit CUDA kernels, resident and streamed, against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it also runs where only the port is installed:
@@ -132,3 +132,50 @@ def test_render_kernel_matches_plain_version(device):
     assert torch.isfinite(got).all()
     assert diff.mean().item() < 2e-3
     assert (diff.amax(dim=-1) > 3e-2).double().mean().item() < 5e-3
+
+
+# (tri_block, cluster bytes): 1, 4 and every block per cluster, and 300 KB
+# clusters of 256-wide blocks (bpc 3).
+STREAM_SHAPES = [(128, 40 * 1024), (128, 200 * 1024), (64, 1 << 20), (256, 300 * 1024)]
+
+
+@pytest.mark.parametrize("tb,cluster_bytes", STREAM_SHAPES)
+def test_streamed_kernel_matches_plain_version(device, tb, cluster_bytes, monkeypatch):
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", cluster_bytes)
+    scene, o, d = _random_scene(device, seed=tb + 7)
+    packed = tpi.pack_scene(scene, tri_block=tb)
+    alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(3)) < 0.8).to(device)
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
+    before = tpi.closest_hit_streamed.launches
+    bt, bi = tpi.closest_hit_streamed(*args)
+    assert tpi.closest_hit_streamed.launches == before + 1
+    rt, ri = tpi.closest_hit_streamed_reference(*args)
+    torch.cuda.synchronize()
+    assert (bi == ri).double().mean().item() > 0.9995
+    same = (bi == ri) & (ri >= 0)
+    assert same.sum() > 100
+    torch.testing.assert_close(bt[same], rt[same], rtol=1e-5, atol=1e-5)
+    dead = args[4] == 0
+    assert (bi[dead] == -1).all() and torch.isneginf(bt[dead]).all()
+
+
+@pytest.mark.parametrize("tb,cluster_bytes", STREAM_SHAPES)
+def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_bytes, monkeypatch):
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", cluster_bytes)
+    scene, o, d = _random_scene(device, seed=tb + 8)
+    packed = tpi.pack_scene(scene, tri_block=tb)
+    hit = tpi.intersect_packed(o, d, packed)
+    g = torch.Generator().manual_seed(4)
+    scale = (0.5 + torch.rand(o.shape[0], generator=g)).to(device)
+    maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
+    maxt = torch.where(torch.rand(o.shape[0], generator=g).to(device) < 0.1, 0.0, maxt)
+    args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed)
+    before = tpi.occluded_streamed.launches
+    occ = tpi.occluded_streamed(*args)
+    assert tpi.occluded_streamed.launches == before + 1
+    ref = tpi.occluded_streamed_reference(*args)
+    torch.cuda.synchronize()
+    assert occ.dtype == torch.int32
+    assert (occ == ref).double().mean().item() >= 0.9995
+    assert 0.1 < ref.double().mean().item() < 0.9
+    assert (occ[args[4] == 0] == 0).all()

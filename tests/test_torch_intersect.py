@@ -216,7 +216,7 @@ def test_occluded_matches_pallas_and_thresholded_oracle(seed, tb, ray_tile):
     ))
     got = tpi.intersect_packed_occluded(
         torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(max_t), tpi.pack_scene(ts, tri_block=tb),
-        ray_tile=ray_tile, occ_fn=tpi.occluded_reference,
+        ray_tile=ray_tile, plain=True,
     ).numpy()
     expect = hit_ref & (t_ref < max_t)
     assert expect.sum() > 50 and (~expect & ~dead).sum() > 50  # both outcomes exercised

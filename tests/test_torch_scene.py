@@ -14,12 +14,14 @@ from gpupathtracer_tpu.models import obj as j_obj
 from gpupathtracer_tpu.models import scene as j_scene
 from gpupathtracer_tpu.models.camera import Camera as JCamera
 from gpupathtracer_tpu.models.camera import generate_rays_for_pixels as j_rays
+from gpupathtracer_tpu.render.renderer import narrow_settings as j_narrow
 from gpupathtracer_tpu.utils.config import load_scene_file as j_load
 from gpupathtracer_tpu_torch import interop
 from gpupathtracer_tpu_torch.models import obj as t_obj
 from gpupathtracer_tpu_torch.models import scene as t_scene
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels as t_rays
 from gpupathtracer_tpu_torch.models.materials import MaterialTable
+from gpupathtracer_tpu_torch.render.renderer import narrow_settings as t_narrow
 from gpupathtracer_tpu_torch.utils.config import load_scene_file as t_load
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
@@ -49,7 +51,10 @@ def assert_scene_equal(js, ts):
         _assert_field(name, getattr(js.materials, name), getattr(ts.materials, name))
 
 
-@pytest.mark.parametrize("config", ["config3_icosphere.toml", "config5_invert_target.toml", "config8_icosphere.toml"])
+@pytest.mark.parametrize(
+    "config",
+    ["config3_icosphere.toml", "config5_invert_target.toml", "config8_icosphere.toml", "config6_icosphere.toml"],
+)
 def test_config_loads_equal_jax(config):
     path = os.path.join(SCENES, config)
     js, jc, jst = j_load(path)
@@ -59,8 +64,13 @@ def test_config_loads_equal_jax(config):
         _assert_field(name, getattr(jc, name), getattr(tc, name))
     assert (tc.width, tc.height) == (jc.width, jc.height)
     for name in ("width", "height", "spp", "bounces", "seed", "jitter", "background",
-                 "tri_block", "tri_block_secondary", "estimator", "compact_mode"):
+                 "tri_block", "tri_block_secondary", "estimator", "compact_mode", "sort_rays", "sort_key"):
         assert getattr(tst, name) == getattr(jst, name), name
+    # The sort autos resolve alike; only the config 6 stand-in's pack is
+    # past the resident budget (decided from row counts, nothing is packed).
+    jn, tn = j_narrow(js, jst), t_narrow(ts, tst)
+    assert (tn.sort_rays, tn.sort_key) == (jn.sort_rays, jn.sort_key)
+    assert (tn.sort_rays, tn.sort_key) == ((True, "origin") if config == "config6_icosphere.toml" else (False, "dir"))
 
 
 def _random_mesh(pkg, rng, n):
