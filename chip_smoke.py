@@ -5,7 +5,9 @@
 Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the four kernel sources of csrc/ from this checkout,
-   all started together;
+   all started together, with ptxas's registers and shared memory per
+   kernel, and each streamed kernel's launch shape at the 64-ray tile with
+   its resident CTAs and warps per SM;
 3. the closest-hit kernel K1 against its plain PyTorch version at the naive
    path's shapes: 640,000 camera rays against the tri_block-128 pack and
    640,000 bounce-1 rays (traced with the plain version, compacted as the
@@ -30,6 +32,8 @@ Phases, one line each; any failure raises and exits non-zero:
    more frame under torch.profiler split by kernel, with the device's idle
    share;
 then the streamed path, on a pack past the 16 MiB resident budget:
+   (once per streamed pack, on the card: w is zero outside the 25 live
+   slots that the streamed kernels read, and finite)
 9. the streamed closest-hit kernel K3 against its plain version at the
    streamed path's shapes: 640,000 camera rays against the tri_block-256
    pack (64-ray tiles, 12 blocks per cluster) and 640,000 bounce-1 rays
@@ -94,7 +98,7 @@ from gpupathtracer_tpu_torch.ops.packed_intersect import (
     prepare_rays,
     prepare_rays_streamed,
 )
-from gpupathtracer_tpu_torch.ops.plucker import NSCALARS
+from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
 from gpupathtracer_tpu_torch.render.integrator import (
     IntegratorOptions,
@@ -137,9 +141,11 @@ KERNELS = {
 # needs, and device memory.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# Per (lane, triangle column) of a visited block: 5 decision scalars x the
-# 10 nonzero feature rows x (multiply + add).
-FLOP_PER_PAIR = NSCALARS * 10 * 2
+# Per (lane, triangle column) of a visited block: one multiply and one add
+# for each of the 25 (scalar, feature row) slots that a packed column can
+# hold nonzero. The other 55 are structural zeros, and the bound counts what
+# these inputs need, as for a sparse product, not the dense 5 x 16 product.
+FLOP_PER_PAIR = 2 * len(LIVE_SLOTS)
 
 # Parity bars of the reference's own on-chip tests (tests_tpu/test_onchip.py).
 HIT_AGREE = 0.9995  # share of rays with the same winning triangle
@@ -180,6 +186,18 @@ def phase_device() -> str:
     return line
 
 
+def ptxas_usage(report: str) -> dict:
+    """ptxas's "Used ..." line of each kernel entry in an nvcc -Xptxas -v
+    report, by mangled entry name."""
+    usage, entry = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "Used" in ln and entry is not None:
+            usage[entry] = ln.split("info    :")[-1].strip()
+    return usage
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     reports = _build.build()
@@ -192,6 +210,30 @@ def phase_build() -> None:
         parts.append(f"{os.path.relpath(_build.source(name), ROOT)} -> "
                      f"{os.path.relpath(_build.library_path(name), ROOT)} ({usage})")
     print(f"build: nvcc, {len(reports)} sources in parallel, {dt:.2f} s: " + "; ".join(parts), flush=True)
+    for name in _build.OCCUPANCY:
+        occ = packed_intersect.stream_occupancy(name, STREAM_RAY_TILE)
+        # K3 is a template on rays a thread: its entries' names carry ILi<rpt>E.
+        used = [u for e, u in ptxas_usage(reports[name]).items()
+                if "ILi" not in e or f"ILi{occ['rays_per_thread']}E" in e]
+        occ["ptxas"] = "; ".join(used)
+        print(f"occupancy {name}: {json.dumps(occ)}", flush=True)
+
+
+def phase_live_zeros(label: str, packed) -> None:
+    """The w that the streamed kernels get from this pack is exactly zero
+    outside LIVE_SLOTS and finite everywhere (they read only the live
+    slots); checked on the pack's device, once per pack."""
+    w = packed_intersect._stream_pack(packed)[0].w
+    nb, tb = w.shape[0], w.shape[2] // NSCALARS
+    live = torch.zeros((K, NSCALARS), dtype=torch.bool, device=w.device)
+    for s, k in LIVE_SLOTS:
+        live[k, s] = True
+    outside = w.view(nb, K, NSCALARS, tb).permute(1, 2, 0, 3)[~live]
+    row = {"blocks": nb, "tri_block": tb, "slots_outside": int((~live).sum()),
+           "nonzero_outside": int((outside != 0).sum()), "finite": bool(torch.isfinite(w).all())}
+    print(f"live slots, streamed pack {label} (bar: nonzero_outside = 0, finite): {json.dumps(row)}", flush=True)
+    if row["nonzero_outside"] or not row["finite"]:
+        raise AssertionError(f"the streamed pack {label} breaks the live-slot contract: {row}")
 
 
 def bound(flop: float, nbytes: float) -> dict:
@@ -547,6 +589,8 @@ def main() -> None:
     settings = dataclasses.replace(settings, spp=2)  # the bench's spp for config 6
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
+    for p in (packed, packed2):
+        phase_live_zeros(f"tb {p.tri_block}", p)
     (o, d), (o2, d2) = main_path_rays(scene, camera, settings, packed)
     k3_rows = [
         phase_streamed_check("camera rays", o, d, packed),

@@ -1,8 +1,9 @@
-// The parts the packed-search kernels share (closest_hit.cu, occlusion.cu,
-// closest_hit_streamed.cu, occlusion_streamed.cu): loading a ray's features,
-// staging a block's triangle columns into shared memory, the five decision
-// dot products, the closest-hit and any-hit tests of one block, and the
-// CTA-wide max that bounds each tile's early exit.
+// The parts the resident packed-search kernels share (closest_hit.cu,
+// occlusion.cu): loading a ray's features, staging a block's triangle
+// columns into shared memory, the five decision dot products, the
+// closest-hit and any-hit tests of one block, and the CTA-wide max that
+// bounds each tile's early exit. The streamed kernels take the constants and
+// the CTA max from here and stage and multiply through stream_stage.cuh.
 //
 // Layouts (row-major, contiguous):
 //   feats  float (rt*TR, 16)    ray features [d, o x d, o, 1, 0...]

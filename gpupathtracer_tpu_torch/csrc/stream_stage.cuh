@@ -1,0 +1,255 @@
+// What the streamed searches share (closest_hit_streamed.cu, K3, and
+// occlusion_streamed.cu, K4): the live-slot contract of a triangle column,
+// the sparse decision dot products, and a ring of shared-memory stages that
+// asynchronous copies fill along a cluster's computed blocks.
+//
+// The slot contract. A packed triangle column (w is (nb, 16, 5*tb), see
+// decision.cuh) has 5 x 16 (scalar, feature row) slots, but pack_scene fills
+// only 25 of them: s0, s1 and s2 read rows 0-5 ([d, o x d]), D reads rows
+// 0-2 (d) and num reads rows 6-9 ([o, 1]). Every other slot is exactly 0,
+// and pack_rays leaves feature rows 10-15 at 0 (ops/plucker.py LIVE_SLOTS;
+// tests/test_torch_slots.py holds the packs, the rays and the table below to
+// it). So a staged chunk holds 25 row segments, not 80, and a (ray, column)
+// pair takes 25 FMAs, not 80. The kernels rely on w coming from pack_scene.
+//
+// The sums stay bit-identical to decision.cuh's 16-term chains: each
+// scalar's accumulator starts at 0 and takes fmaf(f[k], w[s][k], acc) over
+// that scalar's live rows in ascending k. A dropped term adds f * 0 = +-0
+// (the features are finite: padded lanes carry o = 0, dead lanes
+// DEAD_ORIGIN), which leaves a nonzero accumulator unchanged and can only
+// flip the sign of a zero one, and a signed zero decides nothing: edge <= 0
+// holds for both, dd <= -EPS and num < EPS * dd fail for both.
+//
+// The ring. STAGES stages of NLIVE x CHUNK floats ([slot][column], 12.8 KB
+// each) in dynamic shared memory, filled with cp.async.cg: 16 bytes a
+// thread, one warp per 512-byte row segment, every warp of the CTA copying,
+// completion by commit/wait groups and then one CTA barrier per chunk. This
+// rather than the bulk copy (cp.async.bulk with an mbarrier): every thread
+// meets at one barrier per chunk anyway (K4 exchanges its occlusion flags
+// there), so a producer warp with full/empty barrier pairs would add
+// bookkeeping and no overlap, and 16-byte copies need nothing beyond the
+// tb % 4 == 0 and 16-byte base alignment the wrappers check. The copies run
+// STAGES - 1 chunks ahead of the arithmetic along the cluster's computed
+// blocks, across block boundaries. That set is fixed at the cluster's start,
+// because every skip tests against the cluster-start worst (K3) or bound
+// (K4). The ring does not fetch into the next scheduled cluster: which of
+// its blocks are computed depends on the bound this cluster leaves.
+
+#pragma once
+
+#include "decision.cuh"
+
+#include <utility>
+
+namespace stream {
+
+using decision::BIG;
+using decision::CHUNK;
+using decision::EPS;
+using decision::K;
+using decision::NS;
+
+constexpr int NLIVE = 25;          // live slots of a triangle column
+constexpr int NF = 10;             // live feature rows, 0..9
+constexpr int STAGES = 3;          // depth of the ring
+constexpr int CHUNK4 = CHUNK / 4;  // float4 columns of a full chunk (one per warp lane)
+constexpr int STAGE_FLOAT4 = NLIVE * CHUNK4;
+constexpr int RING_BYTES = STAGES * STAGE_FLOAT4 * 16;  // 38,400
+
+struct Slot {
+  int s;  // decision scalar: 0, 1, 2 = s0, s1, s2; 3 = D; 4 = num
+  int k;  // feature row
+};
+
+// The live slots in the order the kernels sum them.
+__host__ __device__ constexpr Slot live_slot(int i) {
+  constexpr Slot LIVE_SLOTS[NLIVE] = {
+      {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5},
+      {1, 0}, {1, 1}, {1, 2}, {1, 3}, {1, 4}, {1, 5},
+      {2, 0}, {2, 1}, {2, 2}, {2, 3}, {2, 4}, {2, 5},
+      {3, 0}, {3, 1}, {3, 2},
+      {4, 6}, {4, 7}, {4, 8}, {4, 9},
+  };
+  return LIVE_SLOTS[i];
+}
+
+// Row k * NS + s of a block's (16, 5) slot grid for live slot i, in closed
+// form for the copies (checked against the table below).
+__host__ __device__ constexpr int slot_row(int i) {
+  return i < 18 ? (i % 6) * NS + i / 6 : i < 21 ? (i - 18) * NS + 3 : (i - 15) * NS + 4;
+}
+
+constexpr bool slots_consistent() {
+  for (int i = 0; i < NLIVE; ++i) {
+    const Slot a = live_slot(i);
+    if (a.s < 0 || a.s >= NS || a.k < 0 || a.k >= NF || slot_row(i) != a.k * NS + a.s) return false;
+    if (i > 0) {
+      const Slot p = live_slot(i - 1);
+      if (a.s < p.s || (a.s == p.s && a.k <= p.k)) return false;  // scalar by scalar, rows ascending
+    }
+  }
+  return true;
+}
+static_assert(slots_consistent(), "the live-slot table, its closed form and its order disagree");
+
+// The live features of a ray.
+__device__ __forceinline__ void load_live_features(const float* __restrict__ feats, int ray, float f[NF]) {
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = feats[(size_t)ray * K + k];
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copies of columns [c0, c0 + cw) of the live rows of the block
+// at `wb` into `stage`: warp v copies slots v, v + nwarps, ..., lane q the
+// float4 column q.
+__device__ __forceinline__ void fetch_chunk(float4* __restrict__ stage, const float* __restrict__ wb, int tb, int c0) {
+  const int cw4 = min(CHUNK, tb - c0) / 4;
+  const int lane = threadIdx.x & 31;
+  if (lane >= cw4) return;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < NLIVE; i += nwarps) {
+    cp_async16(stage + i * CHUNK4 + lane, wb + (size_t)slot_row(i) * tb + c0 + 4 * lane);
+  }
+}
+
+// acc[r][s][c] += f[r][k] * stage[slot I][4q + c] for live slot I = (s, k).
+template <int RPT, int I>
+__device__ __forceinline__ void fma_slot(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
+                                         float (&acc)[RPT][NS][4]) {
+  constexpr Slot sl = live_slot(I);
+  const float4 v = stage[I * CHUNK4 + q];  // a broadcast: one address for the whole warp
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    acc[r][sl.s][0] = fmaf(f[r][sl.k], v.x, acc[r][sl.s][0]);
+    acc[r][sl.s][1] = fmaf(f[r][sl.k], v.y, acc[r][sl.s][1]);
+    acc[r][sl.s][2] = fmaf(f[r][sl.k], v.z, acc[r][sl.s][2]);
+    acc[r][sl.s][3] = fmaf(f[r][sl.k], v.w, acc[r][sl.s][3]);
+  }
+}
+
+template <int RPT, int... I>
+__device__ __forceinline__ void fma_slots(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
+                                          float (&acc)[RPT][NS][4], std::integer_sequence<int, I...>) {
+  (fma_slot<RPT, I>(f, stage, q, acc), ...);  // in table order
+}
+
+// acc[r][s][c] = scalar s of ray r and staged columns 4q + c: the sparse
+// decision dot products, the slots unrolled at compile time.
+template <int RPT>
+__device__ __forceinline__ void live_dots(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
+                                          float (&acc)[RPT][NS][4]) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[r][s][0] = acc[r][s][1] = acc[r][s][2] = acc[r][s][3] = 0.0f;
+  }
+  fma_slots<RPT>(f, stage, q, acc, std::make_integer_sequence<int, NLIVE>{});
+}
+
+// decision.cuh's closest-hit test of one pair: t, or BIG if not accepted.
+__device__ __forceinline__ float hit_t(float s0, float s1, float s2, float dd, float num) {
+  const float edge = fmaxf(fmaxf(s0, s1), s2);
+  float t = BIG;
+  if (edge <= 0.0f && dd <= -EPS && num < __fmul_rn(EPS, dd)) t = __fdiv_rn(num, dd);
+  return t;
+}
+
+// decision.cuh's any-hit test of one pair: an accepted hit with t in
+// (EPS, mt), division-free.
+__device__ __forceinline__ bool blocks_ray(float s0, float s1, float s2, float dd, float num, float mt) {
+  const float edge = fmaxf(fmaxf(s0, s1), s2);
+  return edge <= 0.0f && dd <= -EPS && num < __fmul_rn(EPS, dd) && num > __fmul_rn(mt, dd);
+}
+
+// The next computed block of a cluster at or after b: eb[b] < lim (eb is
+// the cluster's row of enter_blk); bpc when there is none.
+__device__ __forceinline__ int next_block(const float* __restrict__ eb, int b, int bpc, float lim) {
+  while (b < bpc && !(eb[b] < lim)) ++b;
+  return b;
+}
+
+// Walks the chunks of one cluster's computed blocks (ascending, chunks
+// ascending) through the ring and calls compute(stage, b, c0, cw4) for each,
+// with b the block within the cluster and cw4 the chunk's float4 columns.
+// `wc` is the cluster's first block in w. Every thread of the CTA calls it
+// with the same arguments; it holds one CTA barrier per chunk, and the
+// caller must hold one between two calls (the stages are refilled at once).
+template <typename Compute>
+__device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const float* __restrict__ wc,
+                                               const float* __restrict__ eb, int bpc, int tb, float lim,
+                                               Compute&& compute) {
+  const size_t block_floats = (size_t)K * NS * tb;
+  int pb = next_block(eb, 0, bpc, lim), pc = 0;  // the next chunk to fetch
+  int cb = pb, cc = 0;                           // the next chunk to compute
+  auto advance = [&](int& b, int& c0) {
+    c0 += CHUNK;
+    if (c0 >= tb) {
+      c0 = 0;
+      b = next_block(eb, b + 1, bpc, lim);
+    }
+  };
+  auto fetch = [&](int stage) {
+    if (pb < bpc) {
+      fetch_chunk(ring + stage * STAGE_FLOAT4, wc + pb * block_floats, tb, pc);
+      advance(pb, pc);
+    }
+    cp_async_commit();  // one group per chunk slot, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  int slot = 0;
+  while (cb < bpc) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk `slot` have landed
+    __syncthreads();              // everyone's have; the stage refilled next was read by all
+    fetch(slot == 0 ? STAGES - 1 : slot - 1);
+    compute(ring + slot * STAGE_FLOAT4, cb, cc, min(CHUNK, tb - cc) / 4);
+    advance(cb, cc);
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+  }
+}
+
+// The launch shape: one CTA per ray tile of `groups` column groups, each
+// of ray_tile / RPT threads (a whole number of warps) with RPT rays each.
+// Returns the threads, or 0 if the shape is not one the kernel takes.
+template <int RPT>
+inline int ring_threads(int ray_tile, int groups, int max_threads) {
+  if (ray_tile <= 0 || ray_tile % (32 * RPT) || groups < 1) return 0;
+  const int threads = ray_tile / RPT * groups;
+  return threads <= max_threads ? threads : 0;
+}
+
+// Launches `kernel` with `bytes` of dynamic shared memory and returns
+// cudaGetLastError(). The kernel's dynamic limit is set to `bytes` first:
+// by default it is 48 KB less the static shared memory.
+template <typename Kernel, typename... Args>
+inline int launch_ring(Kernel kernel, int blocks, int threads, size_t bytes, cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of `kernel` resident per SM at this shape, or -1.
+template <typename Kernel>
+inline int ring_occupancy(Kernel kernel, int threads, size_t bytes) {
+  if (threads <= 0 ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) != cudaSuccess) {
+    return -1;
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes) != cudaSuccess) return -1;
+  return n;
+}
+
+}  // namespace stream

@@ -24,7 +24,10 @@ width. Four searches walk the schedules with early exit:
   per-ray cutoff ``max_t`` (shadow rays; no division).
 
 On a CUDA tensor each launches its kernel; on a CPU tensor it runs its plain
-PyTorch version (the same name with ``_reference``).
+PyTorch version (the same name with ``_reference``). The streamed kernels
+read only the ``LIVE_SLOTS`` of ``w`` (``ops/plucker.py``), so their
+wrappers take only the ``w`` of a pack marked ``live_slots_only``, as
+``pack_scene`` marks its packs.
 """
 
 from __future__ import annotations
@@ -51,6 +54,46 @@ RESIDENT_BUDGET_BYTES = 16 * 1024 * 1024
 CLUSTER_TARGET_BYTES = 1024 * 1024
 STREAM_RAY_TILE = 64
 
+# Launch shape of the streamed kernels (csrc/stream_stage.cuh), per kernel
+# library: the threads a CTA aims at, and the rays a thread takes where the
+# ray tile allows it (K4 is built for one only). A CTA holds one ray tile as
+# column groups of ray_tile / rays_per_thread threads each. At the 64-ray
+# tile: K3 8 groups of 32 threads, K4 2 groups of 64 (the fastest shapes of
+# tools/stream_sweep.py on the H100).
+STREAM_LAUNCH = {"closest_hit_streamed": (256, 2), "occlusion_streamed": (128, 1)}
+
+
+def stream_launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
+    """``(threads, groups, rays_per_thread)`` of a streamed kernel's CTA for
+    ``ray_tile`` rays (a multiple of 32): each group is a whole number of
+    warps, so two rays a thread need a multiple of 64."""
+    threads, rpt = STREAM_LAUNCH[library]
+    if ray_tile % (32 * rpt):
+        rpt = 1
+    per_group = ray_tile // rpt
+    groups = max(1, threads // per_group)
+    return per_group * groups, groups, rpt
+
+
+def _shape_ints(library: str, ray_tile: int) -> tuple[int, ...]:
+    """The launch shape for ``ray_tile`` as the library's launch and
+    occupancy functions take it: ray_tile, groups and, for K3,
+    rays_per_thread (K4 takes one ray a thread)."""
+    _, groups, rpt = stream_launch_shape(library, ray_tile)
+    return (ray_tile, groups, rpt) if library == "closest_hit_streamed" else (ray_tile, groups)
+
+
+def stream_occupancy(library: str, ray_tile: int = STREAM_RAY_TILE) -> dict:
+    """The launch shape of a streamed kernel and its resident CTAs and warps
+    per SM there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from
+    the built library; needs the CUDA toolkit and a card)."""
+    threads, groups, rpt = stream_launch_shape(library, ray_tile)
+    ctas = getattr(_build.library(library), f"{library}_occupancy")(*_shape_ints(library, ray_tile))
+    if ctas < 0:
+        raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups x {rpt} rays a thread")
+    return {"ray_tile": ray_tile, "threads": threads, "groups": groups, "rays_per_thread": rpt,
+            "ctas_per_sm": ctas, "warps_per_sm": ctas * threads // 32}
+
 
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
@@ -62,9 +105,22 @@ class PackedScene:
     box_hi: torch.Tensor  # (nb, 3)
     block_live: torch.Tensor  # (nb,) bool — False if every row is padding
     tri_block: int = 512
+    # w is exactly zero outside LIVE_SLOTS, as pack_scene leaves it. The
+    # streamed kernels read only the live slots, so their wrappers take only
+    # the w of such a pack (marked here; an in-place edit of w unmarks it).
+    live_slots_only: bool = False
+
+    def __post_init__(self):
+        if self.live_slots_only:
+            self.w._live_slots_version = self.w._version
 
     def to(self, device) -> "PackedScene":
         return to_device(self, device)
+
+
+def _live_slots_only(w: torch.Tensor) -> bool:
+    """Whether ``w`` is the w of a ``live_slots_only`` pack, unedited since."""
+    return getattr(w, "_live_slots_version", None) == w._version
 
 
 def _morton_codes(centroids: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -180,6 +236,7 @@ def _pack_rows(a2, b2, c2, tri_map, tri_block: int) -> PackedScene:
         box_hi=box_hi,
         block_live=block_live,
         tri_block=tri_block,
+        live_slots_only=True,
     )
 
 
@@ -268,7 +325,8 @@ def _plan_stream_shape(nb: int, tri_block: int) -> int:
 def _pad_blocks(packed: PackedScene, bpc: int) -> PackedScene:
     """The pack with its block axis padded to a multiple of ``bpc`` by dead
     blocks: zero columns, box lo 0 and hi -1, ``block_live`` False.
-    ``tri_map`` is not padded (no hit lands in a dead block)."""
+    ``tri_map`` is not padded (no hit lands in a dead block). Zero columns
+    keep ``live_slots_only``."""
     nb = packed.w.shape[0]
     pad = (-nb) % bpc
     if pad == 0:
@@ -324,6 +382,9 @@ def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str 
     }
     if enter_blk is not None:
         expect["enter_blk"] = (enter_blk, torch.float32, (rt, nb))
+        if not _live_slots_only(w):
+            raise ValueError("the streamed searches read only LIVE_SLOTS of w: w must be the w of a "
+                             "live_slots_only pack (pack_scene's, padded or moved), unedited since")
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
@@ -348,6 +409,14 @@ def _kernel_device(feats, name: str) -> torch.device | None:
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {dev.type}")
     return dev
+
+
+def _launch_streamed(name: str, library: str, dev: torch.device, tensors, w, nc: int, rt: int, ray_tile: int) -> None:
+    """Launch a streamed kernel at its launch shape for ``ray_tile``."""
+    if w.data_ptr() % 16:  # the kernels copy w in 16-byte pieces
+        raise ValueError("w must start on a 16-byte boundary for the streamed kernels")
+    nb, _, five_tb = w.shape
+    _launch(name, library, dev, tensors, (rt, nc, nb // nc, five_tb // NSCALARS) + _shape_ints(library, ray_tile))
 
 
 def _launch(name: str, library: str, dev: torch.device, tensors, ints) -> None:
@@ -475,22 +544,25 @@ def closest_hit_streamed(order, enter, enter_blk, feats, alive, w, ray_tile: int
     with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit_streamed.cu``) and raises if it cannot; on CPU
-    tensors it runs ``closest_hit_streamed_reference``.
-    ``closest_hit_streamed.launches`` counts kernel launches.
+    (``csrc/closest_hit_streamed.cu``, at ``stream_launch_shape``) and
+    raises if it cannot; on CPU tensors it runs
+    ``closest_hit_streamed_reference``. The kernel reads only the
+    ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
+    ``live_slots_only`` pack (``pack_scene``'s, padded by ``_pad_blocks`` or
+    moved by ``to``); any other raises, on every device (a host-side
+    check: nothing synchronises). ``closest_hit_streamed.launches`` counts
+    kernel launches.
     """
     _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
     dev = _kernel_device(feats, "closest_hit_streamed")
     if dev is None:
         return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile)
-    nb, _, five_tb = w.shape
-    nc = order.shape[1]
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch(
+    _launch_streamed(
         "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, w, best_t, best_i),
-        (feats.shape[0] // ray_tile, nc, nb // nc, five_tb // NSCALARS, ray_tile),
+        (order, enter, enter_blk, feats, alive, w, best_t, best_i), w, order.shape[1],
+        feats.shape[0] // ray_tile, ray_tile,
     )
     closest_hit_streamed.launches += 1
     return best_t, best_i
@@ -627,20 +699,20 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     schedule inputs of ``closest_hit_streamed``.
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/occlusion_streamed.cu``) and raises if it cannot; on CPU tensors
-    it runs ``occluded_streamed_reference``. ``occluded_streamed.launches``
-    counts kernel launches.
+    (``csrc/occlusion_streamed.cu``, at ``stream_launch_shape``) and raises
+    if it cannot; on CPU tensors it runs ``occluded_streamed_reference``.
+    The kernel reads only the ``LIVE_SLOTS`` of ``w``, as
+    ``closest_hit_streamed``. ``occluded_streamed.launches`` counts kernel
+    launches.
     """
     _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt", enter_blk=enter_blk)
     dev = _kernel_device(feats, "occluded_streamed")
     if dev is None:
         return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile)
-    nb, _, five_tb = w.shape
-    nc = order.shape[1]
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch(
-        "occluded_streamed", "occlusion_streamed", dev, (order, enter, enter_blk, feats, maxt, w, occ),
-        (feats.shape[0] // ray_tile, nc, nb // nc, five_tb // NSCALARS, ray_tile),
+    _launch_streamed(
+        "occluded_streamed", "occlusion_streamed", dev, (order, enter, enter_blk, feats, maxt, w, occ), w,
+        order.shape[1], feats.shape[0] // ray_tile, ray_tile,
     )
     occluded_streamed.launches += 1
     return occ

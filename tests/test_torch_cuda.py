@@ -134,18 +134,24 @@ def test_render_kernel_matches_plain_version(device):
     assert (diff.amax(dim=-1) > 3e-2).double().mean().item() < 5e-3
 
 
-# (tri_block, cluster bytes): 1, 4 and every block per cluster, and 300 KB
-# clusters of 256-wide blocks (bpc 3).
-STREAM_SHAPES = [(128, 40 * 1024), (128, 200 * 1024), (64, 1 << 20), (256, 300 * 1024)]
+# (tri_block, cluster bytes, ray tile): 1, 4 and every block per cluster,
+# and 300 KB clusters of 256-wide blocks (bpc 3), at the main path's 64-ray
+# tile; ragged chunks (tb 36 and 100: 9 and 25 float4 columns); the ray
+# tiles 32 (one ray a thread), 128 and 1024 (one column group).
+STREAM_SHAPES = [
+    (128, 40 * 1024, 64), (128, 200 * 1024, 64), (64, 1 << 20, 64), (256, 300 * 1024, 64),
+    (36, 60 * 1024, 64), (100, 100 * 1024, 64),
+    (128, 100 * 1024, 32), (256, 300 * 1024, 128), (128, 100 * 1024, 1024),
+]
 
 
-@pytest.mark.parametrize("tb,cluster_bytes", STREAM_SHAPES)
-def test_streamed_kernel_matches_plain_version(device, tb, cluster_bytes, monkeypatch):
+@pytest.mark.parametrize("tb,cluster_bytes,ray_tile", STREAM_SHAPES)
+def test_streamed_kernel_matches_plain_version(device, tb, cluster_bytes, ray_tile, monkeypatch):
     monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", cluster_bytes)
     scene, o, d = _random_scene(device, seed=tb + 7)
     packed = tpi.pack_scene(scene, tri_block=tb)
     alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(3)) < 0.8).to(device)
-    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive, ray_tile=ray_tile) + (ray_tile,)
     before = tpi.closest_hit_streamed.launches
     bt, bi = tpi.closest_hit_streamed(*args)
     assert tpi.closest_hit_streamed.launches == before + 1
@@ -159,8 +165,8 @@ def test_streamed_kernel_matches_plain_version(device, tb, cluster_bytes, monkey
     assert (bi[dead] == -1).all() and torch.isneginf(bt[dead]).all()
 
 
-@pytest.mark.parametrize("tb,cluster_bytes", STREAM_SHAPES)
-def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_bytes, monkeypatch):
+@pytest.mark.parametrize("tb,cluster_bytes,ray_tile", STREAM_SHAPES)
+def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_bytes, ray_tile, monkeypatch):
     monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", cluster_bytes)
     scene, o, d = _random_scene(device, seed=tb + 8)
     packed = tpi.pack_scene(scene, tri_block=tb)
@@ -169,7 +175,7 @@ def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_byt
     scale = (0.5 + torch.rand(o.shape[0], generator=g)).to(device)
     maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
     maxt = torch.where(torch.rand(o.shape[0], generator=g).to(device) < 0.1, 0.0, maxt)
-    args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed)
+    args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed, ray_tile=ray_tile) + (ray_tile,)
     before = tpi.occluded_streamed.launches
     occ = tpi.occluded_streamed(*args)
     assert tpi.occluded_streamed.launches == before + 1
@@ -179,3 +185,91 @@ def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_byt
     assert (occ == ref).double().mean().item() >= 0.9995
     assert 0.1 < ref.double().mean().item() < 0.9
     assert (occ[args[4] == 0] == 0).all()
+
+
+@pytest.mark.parametrize("cluster_bytes", [1 << 20, 40 * 1024])
+def test_streamed_kernel_breaks_duplicate_ties_as_plain_version(device, cluster_bytes, monkeypatch):
+    """Every triangle packed twice (two identical one-sided meshes), so every
+    hit ties two packed rows. Wherever the kernel and the plain version hit
+    the same pair they take the same packed row; in one cluster (1 MB) that
+    is the lower row of the pair, even where the pair straddles two blocks
+    or two column groups."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", cluster_bytes)
+    rng = np.random.default_rng(5)
+    n = 600
+    v = rng.normal(size=(n, 3, 3)).astype(np.float32) * 2
+    mesh = MeshData(vertices=v, normals=np.zeros_like(v), uvs=np.zeros((n, 3, 2), np.float32))
+    scene = build_scene([mesh_spec(mesh), mesh_spec(mesh)], [{"type": "diffuse"}], pad_to_multiple=128, device=device)
+    o = torch.as_tensor(rng.normal(size=(4000, 3)).astype(np.float32) * 4, device=device)
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(4000, 3)).astype(np.float32), device=device), dim=1)
+    packed = tpi.pack_scene(scene, tri_block=36)
+    args = tpi.prepare_rays_streamed(o, d, packed) + (tpi.STREAM_RAY_TILE,)
+    one_cluster = args[0].shape[1] == 1
+    assert one_cluster == (cluster_bytes == 1 << 20)
+    _, bi = tpi.closest_hit_streamed(*args)
+    _, ri = tpi.closest_hit_streamed_reference(*args)
+    torch.cuda.synchronize()
+    pair = lambda rows: torch.where(rows >= 0, packed.tri_map[rows.long().clamp(min=0)] % n, -1)
+    same_pair = (pair(bi) == pair(ri)) & (ri >= 0)
+    assert same_pair.double().mean().item() > 0.9995 * (ri >= 0).double().mean().item()
+    assert same_pair.sum() > 300
+    assert torch.equal(bi[same_pair], ri[same_pair])
+    if one_cluster:
+        rows = torch.arange(packed.tri_map.shape[0], device=device)
+        live = rows < 2 * n  # the live packed rows lead; their scene rows are the two meshes
+        lower = torch.full((n,), 1 << 30, dtype=torch.long, device=device)
+        lower.scatter_reduce_(0, packed.tri_map[live] % n, rows[live], reduce="amin")
+        assert torch.equal(bi[same_pair].long(), lower[pair(bi)[same_pair]])
+
+
+def test_streamed_kernels_on_all_dead_tiles(device, monkeypatch):
+    """Whole tiles of dead lanes (and of maxt = 0 lanes) among live ones:
+    they visit nothing and report -inf / -1 and 0, as the plain versions."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=21)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    tile = tpi.STREAM_RAY_TILE
+    dead = torch.zeros(o.shape[0], dtype=torch.bool, device=device)
+    dead[: 3 * tile] = True
+    dead[10 * tile : 12 * tile] = True
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=~dead) + (tile,)
+    bt, bi = tpi.closest_hit_streamed(*args)
+    rt, ri = tpi.closest_hit_streamed_reference(*args)
+    maxt = torch.full((o.shape[0],), 5.0, device=device).masked_fill(dead, 0.0)
+    sargs = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed) + (tile,)
+    occ = tpi.occluded_streamed(*sargs)
+    ref = tpi.occluded_streamed_reference(*sargs)
+    torch.cuda.synchronize()
+    assert (args[0][dead[::tile]] == args[0].shape[1]).all()  # the dead tiles schedule nothing
+    assert torch.isneginf(bt[: o.shape[0]][dead]).all() and (bi[: o.shape[0]][dead] == -1).all()
+    assert (bi == ri).double().mean().item() > 0.9995 and (bi[: o.shape[0]][~dead] >= 0).any()
+    assert (occ[: o.shape[0]][dead] == 0).all()
+    assert (occ == ref).double().mean().item() >= 0.9995 and ref.sum() > 0
+
+
+def test_streamed_occlusion_stops_mid_cluster(device, monkeypatch):
+    """One cluster of every block and long cutoffs: most lanes are occluded
+    by some block in the middle of the cluster (the plain version's lane
+    count falls short of visited blocks x live lanes) and the flags still
+    equal the plain version's."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 1 << 20)
+    scene, o, d = _random_scene(device, seed=22, rays=3008)  # whole tiles: no padded lane
+    packed = tpi.pack_scene(scene, tri_block=64)
+    maxt = torch.full((o.shape[0],), 100.0, device=device)
+    args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed) + (tpi.STREAM_RAY_TILE,)
+    assert args[0].shape[1] == 1  # one cluster
+    occ = tpi.occluded_streamed(*args)
+    ref, work = tpi.occluded_streamed_reference(*args, count_work=True)
+    torch.cuda.synchronize()
+    assert ref.double().mean().item() > 0.3
+    assert work["lane_blocks"] < work["blocks"] * tpi.STREAM_RAY_TILE
+    assert (occ == ref).double().mean().item() >= 0.9995
+
+
+def test_streamed_launch_shapes_fit_the_card(device):
+    """Every ray tile the wrappers accept has a launch shape that the
+    kernels take, with at least one CTA resident per SM."""
+    for library in tpi.STREAM_LAUNCH:
+        for ray_tile in range(32, 1025, 32):
+            occ = tpi.stream_occupancy(library, ray_tile)
+            assert occ["threads"] <= 1024 and occ["ctas_per_sm"] >= 1, occ
