@@ -6,24 +6,28 @@ Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the four kernel sources of csrc/ from this checkout,
    all started together, with ptxas's registers and shared memory per
-   kernel, and each streamed kernel's launch shape at the 64-ray tile with
-   its resident CTAs and warps per SM;
+   kernel, and each kernel's launch shape at its ray tile (128 rays for K1
+   and K2, 64 for K3 and K4) with its resident CTAs and warps per SM;
+   (once per resident pack of the naive and NEE paths, on the card: w is
+   zero outside the 25 live slots that every kernel reads, and finite)
 3. the closest-hit kernel K1 against its plain PyTorch version at the naive
    path's shapes: 640,000 camera rays against the tri_block-128 pack and
    640,000 bounce-1 rays (traced with the plain version, compacted as the
-   render does) against the tri_block-512 pack, with the hit parity bar, the
-   median time of each over 5 runs and the bound;
+   render does) against the tri_block-512 pack, with the hit parity bar and
+   exact equality (the same packed rows and bit-equal t), the median time
+   of each over 5 runs and the bound;
 4. naive render_frame at 256x256, spp 2 through the kernels against the same
    render through the plain versions, with the image parity bar;
 5. the naive path at full size (800x800, spp 4, 4 bounces): a finite image,
-   exactly spp x bounces K1 launches and none of the others, and the median
+   exactly spp x bounces K1 launches and none of the others, the median
    frame time and rays/s (rays = W*H*spp*bounces) over 3 frames with varied
-   seeds;
+   seeds, and one more frame under torch.profiler split by kernel, with the
+   device's idle share;
 6. the any-hit kernel K2 against its plain version on the shadow rays that
    bounce 1 of the NEE path casts at 512x512 (bounce 0 traced with the plain
    version, the shadow rays compacted as the render does) against the
-   tri_block-512 pack, with the flag bar, the median time of each over 5
-   runs, the visited blocks and the bound;
+   tri_block-512 pack, with the flag bar and exact equality, the median
+   time of each over 5 runs, the visited blocks and the bound;
 7. NEE and MIS render_frame at 128x128, spp 2 through the kernels against
    the plain versions, with the image parity bar;
 8. the NEE path at full width (512x512, spp 4, 3 bounces): a finite image,
@@ -32,8 +36,8 @@ Phases, one line each; any failure raises and exits non-zero:
    more frame under torch.profiler split by kernel, with the device's idle
    share;
 then the streamed path, on a pack past the 16 MiB resident budget:
-   (once per streamed pack, on the card: w is zero outside the 25 live
-   slots that the streamed kernels read, and finite)
+   (once per streamed pack, on the card: the live-slot check of phase 2 on
+   the padded w that the streamed kernels get)
 9. the streamed closest-hit kernel K3 against its plain version at the
    streamed path's shapes: 640,000 camera rays against the tri_block-256
    pack (64-ray tiles, 12 blocks per cluster) and 640,000 bounce-1 rays
@@ -211,8 +215,9 @@ def phase_build() -> None:
                      f"{os.path.relpath(_build.library_path(name), ROOT)} ({usage})")
     print(f"build: nvcc, {len(reports)} sources in parallel, {dt:.2f} s: " + "; ".join(parts), flush=True)
     for name in _build.OCCUPANCY:
-        occ = packed_intersect.stream_occupancy(name, STREAM_RAY_TILE)
-        # K3 is a template on rays a thread: its entries' names carry ILi<rpt>E.
+        ray_tile = STREAM_RAY_TILE if name.endswith("_streamed") else DEFAULT_RAY_TILE
+        occ = packed_intersect.launch_occupancy(name, ray_tile)
+        # K1 and K3 are templates on rays a thread: their entries' names carry ILi<rpt>E.
         used = [u for e, u in ptxas_usage(reports[name]).items()
                 if "ILi" not in e or f"ILi{occ['rays_per_thread']}E" in e]
         occ["ptxas"] = "; ".join(used)
@@ -220,20 +225,19 @@ def phase_build() -> None:
 
 
 def phase_live_zeros(label: str, packed) -> None:
-    """The w that the streamed kernels get from this pack is exactly zero
-    outside LIVE_SLOTS and finite everywhere (they read only the live
+    """The w that the kernels get from this pack (the pack's own on the
+    resident route, padded to whole clusters on the streamed one) is exactly
+    zero outside LIVE_SLOTS and finite everywhere (they read only the live
     slots); checked on the pack's device, once per pack."""
-    w = packed_intersect._stream_pack(packed)[0].w
+    route = "resident" if is_resident(packed) else "streamed"
+    w = packed.w if route == "resident" else packed_intersect._stream_pack(packed)[0].w
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
-    live = torch.zeros((K, NSCALARS), dtype=torch.bool, device=w.device)
-    for s, k in LIVE_SLOTS:
-        live[k, s] = True
-    outside = w.view(nb, K, NSCALARS, tb).permute(1, 2, 0, 3)[~live]
-    row = {"blocks": nb, "tri_block": tb, "slots_outside": int((~live).sum()),
-           "nonzero_outside": int((outside != 0).sum()), "finite": bool(torch.isfinite(w).all())}
-    print(f"live slots, streamed pack {label} (bar: nonzero_outside = 0, finite): {json.dumps(row)}", flush=True)
+    row = {"blocks": nb, "tri_block": tb, "slots_outside": K * NSCALARS - len(LIVE_SLOTS),
+           "nonzero_outside": int((packed_intersect.outside_live_slots(w) != 0).sum()),
+           "finite": bool(torch.isfinite(w).all())}
+    print(f"live slots, {route} pack {label} (bar: nonzero_outside = 0, finite): {json.dumps(row)}", flush=True)
     if row["nonzero_outside"] or not row["finite"]:
-        raise AssertionError(f"the streamed pack {label} breaks the live-slot contract: {row}")
+        raise AssertionError(f"the {route} pack {label} breaks the live-slot contract: {row}")
 
 
 def bound(flop: float, nbytes: float) -> dict:
@@ -303,8 +307,10 @@ def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str)
     return captured[0]
 
 
-def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5) -> dict:
-    """A closest-hit kernel against its plain version on the same inputs."""
+def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5, exact: bool = False) -> dict:
+    """A closest-hit kernel against its plain version on the same inputs;
+    ``exact`` also requires the same packed row and a bit-equal t on every
+    lane."""
     device = args[0].device
     bt_k, bi_k = kernel(*args)
     bt_r, bi_r, work = plain(*args, count_work=True)
@@ -316,6 +322,8 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5)
     err = (bt_k[same] - bt_r[same]).abs()
     max_abs_err = err.max().item() if err.numel() else 0.0
     t_ok = bool((err <= T_TOL + T_TOL * bt_r[same].abs()).all())
+    same_row = (bi_k == bi_r).double().mean().item()
+    t_equal = bool(torch.equal(bt_k, bt_r))
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
     plain_ms = median_ms(lambda: plain(*args), device, reps)
     b = bound(FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block, _nbytes(*args, bt_k, bi_k))
@@ -324,20 +332,25 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5)
         "rays": args[-4].shape[0], "tri_block": packed.tri_block,
         "ray_tile": ray_tile, "blocks_per_schedule_entry": args[-2].shape[0] // args[0].shape[1],
         "hit_share": (bi_r >= 0).double().mean().item(), "same_tri": agree, "max_abs_err": max_abs_err,
+        "same_row": same_row, "t_equal": t_equal,
         "ms": kernel_ms, "plain_ms": plain_ms, "visited_blocks": work["blocks"],
         "lane_blocks": work["lane_blocks"], **b,
     }
-    print(f"{name} {label} (bar: same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|): {json.dumps(row)}",
-          flush=True)
+    bar = f"same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|"
+    bar += "; exact: same_tri = same_row = 1, max_abs_err = 0, t_equal" if exact else ""
+    print(f"{name} {label} (bar: {bar}): {json.dumps(row)}", flush=True)
     if agree < HIT_AGREE or not t_ok:
         raise AssertionError(f"{name} {label} misses the hit parity bar: same_tri {agree}, t ok {t_ok}")
+    if exact and not (agree == 1.0 and same_row == 1.0 and max_abs_err == 0.0 and t_equal):
+        raise AssertionError(f"{name} {label} is not exact: same_tri {agree}, same_row {same_row}, "
+                             f"max_abs_err {max_abs_err}, t_equal {t_equal}")
     return row
 
 
 def phase_kernel_check(label: str, o, d, packed) -> dict:
     """K1 against closest_hit_reference at its main-path shapes."""
     args = prepare_rays(o, d, packed) + (packed.w, DEFAULT_RAY_TILE)
-    return hit_check("closest_hit", label, closest_hit, closest_hit_reference, args, packed)
+    return hit_check("closest_hit", label, closest_hit, closest_hit_reference, args, packed, exact=True)
 
 
 def phase_streamed_check(label: str, o, d, packed) -> dict:
@@ -363,8 +376,9 @@ def phase_split(label: str, o, d, packed, k3_row: dict) -> dict:
     return row
 
 
-def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5) -> dict:
-    """An any-hit kernel against its plain version on the same inputs."""
+def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, exact: bool = False) -> dict:
+    """An any-hit kernel against its plain version on the same inputs;
+    ``exact`` requires every flag equal."""
     feats, maxt, w = args[-4], args[-3], args[-2]
     device = feats.device
     occ_k = kernel(*args)
@@ -383,9 +397,9 @@ def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5) -
         "ms": kernel_ms, "plain_ms": plain_ms,
         "visited_blocks": work["blocks"], "lane_blocks": work["lane_blocks"], **b,
     }
-    print(f"{name} {label} (bar: same_flag >= {HIT_AGREE}, no maxt = 0 lane occluded): {json.dumps(row)}",
-          flush=True)
-    if agree < HIT_AGREE or dead_occluded:
+    bar = f"same_flag >= {HIT_AGREE}, no maxt = 0 lane occluded" + ("; exact: same_flag = 1" if exact else "")
+    print(f"{name} {label} (bar: {bar}): {json.dumps(row)}", flush=True)
+    if agree < HIT_AGREE or dead_occluded or (exact and agree != 1.0):
         raise AssertionError(f"{name} misses the flag bar: same_flag {agree}, {dead_occluded} dead lanes occluded")
     return row
 
@@ -556,6 +570,8 @@ def main() -> None:
     settings = dataclasses.replace(settings, spp=4)  # the bench's spp
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
+    for p in (packed, packed2):
+        phase_live_zeros(f"config3 tb {p.tri_block}", p)
     (o, d), (o2, d2) = main_path_rays(scene, camera, settings, packed)
     k1_rows = [
         phase_kernel_check("camera rays", o, d, packed),
@@ -563,7 +579,7 @@ def main() -> None:
     ]
     phase_image_check(scene, camera, settings, size=256, spp=2)
     naive = phase_full_frame(
-        "naive", scene, camera, settings, expect_launches(closest_hit=settings.spp * settings.bounces)
+        "naive", scene, camera, settings, expect_launches(closest_hit=settings.spp * settings.bounces), profiled=True
     )
 
     # The NEE path (config 8 stand-in).
@@ -571,9 +587,11 @@ def main() -> None:
     settings = dataclasses.replace(settings, spp=4)
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
+    for p in (packed, packed2):
+        phase_live_zeros(f"config8 tb {p.tri_block}", p)
     k2_row = occlusion_check(
         "occluded", "bounce-1 shadow rays", occluded, occluded_reference,
-        nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference"),
+        nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference"), exact=True,
     )
     for estimator in ("nee", "mis"):
         phase_image_check(scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2)
@@ -590,7 +608,7 @@ def main() -> None:
     packed = pack_scene(scene, tri_block=settings.tri_block)
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
     for p in (packed, packed2):
-        phase_live_zeros(f"tb {p.tri_block}", p)
+        phase_live_zeros(f"config6 tb {p.tri_block}", p)
     (o, d), (o2, d2) = main_path_rays(scene, camera, settings, packed)
     k3_rows = [
         phase_streamed_check("camera rays", o, d, packed),

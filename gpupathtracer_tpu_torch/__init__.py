@@ -2,11 +2,13 @@
 
 The JAX package (``gpupathtracer_tpu``) is the reference this package is held
 against; module names mirror its layout so each counterpart is easy to find.
-This package imports ``torch`` and never ``jax``. The closest-hit search runs
-as a hand-written CUDA kernel on Hopper (``csrc/closest_hit.cu``), with a
-plain PyTorch version beside it that CPU tensors use.
+This package imports ``torch`` and never ``jax``. The four packed ray
+searches (closest hit and any hit, resident and streamed) run as
+hand-written CUDA kernels on Hopper (``csrc/``), each with a plain PyTorch
+version beside it that CPU tensors use.
 
-Covered so far: the naive-estimator render path (emitter + diffuse
-materials) that ``render_frame`` drives. Options outside it raise
-``NotImplementedError``.
+Covered so far: the render path that ``render_frame`` drives for emitter
+and diffuse materials, with the naive, NEE and MIS estimators and checker
+and image textures, on resident and streamed packs. Options outside it
+raise ``NotImplementedError``.
 """

@@ -1,4 +1,5 @@
-// Closest-hit search of ray tiles against the packed scene, for Hopper (sm_90a).
+// Closest-hit search of ray tiles against the packed scene (the resident
+// route, packs up to 16 MiB), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_kernel_resident` in
 // gpupathtracer_tpu/ops/pallas_intersect.py (launched by `_launch_resident`,
@@ -11,100 +12,198 @@
 //   feats  float (rt*TR, 16)    ray features [d, o x d, o, 1, 0...]
 //   alive  int32 (rt*TR)        0 = dead lane (best_t starts at -inf)
 //   w      float (nb, 16, 5*tb) triangle columns [s0 | s1 | s2 | D | num]
+//                               from pack_scene (only the live slots are read)
 // Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
 //
-// Design. One CTA per ray tile, one thread per ray (TR = blockDim.x). Each
-// thread keeps its ray's 16 feature values in registers (rows 10..15 are the
-// zero padding of pack_rays). The CTA walks its tile's schedule; for each
-// visited block it stages the block's columns into shared memory in chunks
-// of 128 triangles (5 scalars x 16 rows x 128 columns x 4 B = 40 KB, for any
-// tb) and takes the five dot products per column with f32 FMAs (staging,
-// dot products, the block test and the CTA max live in decision.cuh, shared
-// with the other three searches). No TF32: the parity bar needs f32 t.
+// Semantics, as the TPU kernel: lanes start at BIG (live) or -inf (dead)
+// with best_i -1, and the tile's worst at +inf. The loop takes schedule
+// positions j while j < nb and enter[j] < worst. Accept iff max(s0, s1, s2)
+// <= 0 and D <= -1e-6 and num < 1e-6 * D, then t = num / D (IEEE division),
+// else BIG; per block the least t over ascending columns (ties to the lower
+// column); the running best is replaced only on strict <, so earlier-visited
+// blocks win ties, and best_i only when the block's least t is below BIG.
+// After each block, worst = the tile's max best_t. Dead lanes sit at -inf,
+// so they never update and never hold the loop open.
 //
-// Semantics, as the TPU kernel:
-//   accept iff max(s0, s1, s2) <= 0 and D <= -1e-6 and num < 1e-6 * D, then
-//   t = num / D (IEEE division), else BIG; per block the minimum over
-//   ascending columns with strict < (ties go to the lower column); the
-//   running best is replaced only on strict <, and best_i only when the
-//   block minimum is below BIG. After each block a CTA max-reduction of
-//   best_t gives the tile's worst lane; the loop stops when the next entry
-//   bound is >= worst (worst starts at +inf) or the schedule ends. Dead lanes
-//   sit at -inf, so they never update and never hold the loop open.
+// Design (stream_stage.cuh). Only the 25 live slots of each column are
+// staged and multiplied, bit-identical to the 80-slot sums. The CTA holds
+// one ray tile as `groups` column groups of warps; a thread keeps RPT rays'
+// 10 live features in registers, and group g takes float4 columns g,
+// g + groups, ... of every staged chunk (one shared-memory broadcast feeds
+// 4 x RPT columns' FMAs). A ring of STAGES chunk stages, filled by cp.async
+// copies, walks the tile's block schedule and keeps the next chunks in
+// flight across block boundaries while the current one is multiplied. Within
+// a block each (ray, group) keeps its least (t, column) with strict < over
+// ascending columns; at the block's end group 0 folds the groups by (t,
+// packed row), the lower row winning ties, which is the block's argmin, and
+// folds that into the running best with strict <. The fold is per block,
+// not per schedule: blocks are visited front to back, not in row order. The
+// same pass posts the tile's max for the exact worst, so a block costs the
+// ring's barrier per chunk and two more.
 //
-// Memory: the pack (1.7 MB at 5,248 rows) stays in the 50 MB L2, so blocks
-// are re-read from L2 per visiting tile. The kernel itself takes a pack of
-// any size; the host sends packs over 16 MiB to closest_hit_streamed.cu, by
-// the JAX package's resident/streamed rule.
-//
-// What bounds it on this card: the per-pair arithmetic, 5 x 16 FMAs plus the
-// epilogue, and the shared-memory broadcasts that feed them (one 16-byte load
-// per 4 FMAs), with a CTA barrier per staged chunk and per block. Later work
-// may skip the zero K rows (6 padding rows, and the structural zeros of each
-// scalar's column), run the product on the tensor cores with mma.sync or
-// wgmma in 3xTF32, and double-buffer the block loads with cp.async or TMA.
+// What bounds it on the H100 (measured by chip_smoke.py and
+// tools/stream_sweep.py; times, shares of the bound and the sweep in
+// PERF.md section 6): instruction issue in the SMs, as for
+// closest_hit_streamed.cu. A pair costs 25 FMAs and about 10 decision
+// instructions; the per-block fold and its barriers weigh most at tb 128,
+// where a block is one chunk. Memory does not bound it: a resident pack's
+// live rows (under 16 MiB x 25 / 80) stay in the 50 MB L2.
 
-#include "decision.cuh"
+#include "stream_stage.cuh"
 
 #include <stdint.h>
 
 namespace {
 
-using namespace decision;
+using namespace stream;
 
-__global__ void closest_hit_kernel(const int* __restrict__ order,
-                                   const float* __restrict__ enter,
-                                   const float* __restrict__ feats,
-                                   const int* __restrict__ alive,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ best_t_out,
-                                   int* __restrict__ best_i_out,
-                                   int nb, int tb) {
-  __shared__ float4 stage[STAGE_FLOAT4];
+template <int RPT>
+__global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
+    closest_hit_kernel(const int* __restrict__ order, const float* __restrict__ enter,
+                       const float* __restrict__ feats, const int* __restrict__ alive,
+                       const float* __restrict__ w, float* __restrict__ best_t_out, int* __restrict__ best_i_out,
+                       int nb, int tb, int ray_tile, int groups) {
+  extern __shared__ float4 smem[];
+  float4* ring = smem;
+  float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
+  int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);        // (groups, ray_tile)
   __shared__ float warp_max[32];
-  __shared__ float tile_worst;
 
+  const int tpg = ray_tile / RPT;  // threads per group
+  const int g = threadIdx.x / tpg;
   const int tile = blockIdx.x;
-  const int ray = tile * blockDim.x + threadIdx.x;
 
-  float f[K];
-  load_features(feats, ray, f);
-  float best_t = alive[ray] > 0 ? BIG : -INFINITY;
-  int best_i = -1;
-  float worst = INFINITY;
-
-  const int* tile_order = order + (size_t)tile * nb;
-  const float* tile_enter = enter + (size_t)tile * nb;
-
-  for (int j = 0; j < nb; ++j) {
-    // Uniform across the CTA: every thread reads the same entry and worst.
-    if (!(tile_enter[j] < worst)) break;
-    const int blk = tile_order[j];
-    if (blk < 0 || blk >= nb) break;  // culled sentinel; unreachable while enter is +inf there
-    closest_in_block(f, stage, w + (size_t)blk * K * NS * tb, tb, blk, best_t, best_i);
-    worst = cta_max(best_t, warp_max, &tile_worst);  // the tile's worst lane
+  // Group 0 holds the running best of its rays; every group its least
+  // (t, row) in the current block.
+  int lane[RPT];  // ray within the tile
+  float f[RPT][NF];
+  float best_t[RPT], gt[RPT];
+  int best_i[RPT], gi[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    lane[r] = threadIdx.x - g * tpg + r * tpg;
+    const int ray = tile * ray_tile + lane[r];
+    load_live_features(feats, ray, f[r]);
+    best_t[r] = alive[ray] > 0 ? BIG : -INFINITY;
+    best_i[r] = -1;
+    gt[r] = BIG;
+    gi[r] = 0;
   }
-  best_t_out[ray] = best_t;
-  best_i_out[ray] = best_i;
+
+  stream_schedule(
+      ring, w, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
+      [&](const float4* stage, int blk, int c0, int cw4) {
+        const int row0 = blk * tb + c0;
+        for (int q = g; q < cw4; q += groups) {
+          float acc[RPT][NS][4];
+          live_dots<RPT>(f, stage, q, acc);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {  // ascending columns
+              const float t = hit_t(acc[r][0][x], acc[r][1][x], acc[r][2][x], acc[r][3][x], acc[r][4][x]);
+              if (t < gt[r]) {  // strict <: the lower column wins ties
+                gt[r] = t;
+                gi[r] = row0 + 4 * q + x;
+              }
+            }
+          }
+        }
+      },
+      [&](int) {
+        // Fold the groups by (t, row) into the running best, then the
+        // tile's worst lane. The fold's reads sit between this barrier and
+        // cta_max_posted's, the next block's writes after both.
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          fold_t[g * ray_tile + lane[r]] = gt[r];
+          fold_i[g * ray_tile + lane[r]] = gi[r];
+          gt[r] = BIG;
+          gi[r] = 0;
+        }
+        __syncthreads();
+        float tile_max = -INFINITY;
+        if (g == 0) {
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            float ct = BIG;
+            int ci = 0;
+            for (int h = 0; h < groups; ++h) {
+              const float t = fold_t[h * ray_tile + lane[r]];
+              const int i = fold_i[h * ray_tile + lane[r]];
+              if (t < ct || (t == ct && i < ci)) {
+                ct = t;
+                ci = i;
+              }
+            }
+            if (ct < best_t[r]) {  // strict <: earlier-visited blocks win ties
+              best_t[r] = ct;
+              if (ct < BIG) best_i[r] = ci;
+            }
+            tile_max = fmaxf(tile_max, best_t[r]);
+          }
+        }
+        return cta_max_posted(tile_max, warp_max);
+      });
+  if (g == 0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int ray = tile * ray_tile + lane[r];
+      best_t_out[ray] = best_t[r];
+      best_i_out[ray] = best_i[r];
+    }
+  }
+}
+
+size_t smem_bytes(int ray_tile, int groups) {
+  return RING_BYTES + (size_t)groups * ray_tile * (sizeof(float) + sizeof(int));
+}
+
+template <int RPT>
+int threads_of(int ray_tile, int groups) {
+  return ring_threads<RPT>(ray_tile, groups, RPT == 1 ? 1024 : 512);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` with one CTA of `ray_tile` threads per ray
-// tile and returns cudaGetLastError() (0 = launched). The caller checks
-// shapes, types, alignment (tb % 4 == 0) and ray_tile (a multiple of 32, at
-// most 1024).
-int closest_hit_launch(const void* order, const void* enter, const void* feats,
-                       const void* alive, const void* w, void* best_t, void* best_i,
-                       int rt, int nb, int tb, int ray_tile, void* stream) {
-  closest_hit_kernel<<<rt, ray_tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(order), static_cast<const float*>(enter),
-      static_cast<const float*>(feats), static_cast<const int*>(alive),
-      static_cast<const float*>(w), static_cast<float*>(best_t), static_cast<int*>(best_i),
-      nb, tb);
-  return static_cast<int>(cudaGetLastError());
+// Launches the kernel on `stream`, one CTA per ray tile of `ray_tile` rays
+// as `groups` column groups of ray_tile / rays_per_thread threads, and
+// returns cudaGetLastError() (0 = launched). rays_per_thread is 1 or 2 and
+// must leave each group a whole number of warps, with at most 1024 (1 ray a
+// thread) or 512 (2) threads in all; anything else returns
+// cudaErrorInvalidValue. The caller checks shapes, types, alignment
+// (tb % 4 == 0, w on a 16-byte boundary) and ray_tile.
+int closest_hit_launch(const void* order, const void* enter, const void* feats, const void* alive, const void* w,
+                       void* best_t, void* best_i, int rt, int nb, int tb, int ray_tile, int groups,
+                       int rays_per_thread, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel, int threads) {
+    return launch_ring(kernel, rt, threads, smem_bytes(ray_tile, groups), s, static_cast<const int*>(order),
+                       static_cast<const float*>(enter), static_cast<const float*>(feats),
+                       static_cast<const int*>(alive), static_cast<const float*>(w), static_cast<float*>(best_t),
+                       static_cast<int*>(best_i), nb, tb, ray_tile, groups);
+  };
+  if (rays_per_thread == 1 && threads_of<1>(ray_tile, groups)) {
+    return args(closest_hit_kernel<1>, threads_of<1>(ray_tile, groups));
+  }
+  if (rays_per_thread == 2 && threads_of<2>(ray_tile, groups)) {
+    return args(closest_hit_kernel<2>, threads_of<2>(ray_tile, groups));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs resident per SM at the launch shape of these arguments (as
+// closest_hit_launch takes them), or -1 if it is not one.
+int closest_hit_occupancy(int ray_tile, int groups, int rays_per_thread) {
+  if (rays_per_thread == 1) {
+    return ring_occupancy(closest_hit_kernel<1>, threads_of<1>(ray_tile, groups), smem_bytes(ray_tile, groups));
+  }
+  if (rays_per_thread == 2) {
+    return ring_occupancy(closest_hit_kernel<2>, threads_of<2>(ray_tile, groups), smem_bytes(ray_tile, groups));
+  }
+  return -1;
 }
 
 const char* closest_hit_error_string(int err) {

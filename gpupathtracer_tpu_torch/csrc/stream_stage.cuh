@@ -1,7 +1,9 @@
-// What the streamed searches share (closest_hit_streamed.cu, K3, and
-// occlusion_streamed.cu, K4): the live-slot contract of a triangle column,
-// the sparse decision dot products, and a ring of shared-memory stages that
-// asynchronous copies fill along a cluster's computed blocks.
+// What the four packed searches share (closest_hit.cu, K1, occlusion.cu,
+// K2, closest_hit_streamed.cu, K3, and occlusion_streamed.cu, K4): the
+// live-slot contract of a triangle column, the sparse decision dot products,
+// and a ring of shared-memory stages that asynchronous copies fill, walked
+// along a cluster's computed blocks (K3, K4) or along a tile's block schedule
+// (K1, K2).
 //
 // The slot contract. A packed triangle column (w is (nb, 16, 5*tb), see
 // decision.cuh) has 5 x 16 (scalar, feature row) slots, but pack_scene fills
@@ -10,12 +12,13 @@
 // and pack_rays leaves feature rows 10-15 at 0 (ops/plucker.py LIVE_SLOTS;
 // tests/test_torch_slots.py holds the packs, the rays and the table below to
 // it). So a staged chunk holds 25 row segments, not 80, and a (ray, column)
-// pair takes 25 FMAs, not 80. The kernels rely on w coming from pack_scene.
+// pair takes 25 FMAs, not 80. The kernels rely on w coming from pack_scene
+// (the wrappers take only a pack marked live_slots_only).
 //
-// The sums stay bit-identical to decision.cuh's 16-term chains: each
-// scalar's accumulator starts at 0 and takes fmaf(f[k], w[s][k], acc) over
-// that scalar's live rows in ascending k. A dropped term adds f * 0 = +-0
-// (the features are finite: padded lanes carry o = 0, dead lanes
+// The sums are bit-identical to the 16-term chains of the dense product:
+// each scalar's accumulator starts at 0 and takes fmaf(f[k], w[s][k], acc)
+// over that scalar's live rows in ascending k. A dropped term adds f * 0 =
+// +-0 (the features are finite: padded lanes carry o = 0, dead lanes
 // DEAD_ORIGIN), which leaves a nonzero accumulator unchanged and can only
 // flip the sign of a zero one, and a signed zero decides nothing: edge <= 0
 // holds for both, dd <= -EPS and num < EPS * dd fail for both.
@@ -25,16 +28,26 @@
 // thread, one warp per 512-byte row segment, every warp of the CTA copying,
 // completion by commit/wait groups and then one CTA barrier per chunk. This
 // rather than the bulk copy (cp.async.bulk with an mbarrier): every thread
-// meets at one barrier per chunk anyway (K4 exchanges its occlusion flags
-// there), so a producer warp with full/empty barrier pairs would add
-// bookkeeping and no overlap, and 16-byte copies need nothing beyond the
-// tb % 4 == 0 and 16-byte base alignment the wrappers check. The copies run
-// STAGES - 1 chunks ahead of the arithmetic along the cluster's computed
-// blocks, across block boundaries. That set is fixed at the cluster's start,
-// because every skip tests against the cluster-start worst (K3) or bound
-// (K4). The ring does not fetch into the next scheduled cluster: which of
-// its blocks are computed depends on the bound this cluster leaves.
-
+// meets at one barrier per chunk anyway (K2 and K4 exchange their occlusion
+// flags there, and K1 and K2 fold each block across the CTA), so a producer
+// warp with full/empty barrier pairs would add bookkeeping and no overlap; a
+// chunk is 25 row segments 5 x tb floats apart, which one bulk copy cannot
+// take without a tensor map built on the host; and 16-byte copies need
+// nothing beyond the tb % 4 == 0 and 16-byte base alignment the wrappers
+// check. The copies run STAGES - 1 chunks ahead of the arithmetic, across
+// block boundaries.
+// - Along a cluster (stream_cluster, K3 and K4): the cluster's computed
+//   blocks are fixed at its start, because every skip tests against the
+//   cluster-start worst or bound. The ring does not fetch into the next
+//   scheduled cluster: which of its blocks are computed depends on the bound
+//   this cluster leaves.
+// - Along a block schedule (stream_schedule, K1 and K2): there is no skip
+//   inside the schedule, so the next block is always order[j + 1], and the
+//   exit test decides only whether it is used. The ring fetches it
+//   speculatively, while its entry bound is below the newest worst or bound
+//   the walk knows. Those only fall and the entries ascend, so every chunk
+//   the walk computes was fetched, and a fetch past the exit costs only its
+//   reads from L2; the walk waits for every copy before it returns.
 #pragma once
 
 #include "decision.cuh"
@@ -157,7 +170,8 @@ __device__ __forceinline__ void live_dots(const float (&f)[RPT][NF], const float
   fma_slots<RPT>(f, stage, q, acc, std::make_integer_sequence<int, NLIVE>{});
 }
 
-// decision.cuh's closest-hit test of one pair: t, or BIG if not accepted.
+// The closest-hit test of one pair: accept iff max(s0, s1, s2) <= 0 and
+// D <= -EPS and num < EPS * D, then t = num / D (IEEE division), else BIG.
 __device__ __forceinline__ float hit_t(float s0, float s1, float s2, float dd, float num) {
   const float edge = fmaxf(fmaxf(s0, s1), s2);
   float t = BIG;
@@ -165,7 +179,7 @@ __device__ __forceinline__ float hit_t(float s0, float s1, float s2, float dd, f
   return t;
 }
 
-// decision.cuh's any-hit test of one pair: an accepted hit with t in
+// The any-hit test of one pair: an accepted hit with t in
 // (EPS, mt), division-free.
 __device__ __forceinline__ bool blocks_ray(float s0, float s1, float s2, float dd, float num, float mt) {
   const float edge = fmaxf(fmaxf(s0, s1), s2);
@@ -217,6 +231,83 @@ __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const 
     advance(cb, cc);
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
+}
+
+// Max of v over the CTA, returned to every thread, with one barrier: each
+// warp reduces and posts its max to `warp_max` (32 floats of shared
+// memory), then every warp reads all posts. Every thread of the CTA must
+// call it, and must pass another CTA barrier before the next call (which
+// overwrites the posts).
+__device__ __forceinline__ float cta_max_posted(float v, float* warp_max) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (lane == 0) warp_max[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : -INFINITY;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Whether a walk along a block schedule takes position j: j < nb and
+// enter[j] < lim, and order[j] names a block (the culled tail holds the
+// sentinel nb with enter = +inf, so the entry test stops there first).
+__device__ __forceinline__ bool takes(const int* __restrict__ order, const float* __restrict__ enter, int j, int nb,
+                                      float lim) {
+  if (!(j < nb && enter[j] < lim)) return false;
+  const int blk = order[j];
+  return blk >= 0 && blk < nb;
+}
+
+// Walks the chunks of one tile's block schedule (position j = 0, 1, ... is
+// block order[j], its chunks ascending) through the ring, taking positions
+// while takes(j, lim). Calls compute(stage, blk, c0, cw4) for each chunk,
+// with cw4 the chunk's float4 columns, and after a block's last chunk sets
+// lim = block_end(blk): the exact worst (K1) or bound (K2) after that block,
+// so the walk stops where the plain version stops. The copies of the chunks
+// that follow are fetched STAGES - 1 chunks ahead, across block boundaries,
+// each while its position is taken at the newest lim (see the header). On
+// return every copy has landed. Every thread of the CTA calls it with the
+// same arguments, and every thread calls block_end, which may hold
+// barriers; the walk holds one CTA barrier per chunk besides.
+template <typename Compute, typename BlockEnd>
+__device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
+                                                const int* __restrict__ order, const float* __restrict__ enter,
+                                                int nb, int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
+  const size_t block_floats = (size_t)K * NS * tb;
+  int pj = 0, pc = 0;  // the next chunk to fetch
+  auto fetch = [&](int stage) {
+    if (takes(order, enter, pj, nb, lim)) {
+      fetch_chunk(ring + stage * STAGE_FLOAT4, w + order[pj] * block_floats, tb, pc);
+      pc += CHUNK;
+      if (pc >= tb) {
+        pc = 0;
+        ++pj;
+      }
+    }
+    cp_async_commit();  // one group per chunk slot, empty past the stop
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  int cj = 0, cc = 0;  // the next chunk to compute
+  bool go = takes(order, enter, 0, nb, lim);
+  int slot = 0;
+  while (go) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk `slot` have landed
+    __syncthreads();              // everyone's have; the stage refilled next was read by all
+    fetch(slot == 0 ? STAGES - 1 : slot - 1);
+    const int blk = order[cj];
+    compute(ring + slot * STAGE_FLOAT4, blk, cc, min(CHUNK, tb - cc) / 4);
+    cc += CHUNK;
+    if (cc >= tb) {
+      cc = 0;
+      lim = block_end(blk);
+      go = takes(order, enter, ++cj, nb, lim);
+    }
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();  // the speculative copies past the stop
 }
 
 // The launch shape: one CTA per ray tile of `groups` column groups, each

@@ -2,8 +2,8 @@
 
 Each kernel source in ``csrc/`` (``closest_hit.cu``, ``occlusion.cu``,
 ``closest_hit_streamed.cu``, ``occlusion_streamed.cu``; all include
-``decision.cuh``, the streamed two through ``stream_stage.cuh``) has a plain
-C interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into its own
+``stream_stage.cuh``, which includes ``decision.cuh``) has a plain C
+interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into its own
 shared library in ``gpupathtracer_tpu_torch/build/`` at first use, and the
 library is loaded with ``ctypes``. The file name carries a hash of the
 source, the shared headers and the flags, so an edit rebuilds. Nothing is
@@ -31,18 +31,19 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Kernel name -> its launch function's argument types: device pointers,
-# then rt, nb, tb, ray_tile (resident) or rt, nc, bpc, tb, ray_tile, groups
-# and, for K3 only, rays_per_thread (streamed), then the stream.
+# then rt, nb (resident) or rt, nc, bpc (streamed), then tb, ray_tile,
+# groups and, for the closest hits K1 and K3, rays_per_thread, then the
+# stream.
 KERNELS = {
-    "closest_hit": [_P] * 7 + [_I] * 4 + [_P],
-    "occlusion": [_P] * 6 + [_I] * 4 + [_P],
+    "closest_hit": [_P] * 7 + [_I] * 6 + [_P],
+    "occlusion": [_P] * 6 + [_I] * 5 + [_P],
     "closest_hit_streamed": [_P] * 8 + [_I] * 7 + [_P],
     "occlusion_streamed": [_P] * 7 + [_I] * 6 + [_P],
 }
-# The streamed libraries also export ``<name>_occupancy``: resident CTAs per
-# SM at a launch shape, -1 if the kernel does not take it. It takes the
-# launch's ray_tile, groups (and rays_per_thread) ints; here, their count.
-OCCUPANCY = {"closest_hit_streamed": 3, "occlusion_streamed": 2}
+# Every library also exports ``<name>_occupancy``: resident CTAs per SM at
+# a launch shape, -1 if the kernel does not take it. It takes the launch's
+# ray_tile, groups (and rays_per_thread) ints; here, their count.
+OCCUPANCY = {"closest_hit": 3, "occlusion": 2, "closest_hit_streamed": 3, "occlusion_streamed": 2}
 
 
 def source(name: str) -> str:
@@ -118,8 +119,7 @@ def library(name: str) -> ctypes.CDLL:
     errstr = getattr(lib, f"{name}_error_string")
     errstr.argtypes = [ctypes.c_int]
     errstr.restype = ctypes.c_char_p
-    if name in OCCUPANCY:
-        occupancy = getattr(lib, f"{name}_occupancy")
-        occupancy.argtypes = [_I] * OCCUPANCY[name]
-        occupancy.restype = ctypes.c_int
+    occupancy = getattr(lib, f"{name}_occupancy")
+    occupancy.argtypes = [_I] * OCCUPANCY[name]
+    occupancy.restype = ctypes.c_int
     return lib

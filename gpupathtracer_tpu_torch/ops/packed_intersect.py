@@ -24,10 +24,11 @@ width. Four searches walk the schedules with early exit:
   per-ray cutoff ``max_t`` (shadow rays; no division).
 
 On a CUDA tensor each launches its kernel; on a CPU tensor it runs its plain
-PyTorch version (the same name with ``_reference``). The streamed kernels
-read only the ``LIVE_SLOTS`` of ``w`` (``ops/plucker.py``), so their
-wrappers take only the ``w`` of a pack marked ``live_slots_only``, as
-``pack_scene`` marks its packs.
+PyTorch version (the same name with ``_reference``). All four kernels read
+only the ``LIVE_SLOTS`` of ``w`` (``ops/plucker.py``), so every wrapper takes
+only the ``w`` of a pack marked ``live_slots_only``, on every device:
+``pack_scene`` marks its packs, and ``mark_live_slots`` marks a pack built
+elsewhere (one carried from the JAX package) once it has checked the zeros.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from gpupathtracer_tpu_torch.core.tensors import to_device
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
-from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS, pack_rays
+from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
 
 DEFAULT_RAY_TILE = 128
 INF = float("inf")
@@ -54,20 +55,26 @@ RESIDENT_BUDGET_BYTES = 16 * 1024 * 1024
 CLUSTER_TARGET_BYTES = 1024 * 1024
 STREAM_RAY_TILE = 64
 
-# Launch shape of the streamed kernels (csrc/stream_stage.cuh), per kernel
+# Launch shape of the four kernels (csrc/stream_stage.cuh), per kernel
 # library: the threads a CTA aims at, and the rays a thread takes where the
-# ray tile allows it (K4 is built for one only). A CTA holds one ray tile as
-# column groups of ray_tile / rays_per_thread threads each. At the 64-ray
+# ray tile allows it (K2 and K4 are built for one only). A CTA holds one ray
+# tile as column groups of ray_tile / rays_per_thread threads each. At the
+# 128-ray tile: K1 2 groups of 64 threads, K2 8 groups of 128; at the 64-ray
 # tile: K3 8 groups of 32 threads, K4 2 groups of 64 (the fastest shapes of
-# tools/stream_sweep.py on the H100).
-STREAM_LAUNCH = {"closest_hit_streamed": (256, 2), "occlusion_streamed": (128, 1)}
+# tools/stream_sweep.py on the H100, PERF.md section 6).
+LAUNCH = {
+    "closest_hit": (128, 2),
+    "occlusion": (1024, 1),
+    "closest_hit_streamed": (256, 2),
+    "occlusion_streamed": (128, 1),
+}
 
 
-def stream_launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
-    """``(threads, groups, rays_per_thread)`` of a streamed kernel's CTA for
+def launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
+    """``(threads, groups, rays_per_thread)`` of a kernel's CTA for
     ``ray_tile`` rays (a multiple of 32): each group is a whole number of
     warps, so two rays a thread need a multiple of 64."""
-    threads, rpt = STREAM_LAUNCH[library]
+    threads, rpt = LAUNCH[library]
     if ray_tile % (32 * rpt):
         rpt = 1
     per_group = ray_tile // rpt
@@ -77,17 +84,17 @@ def stream_launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
 
 def _shape_ints(library: str, ray_tile: int) -> tuple[int, ...]:
     """The launch shape for ``ray_tile`` as the library's launch and
-    occupancy functions take it: ray_tile, groups and, for K3,
-    rays_per_thread (K4 takes one ray a thread)."""
-    _, groups, rpt = stream_launch_shape(library, ray_tile)
-    return (ray_tile, groups, rpt) if library == "closest_hit_streamed" else (ray_tile, groups)
+    occupancy functions take it: ray_tile, groups and, for the closest hits
+    K1 and K3, rays_per_thread (K2 and K4 take one ray a thread)."""
+    _, groups, rpt = launch_shape(library, ray_tile)
+    return (ray_tile, groups, rpt) if library.startswith("closest_hit") else (ray_tile, groups)
 
 
-def stream_occupancy(library: str, ray_tile: int = STREAM_RAY_TILE) -> dict:
-    """The launch shape of a streamed kernel and its resident CTAs and warps
-    per SM there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from
-    the built library; needs the CUDA toolkit and a card)."""
-    threads, groups, rpt = stream_launch_shape(library, ray_tile)
+def launch_occupancy(library: str, ray_tile: int) -> dict:
+    """The launch shape of a kernel and its resident CTAs and warps per SM
+    there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from the built
+    library; needs the CUDA toolkit and a card)."""
+    threads, groups, rpt = launch_shape(library, ray_tile)
     ctas = getattr(_build.library(library), f"{library}_occupancy")(*_shape_ints(library, ray_tile))
     if ctas < 0:
         raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups x {rpt} rays a thread")
@@ -106,8 +113,8 @@ class PackedScene:
     block_live: torch.Tensor  # (nb,) bool — False if every row is padding
     tri_block: int = 512
     # w is exactly zero outside LIVE_SLOTS, as pack_scene leaves it. The
-    # streamed kernels read only the live slots, so their wrappers take only
-    # the w of such a pack (marked here; an in-place edit of w unmarks it).
+    # kernels read only the live slots, so the searches take only the w of
+    # such a pack (marked here; an in-place edit of w unmarks it).
     live_slots_only: bool = False
 
     def __post_init__(self):
@@ -121,6 +128,27 @@ class PackedScene:
 def _live_slots_only(w: torch.Tensor) -> bool:
     """Whether ``w`` is the w of a ``live_slots_only`` pack, unedited since."""
     return getattr(w, "_live_slots_version", None) == w._version
+
+
+def outside_live_slots(w: torch.Tensor) -> torch.Tensor:
+    """The values of a packed ``w`` (nb, K, 5·tb) in the slots outside
+    ``LIVE_SLOTS``, flat: (K·5 − 25)·nb·tb of them."""
+    if w.dim() != 3 or w.shape[1] != K or w.shape[2] % NSCALARS:
+        raise ValueError(f"w must be (nb, {K}, {NSCALARS}*tb), got {tuple(w.shape)}")
+    live = torch.zeros((K, NSCALARS), dtype=torch.bool, device=w.device)
+    for s, k in LIVE_SLOTS:
+        live[k, s] = True
+    return w.view(w.shape[0], K, NSCALARS, -1).permute(1, 2, 0, 3)[~live].reshape(-1)
+
+
+def mark_live_slots(packed: PackedScene) -> PackedScene:
+    """The pack marked ``live_slots_only``, once its ``w`` is checked to be
+    exactly zero outside ``LIVE_SLOTS`` (for a pack that ``pack_scene`` did
+    not build, such as the JAX package's carried by ``interop``); raises
+    ValueError otherwise. The check reads all of ``w`` once."""
+    if bool((outside_live_slots(packed.w) != 0).any()):
+        raise ValueError("w is not zero outside LIVE_SLOTS: the kernels would drop its other slots")
+    return dataclasses.replace(packed, live_slots_only=True)
 
 
 def _morton_codes(centroids: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -360,7 +388,9 @@ def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str 
     """Raise on anything the kernels do not take. ``lanes`` is the per-ray
     input after ``feats``: ``alive`` int32 for the closest hit, ``maxt``
     float32 for the any hit. With ``enter_blk`` (the streamed searches) the
-    schedule has one column per cluster of ``nb // order.shape[1]`` blocks."""
+    schedule has one column per cluster of ``nb // order.shape[1]`` blocks.
+    ``w`` must be a ``live_slots_only`` pack's, on every device (a host-side
+    check: nothing synchronises)."""
     if w.dim() != 3 or w.shape[1] != K or w.shape[2] % NSCALARS:
         raise ValueError(f"w must be (nb, {K}, {NSCALARS}*tb), got {tuple(w.shape)}")
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
@@ -382,9 +412,9 @@ def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str 
     }
     if enter_blk is not None:
         expect["enter_blk"] = (enter_blk, torch.float32, (rt, nb))
-        if not _live_slots_only(w):
-            raise ValueError("the streamed searches read only LIVE_SLOTS of w: w must be the w of a "
-                             "live_slots_only pack (pack_scene's, padded or moved), unedited since")
+    if not _live_slots_only(w):
+        raise ValueError("the packed searches read only LIVE_SLOTS of w: w must be the w of a live_slots_only "
+                         "pack (pack_scene's, padded or moved, or one marked by mark_live_slots), unedited since")
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
@@ -411,17 +441,14 @@ def _kernel_device(feats, name: str) -> torch.device | None:
     return dev
 
 
-def _launch_streamed(name: str, library: str, dev: torch.device, tensors, w, nc: int, rt: int, ray_tile: int) -> None:
-    """Launch a streamed kernel at its launch shape for ``ray_tile``."""
-    if w.data_ptr() % 16:  # the kernels copy w in 16-byte pieces
-        raise ValueError("w must start on a 16-byte boundary for the streamed kernels")
-    nb, _, five_tb = w.shape
-    _launch(name, library, dev, tensors, (rt, nc, nb // nc, five_tb // NSCALARS) + _shape_ints(library, ray_tile))
-
-
-def _launch(name: str, library: str, dev: torch.device, tensors, ints) -> None:
+def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_ints, ray_tile: int) -> None:
     """Launch ``<library>_launch`` on the current stream of ``dev`` with the
-    tensors' device pointers, then the ints; raise if CUDA refused it."""
+    tensors' device pointers, the ints of the schedule (rt, nb for the
+    resident searches; rt, nc, bpc for the streamed ones), tb and the launch
+    shape for ``ray_tile``; raise if CUDA refused it."""
+    if w.data_ptr() % 16:  # the kernels copy w in 16-byte pieces
+        raise ValueError("w must start on a 16-byte boundary for the kernels")
+    ints = tuple(schedule_ints) + (w.shape[2] // NSCALARS,) + _shape_ints(library, ray_tile)
     lib = _build.library(library)
     with torch.cuda.device(dev):
         err = getattr(lib, f"{library}_launch")(
@@ -437,20 +464,22 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE)
     (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1).
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit.cu``) and raises if it cannot; on CPU tensors it runs
-    ``closest_hit_reference``. ``closest_hit.launches`` counts kernel
-    launches.
+    (``csrc/closest_hit.cu``, at ``launch_shape``) and raises if it cannot;
+    on CPU tensors it runs ``closest_hit_reference``. The kernel reads only
+    the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
+    ``live_slots_only`` pack (``pack_scene``'s, or one marked by
+    ``mark_live_slots``); any other raises, on every device.
+    ``closest_hit.launches`` counts kernel launches.
     """
     _check_inputs(order, enter, feats, alive, w, ray_tile)
     dev = _kernel_device(feats, "closest_hit")
     if dev is None:
         return closest_hit_reference(order, enter, feats, alive, w, ray_tile)
-    nb, _, five_tb = w.shape
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, w, best_t, best_i),
-        (feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile),
+        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, w, best_t, best_i), w,
+        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile,
     )
     closest_hit.launches += 1
     return best_t, best_i
@@ -544,14 +573,12 @@ def closest_hit_streamed(order, enter, enter_blk, feats, alive, w, ray_tile: int
     with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit_streamed.cu``, at ``stream_launch_shape``) and
-    raises if it cannot; on CPU tensors it runs
-    ``closest_hit_streamed_reference``. The kernel reads only the
-    ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
-    ``live_slots_only`` pack (``pack_scene``'s, padded by ``_pad_blocks`` or
-    moved by ``to``); any other raises, on every device (a host-side
-    check: nothing synchronises). ``closest_hit_streamed.launches`` counts
-    kernel launches.
+    (``csrc/closest_hit_streamed.cu``, at ``launch_shape``) and raises if
+    it cannot; on CPU tensors it runs ``closest_hit_streamed_reference``.
+    The kernel reads only the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the
+    w of a ``live_slots_only`` pack (``pack_scene``'s, padded by
+    ``_pad_blocks`` or moved by ``to``); any other raises, on every device.
+    ``closest_hit_streamed.launches`` counts kernel launches.
     """
     _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
     dev = _kernel_device(feats, "closest_hit_streamed")
@@ -559,10 +586,10 @@ def closest_hit_streamed(order, enter, enter_blk, feats, alive, w, ray_tile: int
         return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile)
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch_streamed(
+    _launch(
         "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, w, best_t, best_i), w, order.shape[1],
-        feats.shape[0] // ray_tile, ray_tile,
+        (order, enter, enter_blk, feats, alive, w, best_t, best_i), w,
+        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile,
     )
     closest_hit_streamed.launches += 1
     return best_t, best_i
@@ -636,18 +663,19 @@ def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE):
     ``maxt = 0`` are never tested and report 0).
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/occlusion.cu``) and raises if it cannot; on CPU tensors it runs
-    ``occluded_reference``. ``occluded.launches`` counts kernel launches.
+    (``csrc/occlusion.cu``, at ``launch_shape``) and raises if it cannot; on
+    CPU tensors it runs ``occluded_reference``. The kernel reads only the
+    ``LIVE_SLOTS`` of ``w``, as ``closest_hit``. ``occluded.launches`` counts
+    kernel launches.
     """
     _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt")
     dev = _kernel_device(feats, "occluded")
     if dev is None:
         return occluded_reference(order, enter, feats, maxt, w, ray_tile)
-    nb, _, five_tb = w.shape
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "occluded", "occlusion", dev, (order, enter, feats, maxt, w, occ),
-        (feats.shape[0] // ray_tile, nb, five_tb // NSCALARS, ray_tile),
+        "occluded", "occlusion", dev, (order, enter, feats, maxt, w, occ), w,
+        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile,
     )
     occluded.launches += 1
     return occ
@@ -699,7 +727,7 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     schedule inputs of ``closest_hit_streamed``.
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/occlusion_streamed.cu``, at ``stream_launch_shape``) and raises
+    (``csrc/occlusion_streamed.cu``, at ``launch_shape``) and raises
     if it cannot; on CPU tensors it runs ``occluded_streamed_reference``.
     The kernel reads only the ``LIVE_SLOTS`` of ``w``, as
     ``closest_hit_streamed``. ``occluded_streamed.launches`` counts kernel
@@ -710,9 +738,9 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     if dev is None:
         return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile)
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch_streamed(
+    _launch(
         "occluded_streamed", "occlusion_streamed", dev, (order, enter, enter_blk, feats, maxt, w, occ), w,
-        order.shape[1], feats.shape[0] // ray_tile, ray_tile,
+        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile,
     )
     occluded_streamed.launches += 1
     return occ

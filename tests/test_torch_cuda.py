@@ -93,6 +93,82 @@ def test_occlusion_kernel_matches_plain_version(device, tb, ray_tile):
     assert (occ[args[3] == 0] == 0).all()
 
 
+@pytest.mark.parametrize("tb", [128, 512])
+def test_kernel_breaks_visit_order_ties_as_plain_version(device, tb):
+    """Two blocks with the same columns (every triangle at two packed rows,
+    equal t), scheduled so that every tile visits the higher block first:
+    the earlier-visited block keeps the tie, so every hit lands on the
+    higher row, as in the plain version. A fold by (t, row) across blocks
+    would take the lower one."""
+    scene, o, d = _random_scene(device, seed=tb + 30)
+    rows = scene.v0.shape[0]
+    scene = dataclasses.replace(scene, valid=scene.valid & (torch.arange(rows, device=device) < tb),
+                                two_sided=torch.zeros_like(scene.two_sided))
+    packed = tpi.pack_scene(scene, tri_block=tb)
+    assert packed.w.shape[0] == 1
+    twice = tpi.mark_live_slots(dataclasses.replace(packed, w=torch.cat([packed.w, packed.w]), live_slots_only=False))
+    _, _, feats, alive = tpi.prepare_rays(o, d, packed)
+    rt = feats.shape[0] // tpi.DEFAULT_RAY_TILE
+    order = torch.tensor([[1, 0]], dtype=torch.int32, device=device).repeat(rt, 1)
+    enter = torch.zeros((rt, 2), device=device)
+    args = (order, enter, feats, alive, twice.w, tpi.DEFAULT_RAY_TILE)
+    bt, bi = tpi.closest_hit(*args)
+    rt_, ri = tpi.closest_hit_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bi, ri) and torch.equal(bt, rt_)
+    assert (ri >= 0).sum() > 50 and (ri[ri >= 0] >= tb).all()
+
+
+def test_resident_kernels_on_all_dead_tiles(device):
+    """Whole tiles of dead lanes (and of maxt = 0 lanes) among live ones:
+    they visit nothing and report -inf / -1 and 0, as the plain versions."""
+    scene, o, d = _random_scene(device, seed=23)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    tile = tpi.DEFAULT_RAY_TILE
+    dead = torch.zeros(o.shape[0], dtype=torch.bool, device=device)
+    dead[: 2 * tile] = True
+    dead[10 * tile : 12 * tile] = True
+    args = tpi.prepare_rays(o, d, packed, alive=~dead) + (packed.w, tile)
+    bt, bi = tpi.closest_hit(*args)
+    rt, ri = tpi.closest_hit_reference(*args)
+    maxt = torch.full((o.shape[0],), 5.0, device=device).masked_fill(dead, 0.0)
+    sargs = tpi.prepare_shadow_rays(o, d, maxt, packed) + (packed.w, tile)
+    occ = tpi.occluded(*sargs)
+    ref = tpi.occluded_reference(*sargs)
+    torch.cuda.synchronize()
+    assert torch.isinf(args[1][dead[::tile]]).all()  # the dead tiles schedule nothing
+    assert torch.isneginf(bt[: o.shape[0]][dead]).all() and (bi[: o.shape[0]][dead] == -1).all()
+    assert torch.equal(bi, ri) and (bi[: o.shape[0]][~dead] >= 0).any()
+    assert (occ[: o.shape[0]][dead] == 0).all()
+    assert torch.equal(occ, ref) and ref.sum() > 0
+
+
+def test_occlusion_kernel_stops_after_first_block(device):
+    """A large triangle in front of every ray and the rest of the scene far
+    behind it: each tile's first scheduled block occludes all its lanes, so
+    the bound falls to -inf and the plain version visits one block a tile;
+    the kernel's flags equal it (all set)."""
+    rng = np.random.default_rng(24)
+    far = rng.normal(size=(300, 3, 3)).astype(np.float32) * 2 + np.array([0, 0, 25], np.float32)
+    wall = np.array([[[-100, -100, 5], [0, 100, 5], [100, -100, 5]]], np.float32)  # faces -z: hit from z < 5
+    v = np.concatenate([wall, far])
+    mesh = MeshData(vertices=v, normals=np.zeros_like(v), uvs=np.zeros((v.shape[0], 3, 2), np.float32))
+    scene = build_scene([mesh_spec(mesh)], [{"type": "diffuse"}], pad_to_multiple=128, device=device)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    assert packed.w.shape[0] >= 3
+    o = torch.as_tensor(np.concatenate([rng.uniform(-1, 1, (1024, 2)), np.zeros((1024, 1))], 1).astype(np.float32),
+                        device=device)
+    d = torch.nn.functional.normalize(
+        torch.as_tensor(np.concatenate([rng.normal(size=(1024, 2)) * 0.2, np.ones((1024, 1))], 1).astype(np.float32),
+                        device=device), dim=1)
+    args = tpi.prepare_shadow_rays(o, d, torch.full((1024,), 100.0, device=device), packed) + (packed.w, 128)
+    occ = tpi.occluded(*args)
+    ref, work = tpi.occluded_reference(*args, count_work=True)
+    torch.cuda.synchronize()
+    assert work["blocks"] == 1024 // 128
+    assert torch.equal(occ, ref) and bool((ref == 1).all())
+
+
 def test_kernel_rejects_mixed_devices(device):
     scene, o, d = _random_scene(device)
     packed = tpi.pack_scene(scene, tri_block=128)
@@ -266,10 +342,19 @@ def test_streamed_occlusion_stops_mid_cluster(device, monkeypatch):
     assert (occ == ref).double().mean().item() >= 0.9995
 
 
+def _assert_launch_shapes_fit(libraries):
+    for library in libraries:
+        for ray_tile in range(32, 1025, 32):
+            occ = tpi.launch_occupancy(library, ray_tile)
+            assert occ["threads"] <= 1024 and occ["ctas_per_sm"] >= 1, occ
+
+
 def test_streamed_launch_shapes_fit_the_card(device):
     """Every ray tile the wrappers accept has a launch shape that the
-    kernels take, with at least one CTA resident per SM."""
-    for library in tpi.STREAM_LAUNCH:
-        for ray_tile in range(32, 1025, 32):
-            occ = tpi.stream_occupancy(library, ray_tile)
-            assert occ["threads"] <= 1024 and occ["ctas_per_sm"] >= 1, occ
+    streamed kernels take, with at least one CTA resident per SM."""
+    _assert_launch_shapes_fit(["closest_hit_streamed", "occlusion_streamed"])
+
+
+def test_resident_launch_shapes_fit_the_card(device):
+    """The same for the resident kernels K1 and K2."""
+    _assert_launch_shapes_fit(["closest_hit", "occlusion"])

@@ -178,12 +178,13 @@ def test_closest_hit_checks_inputs(stand_in):
 
 
 def test_search_on_the_jax_pack(stand_in):
-    """interop.packed_from_numpy carries JAX's pack across; the port's search
-    on it finds the same packed rows as on the port's own pack."""
+    """interop.packed_from_numpy carries JAX's pack across and
+    mark_live_slots checks and marks it; the port's search on it finds the
+    same packed rows as on the port's own pack."""
     js, ts, (o, d), _ = stand_in
     jp = jpi.pack_scene(js, tri_block=128)
     fields = interop.numpy_fields(jp, ["w", "tri_map", "box_lo", "box_hi", "block_live"])
-    carried = interop.packed_from_numpy(fields, tri_block=jp.tri_block, device="cpu")
+    carried = tpi.mark_live_slots(interop.packed_from_numpy(fields, tri_block=jp.tri_block, device="cpu"))
     own = tpi.pack_scene(ts, tri_block=128)
     o, d = torch.tensor(o), torch.tensor(d)
     h_carried = tpi.intersect_packed(o, d, carried)

@@ -1,10 +1,12 @@
-"""The live-slot contract of the streamed kernels: a packed triangle column
-is exactly zero outside ``LIVE_SLOTS`` (the 25 (scalar, feature row) slots
+"""The live-slot contract of the four kernels: a packed triangle column is
+exactly zero outside ``LIVE_SLOTS`` (the 25 (scalar, feature row) slots
 that ``csrc/stream_stage.cuh`` stages and multiplies), ray features are zero
 past row 9, and the kernels' own table is ``LIVE_SLOTS``. The JAX package's
-pack has the same zeros. The streamed searches take only the w of a pack
-marked ``live_slots_only``."""
+pack has the same zeros. The searches take only the w of a pack marked
+``live_slots_only``, and ``mark_live_slots`` marks a carried pack after
+checking its zeros. Also the launch-shape table of the four kernels."""
 
+import dataclasses
 import os
 import re
 
@@ -155,33 +157,80 @@ def test_kernel_slot_table_is_live_slots():
     assert re.search(rf"constexpr int NLIVE = {len(LIVE_SLOTS)};", text)
 
 
+def _carried_jax_pack(seed=3, tb=128):
+    """JAX's pack carried across by interop, not marked."""
+    jp = jpi.pack_scene(_jax_scene(seed), tri_block=tb)
+    fields = interop.numpy_fields(jp, ["w", "tri_map", "box_lo", "box_hi", "block_live"])
+    return interop.packed_from_numpy(fields, tri_block=tb, device="cpu")
+
+
+RESIDENT = ("closest_hit", "occluded")
+
+
 @pytest.mark.parametrize("case", ["pack_scene", "clone", "edited", "jax_pack"])
-@pytest.mark.parametrize("search", ["closest_hit_streamed", "occluded_streamed"])
+@pytest.mark.parametrize("search", ["closest_hit_streamed", "occluded_streamed", *RESIDENT])
 def test_streamed_searches_take_only_live_slot_packs(search, case):
-    """A pack_scene pack's w (padded to whole clusters) goes through; a copy
-    of it, the same w edited in place, and JAX's pack carried across by
-    interop (not marked, whatever its zeros) raise, on the CPU as on the
-    card."""
+    """All four searches read only LIVE_SLOTS. A pack_scene pack's w (padded
+    to whole clusters for the streamed ones) goes through; a copy of it, the
+    same w edited in place, and JAX's pack carried across by interop (not
+    marked, whatever its zeros) raise, on the CPU as on the card."""
     o, d = _rays(256, seed=3)
-    if case == "jax_pack":
-        jp = jpi.pack_scene(_jax_scene(3), tri_block=128)
-        fields = interop.numpy_fields(jp, ["w", "tri_map", "box_lo", "box_hi", "block_live"])
-        packed = interop.packed_from_numpy(fields, tri_block=128, device="cpu")
+    packed = _carried_jax_pack() if case == "jax_pack" else tpi.pack_scene(_random_scene(3), tri_block=128)
+    maxt = torch.full((256,), 5.0)
+    if search in RESIDENT:
+        prepare = tpi.prepare_rays(o, d, packed) if search == "closest_hit" else tpi.prepare_shadow_rays(o, d, maxt, packed)
+        args, ray_tile = list(prepare) + [packed.w], tpi.DEFAULT_RAY_TILE
     else:
-        packed = tpi.pack_scene(_random_scene(3), tri_block=128)
-    if search == "closest_hit_streamed":
-        args = list(tpi.prepare_rays_streamed(o, d, packed))
-    else:
-        args = list(tpi.prepare_shadow_rays_streamed(o, d, torch.full((256,), 5.0), packed))
+        prepare = tpi.prepare_rays_streamed if search == "closest_hit_streamed" else tpi.prepare_shadow_rays_streamed
+        args = list(prepare(o, d, packed) if search == "closest_hit_streamed" else prepare(o, d, maxt, packed))
+        ray_tile = tpi.STREAM_RAY_TILE
+    w_at = len(args) - 1
     if case == "clone":
-        args[5] = args[5].clone()
+        args[w_at] = args[w_at].clone()
     elif case == "edited":
-        args[5].mul_(1.0)
+        args[w_at].mul_(1.0)
     if case != "pack_scene":
         with pytest.raises(ValueError, match="LIVE_SLOTS"):
-            getattr(tpi, search)(*args, tpi.STREAM_RAY_TILE)
+            getattr(tpi, search)(*args, ray_tile)
         return
-    got = getattr(tpi, search)(*args, tpi.STREAM_RAY_TILE)
-    want = getattr(tpi, f"{search}_reference")(*args, tpi.STREAM_RAY_TILE)
+    got = getattr(tpi, search)(*args, ray_tile)
+    want = getattr(tpi, f"{search}_reference")(*args, ray_tile)
     for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["jax_pack", "one_dead_slot"])
+def test_mark_live_slots_checks_the_zeros(case):
+    """mark_live_slots marks JAX's carried pack, which the resident searches
+    then take; one nonzero value in a dead slot makes it raise."""
+    carried = _carried_jax_pack()
+    if case == "one_dead_slot":
+        w = carried.w.clone()
+        dead_k, dead_s = 12, 3  # feature row 12 of D: not in LIVE_SLOTS
+        assert (dead_s, dead_k) not in LIVE_SLOTS
+        w.view(w.shape[0], K, NSCALARS, -1)[1, dead_k, dead_s, 7] = 1e-30
+        with pytest.raises(ValueError, match="LIVE_SLOTS"):
+            tpi.mark_live_slots(dataclasses.replace(carried, w=w))
+        return
+    marked = tpi.mark_live_slots(carried)
+    assert marked.live_slots_only and not carried.live_slots_only
+    o, d = _rays(256, seed=4)
+    args = tpi.prepare_rays(o, d, marked) + (marked.w, tpi.DEFAULT_RAY_TILE)
+    bt, bi = tpi.closest_hit(*args)
+    rt, ri = tpi.closest_hit_reference(*args)
+    assert torch.equal(bt, rt) and torch.equal(bi, ri) and (bi >= 0).any()
+
+
+@pytest.mark.parametrize("library", list(tpi.LAUNCH))
+def test_launch_shapes_are_whole_warps(library):
+    """For every ray tile the wrappers accept, the launch-shape table gives
+    each column group a whole number of warps and the CTA at most 1,024
+    threads (512 at two rays a thread, the kernels' launch bounds)."""
+    for ray_tile in range(32, 1025, 32):
+        threads, groups, rpt = tpi.launch_shape(library, ray_tile)
+        per_group = ray_tile // rpt
+        assert rpt in (1, 2) and per_group * rpt == ray_tile and per_group % 32 == 0, (ray_tile, rpt)
+        assert groups >= 1 and threads == groups * per_group, (ray_tile, groups)
+        assert threads <= (1024 if rpt == 1 else 512), (ray_tile, threads)
+        if not library.startswith("closest_hit"):
+            assert rpt == 1  # K2 and K4 are built for one ray a thread
