@@ -59,13 +59,32 @@ then the streamed path, on a pack past the 16 MiB resident budget:
     frame time;
 15. the light CDF of a scene with 1,200 emitter triangles is bit-equal on
     the card and the CPU;
+and the differentiable path (the bench's loss, mean(image), in v0 and the
+material albedo; the kernels run unchanged in every forward):
+16. forward+backward at each full-size path's shapes, right after its
+    forward frame (config 3 naive 800x800 spp 4, config 8 NEE 512x512 spp 4,
+    config 6 streamed 800x800 spp 2): the launches of each kernel in one
+    fwd+bwd frame as in the forward, the peak device memory, finite
+    gradients, the median time over 3 frames with varied seeds synchronised
+    on one scalar of the gradients, fwd+bwd rays/s and the ratio to the
+    forward frame;
+17. gradients through the kernels against gradients through the plain
+    versions, within rtol 1e-4 and atol 1e-6*max|g|: the config 8 stand-in
+    at 128x128, spp 2 (K1 and K2) and config 5 at the trainer's shapes
+    (96x96, spp 8, 2 bounces, NEE; K1);
+18. the config 5 trainer (grad/inverse.py) at its defaults for 100 steps:
+    the loss history, seconds per step, the recovered albedo's and vertex
+    offsets' errors; the final loss must be below the first;
+19. the pack cache on the card: an in-place edit of v0, then a render,
+    equals a render on a fresh pack;
 then a JSON line that summarises the four kernels, and a JSON result line
 last.
 
 The naive path renders scenes/config3_icosphere.toml, the NEE path
 scenes/config8_icosphere.toml and the streamed path
 scenes/config6_icosphere.toml: configs 3, 8 and 6 with their OBJ meshes
-replaced by icospheres, so the run needs no asset files.
+replaced by icospheres, so the run needs no asset files. Config 5 is built
+in code (grad/inverse.py) or read from scenes/config5_invert_target.toml.
 """
 
 from __future__ import annotations
@@ -80,6 +99,7 @@ import time
 import numpy as np
 import torch
 
+from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, run_inverse_demo
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
 from gpupathtracer_tpu_torch.models.obj import MeshData
@@ -117,6 +137,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config3_icosphere.toml")
 NEE_SCENE = os.path.join(ROOT, "scenes", "config8_icosphere.toml")
 STREAM_SCENE = os.path.join(ROOT, "scenes", "config6_icosphere.toml")
+CONFIG5_SCENE = os.path.join(ROOT, "scenes", "config5_invert_target.toml")
 KERNELS = {
     "closest_hit": {
         "source": "gpupathtracer_tpu_torch/csrc/closest_hit.cu",
@@ -157,6 +178,9 @@ T_TOL = 1e-5  # rtol = atol on t where the triangle agrees
 IMG_MEAN = 2e-3  # mean |diff|
 IMG_PIXEL = 3e-2  # a pixel is "off" above this max-channel |diff| ...
 IMG_OFF_SHARE = 5e-3  # ... and fewer than this share may be off
+# Gradients through the kernels against the plain versions (tests/test_torch_grad.py's tolerance).
+GRAD_RTOL = 1e-4
+GRAD_ATOL_OF_MAX = 1e-6
 
 
 def _sync(device: torch.device) -> None:
@@ -545,6 +569,152 @@ def phase_light_cdf(device) -> None:
         raise AssertionError(f"the light CDF differs between card and CPU in {differ} entries")
 
 
+def _leaf_scene(scene):
+    """The scene with ``v0`` and the material albedo as fresh leaves that
+    require a gradient: ``(scene, (v0, albedo))``."""
+    v0 = scene.v0.detach().clone().requires_grad_()
+    albedo = scene.materials.albedo.detach().clone().requires_grad_()
+    leaf = dataclasses.replace(scene, v0=v0, materials=dataclasses.replace(scene.materials, albedo=albedo))
+    return leaf, (v0, albedo)
+
+
+def bench_loss_grads(scene, leaves, camera, settings, seed=None):
+    """The bench's loss, mean(image) (``gpupathtracer_tpu/bench.py``), and
+    its gradients in (v0, albedo); zeros where no gradient reaches (the
+    naive estimator's v0)."""
+    loss = render_frame(scene, camera, settings, seed=seed).mean()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss, [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+
+
+def _launch_counts() -> dict:
+    return {name: k["counter"].launches for name, k in KERNELS.items()}
+
+
+def _reset_launches() -> None:
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+
+
+def phase_grad_check(label: str, scene, camera, settings, expect: dict) -> dict:
+    """Gradients of the bench loss in (v0, albedo) through the kernels and
+    through the plain versions (intersector "plucker"): the hits are the
+    same, so they agree within rtol 1e-4 and atol 1e-6*max|g| (only the
+    order of the scatter-adds backwards differs). Also the kernel launches
+    of the kernel run, as expected."""
+    leaf, leaves = _leaf_scene(scene)
+    _reset_launches()
+    loss_k, g_k = bench_loss_grads(leaf, leaves, camera, settings)
+    _sync(scene.v0.device)
+    launches = _launch_counts()
+    loss_p, g_p = bench_loss_grads(leaf, leaves, camera, dataclasses.replace(settings, intersector="plucker"))
+    row = {"launches": launches, "loss": loss_k.item(), "loss_plain": loss_p.item()}
+    ok = launches == expect and bool(torch.isfinite(loss_k)) and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())
+    for name, a, b in zip(("v0", "albedo"), g_k, g_p):
+        scale = b.abs().max().item()
+        diff = (a - b).abs()
+        bad = int((diff > GRAD_RTOL * b.abs() + GRAD_ATOL_OF_MAX * scale).sum())
+        finite = bool(torch.isfinite(a).all())
+        row[name] = {"max_abs_g": scale, "max_abs_diff": diff.max().item(), "entries": a.numel(),
+                     "nonzero": int((b != 0).sum()), "outside_tolerance": bad, "finite": finite}
+        ok = ok and bad == 0 and finite
+    print(f"gradients, kernels vs plain, {label} {settings.width}x{settings.height} spp {settings.spp} "
+          f"bounces {settings.bounces} {settings.estimator} (bar: outside_tolerance = 0 at rtol {GRAD_RTOL}, "
+          f"atol {GRAD_ATOL_OF_MAX}*max|g|; loss to rtol 1e-6; launches {expect}): {json.dumps(row)}", flush=True)
+    if not ok:
+        raise AssertionError(f"gradients {label}: kernels and plain versions disagree or launches are off: {row}")
+    return row
+
+
+def phase_fwd_bwd(label: str, scene, camera, settings, expect: dict, forward_s: float, frames: int = 3) -> dict:
+    """Forward+backward of the bench loss at a path's shapes: the launches of
+    each kernel in one fwd+bwd frame (the counts set to 0 just before it) and
+    the peak device memory of that frame, finite gradients, then the median
+    time over ``frames`` frames with varied seeds, each synchronised on one
+    scalar of the gradients; rays/s = W*H*spp*bounces / median, and the
+    ratio to the forward frame's time of this run. The leaves are made once
+    and not stepped, so the pack cache holds across the frames."""
+    device = scene.v0.device
+    leaf, leaves = _leaf_scene(scene)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    _reset_launches()
+    loss, grads = bench_loss_grads(leaf, leaves, camera, settings, seed=999)
+    _sync(device)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = [int((g != 0).sum()) for g in grads]
+    del loss, grads
+    times = []
+    for i in range(frames):
+        _sync(device)
+        t0 = time.perf_counter()
+        _, (g_v0, g_albedo) = bench_loss_grads(leaf, leaves, camera, settings, seed=1000 + i)
+        float(g_v0.reshape(-1)[0] + g_albedo.reshape(-1)[0])
+        times.append(time.perf_counter() - t0)
+    fwd_bwd_s = statistics.median(times)
+    rays = settings.width * settings.height * settings.spp * settings.bounces
+    out = {"launches": launches, "fwd_bwd_s": fwd_bwd_s, "fwd_bwd_s_all": times,
+           "fwd_bwd_rays_per_s": rays / fwd_bwd_s, "forward_frame_s": forward_s,
+           "fwd_bwd_over_forward": fwd_bwd_s / forward_s, "peak_allocated_bytes": peak,
+           "allocated_before_bytes": base, "grads_finite": finite, "grads_nonzero_v0_albedo": nonzero}
+    print(f"fwd+bwd, {label} path, {settings.width}x{settings.height} spp {settings.spp} bounces {settings.bounces}, "
+          f"loss mean(image) in (v0, albedo), rays = W*H*spp*bounces: {json.dumps(out)}", flush=True)
+    if launches != expect or not finite or nonzero[1] == 0:
+        raise AssertionError(f"fwd+bwd {label}: launches {launches} (expected {expect}), finite {finite}, "
+                             f"nonzero {nonzero}")
+    return out
+
+
+def phase_trainer(device, steps: int = 100) -> dict:
+    """The config 5 trainer (grad/inverse.py) at its defaults on the card:
+    the loss must fall; K1 launches as expected (one pack, so the shadow
+    rays threshold K1 on every bounce: 2 x bounces per sample, for the
+    target frame and every step)."""
+    settings = _demo_setup(device=device)[0]
+    _reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    result = run_inverse_demo(steps=steps, device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    expect = expect_launches(closest_hit=(steps + 1) * settings.spp * 2 * settings.bounces)
+    losses = [loss for _, loss in result["loss_history"]]
+    row = {"steps": steps, "wall_s": wall, "s_per_step": wall / steps, "launches": launches,
+           "loss_history": result["loss_history"], "albedo_recovered": result["albedo_recovered"],
+           "albedo_max_err": result["albedo_max_err"], "vertex_offset_mae": result["vertex_offset_mae"]}
+    print(f"trainer, config 5 inverse rendering, {settings.width}x{settings.height} spp {settings.spp} "
+          f"bounces {settings.bounces} nee, Adam lr 2e-2, s_per_step = wall / steps with the target frame "
+          f"(bar: final loss < first loss; launches {expect}): {json.dumps(row)}", flush=True)
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)) or launches != expect:
+        raise AssertionError(f"trainer: loss {losses[0]} -> {losses[-1]}, launches {launches}")
+    return row
+
+
+def phase_pack_refresh(device) -> None:
+    """An in-place edit of v0, then a render, equals a render on a fresh
+    pack (the cache checks the tensors' versions) and differs from the
+    render before the edit."""
+    scene, camera, settings = load_scene_file(CONFIG5_SCENE, device=device)
+    camera = dataclasses.replace(camera, width=64, height=64)
+    settings = dataclasses.replace(settings, width=64, height=64, spp=1)
+    before = render_frame(scene, camera, settings)
+    with torch.no_grad():
+        scene.v0.add_(0.3)
+    after = render_frame(scene, camera, settings)
+    packed_intersect._PACK_CACHE.clear()
+    fresh = render_frame(scene, camera, settings)
+    row = {"after_equals_fresh": bool(torch.equal(after, fresh)),
+           "mean_abs_change": (after - before).abs().mean().item()}
+    print(f"pack refresh after v0.add_(0.3), config 5 64x64 spp 1 (bar: after_equals_fresh, "
+          f"mean_abs_change > 0): {json.dumps(row)}", flush=True)
+    if not row["after_equals_fresh"] or not row["mean_abs_change"] > 0:
+        raise AssertionError(f"stale pack after an in-place edit: {row}")
+
+
 def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
     """The summary entry of one kernel over its checks at main-path shapes."""
     b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
@@ -578,9 +748,9 @@ def main() -> None:
         phase_kernel_check("bounce-1 rays", o2, d2, packed2),
     ]
     phase_image_check(scene, camera, settings, size=256, spp=2)
-    naive = phase_full_frame(
-        "naive", scene, camera, settings, expect_launches(closest_hit=settings.spp * settings.bounces), profiled=True
-    )
+    naive_expect = expect_launches(closest_hit=settings.spp * settings.bounces)
+    naive = phase_full_frame("naive", scene, camera, settings, naive_expect, profiled=True)
+    naive_bwd = phase_fwd_bwd("config3 naive", scene, camera, settings, naive_expect, naive["frame_s"])
 
     # The NEE path (config 8 stand-in).
     scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
@@ -595,11 +765,14 @@ def main() -> None:
     )
     for estimator in ("nee", "mis"):
         phase_image_check(scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2)
-    nee = phase_full_frame(
-        "nee", scene, camera, settings,
-        expect_launches(closest_hit=settings.spp * (settings.bounces + 1), occluded=settings.spp * (settings.bounces - 1)),
-        profiled=True,
+    nee_expect = lambda st: expect_launches(
+        closest_hit=st.spp * (st.bounces + 1), occluded=st.spp * (st.bounces - 1)
     )
+    nee = phase_full_frame("nee", scene, camera, settings, nee_expect(settings), profiled=True)
+    small = dataclasses.replace(settings, width=128, height=128, spp=2)
+    grad_nee = phase_grad_check("config8", scene, dataclasses.replace(camera, width=128, height=128), small,
+                                nee_expect(small))
+    nee_bwd = phase_fwd_bwd("config8 nee", scene, camera, settings, nee_expect(settings), nee["frame_s"])
     del scene, packed, packed2
 
     # The streamed path (config 6 stand-in): both packs past the budget.
@@ -630,6 +803,10 @@ def main() -> None:
         "streamed naive", scene, camera, settings,
         expect_launches(closest_hit_streamed=settings.spp * settings.bounces), profiled=True,
     )
+    streamed_bwd = phase_fwd_bwd(
+        "config6 streamed naive", scene, camera, settings,
+        expect_launches(closest_hit_streamed=settings.spp * settings.bounces), streamed["frame_s"],
+    )
     nee_settings = dataclasses.replace(nee_settings, spp=1, bounces=3)
     streamed_nee = phase_full_frame(
         "streamed nee", scene, camera, nee_settings,
@@ -638,10 +815,24 @@ def main() -> None:
             occluded_streamed=nee_settings.spp * (nee_settings.bounces - 1),
         ),
     )
+    del scene, packed, packed2
     phase_light_cdf(device)
     print(json.dumps({"split": split}), flush=True)
 
-    paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee}
+    # The differentiable path on config 5: gradients through K1 against the
+    # plain versions at the trainer's shapes, the trainer, the pack refresh.
+    settings, camera, make_scene, mesh = _demo_setup(device=device)
+    scene = make_scene(torch.tensor([0.5, 0.5, 0.5], device=device),
+                       torch.zeros(mesh.vertices.shape, device=device))
+    grad_config5 = phase_grad_check(
+        "config5", scene, camera, settings, expect_launches(closest_hit=settings.spp * 2 * settings.bounces)
+    )
+    trainer = phase_trainer(device)
+    phase_pack_refresh(device)
+
+    paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee,
+             "fwd+bwd naive": naive_bwd, "fwd+bwd nee": nee_bwd, "fwd+bwd streamed naive": streamed_bwd,
+             "grad check config8": grad_nee, "grad check config5": grad_config5, "trainer": trainer}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     summary = [
         kernel_summary("closest_hit", k1_rows, nee["launches"]["closest_hit"], by_path("closest_hit")),

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import maximum
+
 
 def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -109,4 +111,4 @@ _NORM_EPS_SQ = 1e-24
 def normalize(v, dim: int = -1) -> torch.Tensor:
     """Safe normalize: clamps inside the sqrt, so the zero vector maps to 0."""
     v = _f32(v)
-    return v / torch.sqrt(torch.clamp((v * v).sum(dim=dim, keepdim=True), min=_NORM_EPS_SQ))
+    return v / torch.sqrt(maximum((v * v).sum(dim=dim, keepdim=True), _NORM_EPS_SQ))

@@ -1,4 +1,6 @@
-"""Moving the port's dataclasses of tensors between devices."""
+"""Moving the port's dataclasses of tensors between devices, and the
+clamps and absolute value of the differentiable path with the JAX package's
+gradients at their kinks."""
 
 from __future__ import annotations
 
@@ -30,3 +32,31 @@ def to_device(obj, device):
         elif dataclasses.is_dataclass(v):
             changes[f.name] = to_device(v, device)
     return dataclasses.replace(obj, **changes)
+
+
+# torch.clamp passes the whole gradient to x where x equals the bound, and
+# torch.abs passes none at 0. The JAX package's jnp.maximum / jnp.clip split
+# it in half at a tie, and jnp.abs passes +1 at 0. These helpers take the
+# JAX rule where x needs a gradient and the plain op (no extra launch)
+# elsewhere; their values are the same either way.
+
+
+def maximum(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``max(x, bound)``; at a tie half the gradient reaches ``x``."""
+    if x.requires_grad:
+        return torch.maximum(x, x.new_full((), bound))
+    return torch.clamp(x, min=bound)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``min(max(x, lo), hi)``, ties as ``maximum``."""
+    if x.requires_grad:
+        return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+    return torch.clamp(x, lo, hi)
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``|x|``; at 0 the gradient is +1."""
+    if x.requires_grad:
+        return torch.where(x >= 0, x, -x)
+    return x.abs()

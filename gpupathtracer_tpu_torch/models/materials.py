@@ -135,9 +135,10 @@ def textured_albedo(base, tex_kind, tex_id, checker_color, checker_scale, uv, te
     y1 = torch.remainder(y0 + 1, th)
     flat = textures.reshape(t_rows * th * tw, 3)
     b = tid * (th * tw)
-    c00 = flat[b + y0 * tw + x0]
-    c01 = flat[b + y0 * tw + x1]
-    c10 = flat[b + y1 * tw + x0]
-    c11 = flat[b + y1 * tw + x1]
+    texel = lambda i: flat.index_select(0, i)  # backward: index_add_ (see resolve_hits)
+    c00 = texel(b + y0 * tw + x0)
+    c01 = texel(b + y0 * tw + x1)
+    c10 = texel(b + y1 * tw + x0)
+    c11 = texel(b + y1 * tw + x1)
     bil = c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) + c10 * (1 - du) * dv + c11 * du * dv
     return torch.where((tex_kind == TEX_IMAGE)[:, None], bil, out)

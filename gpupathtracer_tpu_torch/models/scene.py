@@ -7,6 +7,11 @@ them to world space and concatenates every instance into one flat
 of ``pad_to_multiple``, with the stacked image textures of TEX_IMAGE
 materials. Planes are two two-sided triangles (+z normal in object space);
 spheres are icospheres.
+
+``build_scene`` is differentiable: a spec's ``vertices``, ``normals``,
+``uvs``, ``position``, ``rotation_deg`` or ``scale`` that requires a
+gradient passes it on to the scene's tensors (``plane_spec`` and
+``mesh_spec`` keep a tensor they are given as it is).
 """
 
 from __future__ import annotations
@@ -79,6 +84,10 @@ _PLANE_TRIS = np.asarray(
 
 
 def _f32(x) -> torch.Tensor:
+    """float32 tensor of ``x``; a tensor stays a tensor (with its autograd
+    history and device), anything else goes through numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32))
 
 

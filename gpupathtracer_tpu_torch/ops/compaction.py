@@ -40,10 +40,17 @@ def compact_rays(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor):
     Returns ``(o_c, d_c, inv)``; gather results with ``res[inv]``.
     """
     perm, inv = partition_alive(alive)
-    alive_c = alive[perm][:, None]
-    o_c = torch.where(alive_c, o[perm], o.new_tensor(DEAD_ORIGIN))
-    d_c = torch.where(alive_c, d[perm], d.new_tensor(DEAD_DIR))
+    o_c, d_c = _permute_and_park(o, d, alive, perm)
     return o_c, d_c, inv
+
+
+def _permute_and_park(o, d, alive, perm):
+    """``(o_c, d_c)``: the rays in ``perm`` order, dead lanes parked on the far
+    ray. The gathers are index_select, whose backward is an index_add_."""
+    alive_c = alive[perm][:, None]
+    o_c = torch.where(alive_c, o.index_select(0, perm), o.new_tensor(DEAD_ORIGIN))
+    d_c = torch.where(alive_c, d.index_select(0, perm), d.new_tensor(DEAD_DIR))
+    return o_c, d_c
 
 
 def compact_rays_coherent(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor, key_mode: str = "dir"):
@@ -56,19 +63,23 @@ def compact_rays_coherent(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
     (0 and 1 when there are none). Dead lanes park on the far ray as in
     ``compact_rays``.
 
+    The key is built from detached rays; the gathers ``o[perm]`` and
+    ``d[perm]`` stay differentiable.
+
     Returns ``(o_c, d_c, inv)``; gather results with ``res[inv]``.
     """
     if key_mode not in ("dir", "origin"):
         raise ValueError(f"unknown sort key {key_mode!r}")
-    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-    dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
+    od, dd = o.detach(), d.detach()
+    octant = (dd[:, 0] < 0).long() + 2 * (dd[:, 1] < 0).long() + 4 * (dd[:, 2] < 0).long()
+    dm = _morton_codes(dd, dd.new_full((3,), -1.0), dd.new_full((3,), 1.0))
     # nanmin / nanmax over the live origins.
-    use = alive[:, None] & ~torch.isnan(o)
-    lo = torch.where(use, o, torch.inf).amin(dim=0)
-    hi = torch.where(use, o, -torch.inf).amax(dim=0)
+    use = alive[:, None] & ~torch.isnan(od)
+    lo = torch.where(use, od, torch.inf).amin(dim=0)
+    hi = torch.where(use, od, -torch.inf).amax(dim=0)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     hi = torch.where(torch.isfinite(hi), hi, 1.0)
-    om = _morton_codes(o, lo, hi)
+    om = _morton_codes(od, lo, hi)
     dead = (~alive).long() << 31
     if key_mode == "origin":
         key = dead | (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
@@ -77,7 +88,5 @@ def compact_rays_coherent(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
     perm = torch.argsort(key, stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-    alive_c = alive[perm][:, None]
-    o_c = torch.where(alive_c, o[perm], o.new_tensor(DEAD_ORIGIN))
-    d_c = torch.where(alive_c, d[perm], d.new_tensor(DEAD_DIR))
+    o_c, d_c = _permute_and_park(o, d, alive, perm)
     return o_c, d_c, inv

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import clip, maximum
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 
 EPSILON = 1e-6  # the reference's EPSILON
@@ -61,7 +62,9 @@ def intersect_brute(
 ) -> Hit:
     """Brute-force closest hit of rays (R, 3) against every scene triangle:
     triangle blocks stream through a running (best_t, best_index) per ray
-    chunk."""
+    chunk. The search runs on detached rays and geometry."""
+    o, d = o.detach(), d.detach()
+    v0, e1, e2 = scene.v0.detach(), scene.e1.detach(), scene.e2.detach()
     n = scene.num_triangles
     if n % tri_block:
         raise ValueError(f"scene must be padded to {tri_block}")
@@ -72,7 +75,7 @@ def intersect_brute(
         bt, bi = best_t[r0 : r0 + ray_chunk], best_i[r0 : r0 + ray_chunk]
         for start in range(0, n, tri_block):
             rows = slice(start, start + tri_block)
-            t, ok = mt_block(oc, dc, scene.v0[rows], scene.e1[rows], scene.e2[rows], scene.two_sided[rows], t_min)
+            t, ok = mt_block(oc, dc, v0[rows], e1[rows], e2[rows], scene.two_sided[rows], t_min)
             t = torch.where(ok & scene.valid[rows][None, :], t, BIG)
             blk_min, blk_arg = t.min(dim=-1)  # first index wins ties
             upd = blk_min < bt  # strict <: the earlier block wins ties
@@ -96,7 +99,7 @@ class HitAttributes:
 
 
 def _safe_normalize(x):
-    return x / torch.sqrt(torch.clamp((x * x).sum(dim=-1, keepdim=True), min=1e-24))
+    return x / torch.sqrt(maximum((x * x).sum(dim=-1, keepdim=True), 1e-24))
 
 
 def resolve_hits(
@@ -109,9 +112,13 @@ def resolve_hits(
     gathers and interpolation (``sn`` / ``uv`` is None).
     """
     idx = torch.clamp(tri, min=0)
-    v0 = scene.v0[idx]
-    e1 = scene.e1[idx]
-    e2 = scene.e2[idx]
+    # index_select, not x[idx]: its backward is an index_add_, where that of
+    # advanced indexing sorts the indices and sums each row's duplicates in
+    # turn (every missed ray gathers row 0).
+    rows = lambda x: x.index_select(0, idx)
+    v0 = rows(scene.v0)
+    e1 = rows(scene.e1)
+    e2 = rows(scene.e2)
     pvec = torch.linalg.cross(d, e2)
     det = _dot(e1, pvec)
     inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
@@ -121,17 +128,17 @@ def resolve_hits(
     v = _dot(d, qvec) * inv_det
     # Near-parallel gathered rows (clamped indices of missed rays) give huge
     # |t|; clamp far inside the f32 range so later squares stay finite.
-    t = torch.clamp(_dot(e2, qvec) * inv_det, -1e8, 1e8)
+    t = clip(_dot(e2, qvec) * inv_det, -1e8, 1e8)
     point = o + t[:, None] * d
     w = 1.0 - u - v
     sn = None
     if need_sn:
         sn = _safe_normalize(
-            w[:, None] * scene.n0[idx] + u[:, None] * scene.n1[idx] + v[:, None] * scene.n2[idx]
+            w[:, None] * rows(scene.n0) + u[:, None] * rows(scene.n1) + v[:, None] * rows(scene.n2)
         )
     uv = None
     if need_uv:
-        uv = w[:, None] * scene.uv0[idx] + u[:, None] * scene.uv1[idx] + v[:, None] * scene.uv2[idx]
+        uv = w[:, None] * rows(scene.uv0) + u[:, None] * rows(scene.uv1) + v[:, None] * rows(scene.uv2)
     return HitAttributes(
         t=t,
         point=point,

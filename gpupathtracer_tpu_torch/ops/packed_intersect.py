@@ -167,8 +167,10 @@ def _morton_codes(centroids: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -
 
 
 # Pack cache: repeated frames pack the same scene tensors. Keyed on the
-# identity of the five tensors the pack reads plus tri_block; weakrefs guard
-# against id() reuse after the tensors are freed. Small LRU.
+# identity of the five tensors the pack reads plus tri_block; an entry holds
+# weakrefs (against id() reuse after the tensors are freed) and the tensors'
+# version counters, so an in-place edit of any of them (an optimizer step on
+# a parameter, ``add_`` under ``no_grad``) is a miss. Small LRU.
 _PACK_CACHE: dict[tuple, tuple] = {}
 _PACK_CACHE_SIZE = 4
 
@@ -182,23 +184,31 @@ def pack_scene(scene: TriangleScene, tri_block: int = 512) -> PackedScene:
 
     Valid rows are kept; two-sided rows are appended again with e1 and e2
     swapped (flipped winding), so back-face hits become front-face hits of
-    the duplicate. ``tri_map`` sends both copies to the scene row. Cached on
-    the identity of the scene's tensors.
+    the duplicate. ``tri_map`` sends both copies to the scene row. The pack
+    is built from the detached geometry and never requires a gradient: the
+    searches are discrete, and ``resolve_hits`` re-derives the hit
+    attributes differentiably from the scene.
+
+    Cached on the identity and the version counter of the scene's tensors.
+    ``torch.optim`` steps a parameter in place through the parameter itself,
+    which bumps its version, so the next frame repacks; an edit made through
+    ``.data`` bypasses the counter, and the cache cannot see it.
     """
     fields = _pack_cache_fields(scene)
     key = tuple(id(x) for x in fields) + (tri_block,)
+    versions = tuple(x._version for x in fields)
     entry = _PACK_CACHE.pop(key, None)
-    if entry is not None and all(r() is f for r, f in zip(entry[0], fields)):
+    if entry is not None and entry[1] == versions and all(r() is f for r, f in zip(entry[0], fields)):
         _PACK_CACHE[key] = entry  # re-insert: most recently used last
-        return entry[1]
+        return entry[2]
+    v0, e1, e2 = (x.detach() for x in fields[:3])
     orig = torch.nonzero(scene.valid).flatten()
     flip = torch.nonzero(scene.two_sided & scene.valid).flatten()
-    v0, e1, e2 = scene.v0, scene.e1, scene.e2
     a = torch.cat([v0[orig], v0[flip]])
     b = torch.cat([v0[orig] + e1[orig], v0[flip] + e2[flip]])
     c = torch.cat([v0[orig] + e2[orig], v0[flip] + e1[flip]])
     packed = _pack_rows(a, b, c, torch.cat([orig, flip]), tri_block)
-    _PACK_CACHE[key] = (tuple(weakref.ref(x) for x in fields), packed)
+    _PACK_CACHE[key] = (tuple(weakref.ref(x) for x in fields), versions, packed)
     while len(_PACK_CACHE) > _PACK_CACHE_SIZE:
         _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
     return packed
@@ -873,7 +883,11 @@ def intersect_packed(
     default. ``alive`` (R,) bool: dead lanes are left out of the tile
     frustums and report no hit. ``plain=True`` runs the plain versions on
     any device.
+
+    The search is discrete: it runs on detached rays and the ``Hit`` never
+    carries autograd history (``resolve_hits`` re-derives the attributes).
     """
+    o, d = o.detach(), d.detach()
     if is_resident(packed):
         search = closest_hit_reference if plain else closest_hit
         order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
@@ -918,7 +932,9 @@ def intersect_packed_occluded(
     """Occlusion of rays (R, 3) with unit directions: (R,) bool, True where
     some accepted hit has t in (EPSILON, ``max_t``). ``max_t = 0`` marks
     lanes that need no test; they report False. The route, the ray tile
-    and ``plain`` as in ``intersect_packed``."""
+    and ``plain`` as in ``intersect_packed``; the rays and cutoffs are
+    detached."""
+    o, d, max_t = o.detach(), d.detach(), max_t.detach()
     if is_resident(packed):
         search = occluded_reference if plain else occluded
         occ = search(*prepare_shadow_rays(o, d, max_t, packed, ray_tile), packed.w, ray_tile)
@@ -935,13 +951,15 @@ def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "di
     ``make_sorted_intersect``: the key is (direction octant, direction
     Morton, origin Morton) for ``"dir"`` and (octant, origin Morton,
     direction Morton) for ``"origin"``, the origin box is the pack's, and
-    results are scattered back to the caller's order."""
+    results are scattered back to the caller's order. The rays are detached
+    on entry, as the search needs no gradient."""
     if key_mode not in ("dir", "origin"):
         raise ValueError(f"unknown sort key {key_mode!r}")
     lo = packed.box_lo.amin(dim=0)
     hi = packed.box_hi.amax(dim=0)
 
     def wrapped(o, d, alive=None) -> Hit:
+        o, d = o.detach(), d.detach()
         octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
         dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
         om = _morton_codes(o, lo, hi)

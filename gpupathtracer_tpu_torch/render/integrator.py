@@ -13,6 +13,11 @@ permute live rays to the front (``ops/compaction.py``), sorted for tile
 coherence with ``sort_rays``, and shadow rays are compacted (never sorted)
 on every bounce.
 
+The step is differentiable as the JAX package's: the searches and the
+shadow rays with their cutoffs are detached, everything else (hit
+attributes, materials, emission, the NEE geometry term, MIS weights, the
+light table's total area) carries gradients.
+
 Options outside this path (mirror and glass, Russian roulette, other
 compaction modes) raise NotImplementedError.
 """
@@ -25,6 +30,7 @@ from functools import partial
 
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import absolute, maximum
 from gpupathtracer_tpu_torch.models.materials import BxdfType, textured_albedo
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
@@ -165,7 +171,7 @@ def _gather_materials(scene: TriangleScene, mat_id: torch.Tensor, textured: bool
             m.checker_color,
             m.checker_scale[:, None],
         ]
-    g = torch.cat(cols, dim=-1)[mat_id]
+    g = torch.cat(cols, dim=-1).index_select(0, mat_id)  # backward: index_add_ (see resolve_hits)
     out = {
         "type": g[:, 0].to(torch.int64),
         "albedo": g[:, 1:4],
@@ -308,9 +314,9 @@ def make_bounce_fn(
             if mis:
                 # The light sampler's solid-angle pdf of this hit:
                 # t² / (cosθ_y · A_total).
-                cos_y_hit = (attrs.gn * d).sum(dim=-1).abs()
-                pdf_light_hit = attrs.t * attrs.t / torch.clamp(cos_y_hit * total_light_area, min=1e-12)
-                w_bsdf = state.prev_pdf / torch.clamp(state.prev_pdf + pdf_light_hit, min=1e-12)
+                cos_y_hit = absolute((attrs.gn * d).sum(dim=-1))
+                pdf_light_hit = attrs.t * attrs.t / maximum(cos_y_hit * total_light_area, 1e-12)
+                w_bsdf = state.prev_pdf / maximum(state.prev_pdf + pdf_light_hit, 1e-12)
                 emitted = emitted * torch.where(state.prev_nee, w_bsdf, 1.0)[:, None]
             elif nee:
                 count_emit = count_emit & ~state.prev_nee
@@ -334,28 +340,33 @@ def make_bounce_fn(
             su = torch.sqrt(ul[:, 1])
             b1 = su * (1.0 - ul[:, 2])
             b2 = su * ul[:, 2]
-            y = scene.v0[pick] + b1[:, None] * scene.e1[pick] + b2[:, None] * scene.e2[pick]
+            rows = lambda x: x.index_select(0, pick)
+            y = rows(scene.v0) + b1[:, None] * rows(scene.e1) + b2[:, None] * rows(scene.e2)
             # Missed lanes' resolved points are meaningless and may be huge.
             x = torch.where(found[:, None], attrs.point, o)
             wi_raw = y - x
-            dist2 = torch.clamp((wi_raw * wi_raw).sum(dim=-1), min=1e-12)
+            dist2 = maximum((wi_raw * wi_raw).sum(dim=-1), 1e-12)
             dist = torch.sqrt(dist2)
             wi = wi_raw / dist[:, None]
             cos_x = (n_shade * wi).sum(dim=-1)
-            cos_y = (scene.gn[pick] * wi).sum(dim=-1).abs()  # two-sided lights
+            cos_y = absolute((rows(scene.gn) * wi).sum(dim=-1))  # two-sided lights
             # Visible iff nothing lies before the sampled point; the relative
             # epsilon keeps the light triangle out of its own shadow test.
-            cutoff = dist * (1.0 - 1e-3)
-            lit = ~masked_occluded(x + RAY_OFFSET * n_shade, wi, cutoff, found & is_diffuse)
+            # Visibility is discrete: the shadow ray and its cutoff carry no
+            # gradient (the JAX package detaches the same three).
+            cutoff = dist.detach() * (1.0 - 1e-3)
+            shadow_o = (x + RAY_OFFSET * n_shade).detach()
+            lit = ~masked_occluded(shadow_o, wi.detach(), cutoff, found & is_diffuse)
             light_mat = scene.mat_id[pick]
-            le_y = scene.materials.emissive_color[light_mat] * scene.materials.intensity[light_mat][:, None]
-            geom = torch.clamp(cos_x, min=0.0) * cos_y / dist2 * total_light_area
+            m = scene.materials
+            le_y = m.emissive_color.index_select(0, light_mat) * m.intensity.index_select(0, light_mat)[:, None]
+            geom = maximum(cos_x, 0.0) * cos_y / dist2 * total_light_area
             contrib = throughput * (albedo / math.pi) * le_y * geom[:, None]
             if mis:
                 # Balance heuristic against the cosine BSDF sampler.
-                pdf_light = dist2 / torch.clamp(cos_y * total_light_area, min=1e-12)
-                pdf_bsdf = torch.clamp(cos_x, min=0.0) / math.pi
-                contrib = contrib * (pdf_light / torch.clamp(pdf_light + pdf_bsdf, min=1e-12))[:, None]
+                pdf_light = dist2 / maximum(cos_y * total_light_area, 1e-12)
+                pdf_bsdf = maximum(cos_x, 0.0) / math.pi
+                contrib = contrib * (pdf_light / maximum(pdf_light + pdf_bsdf, 1e-12))[:, None]
             use = found & is_diffuse & lit & (total_light_area > 0)
             radiance = radiance + torch.where(use[:, None], contrib, 0.0)
 
@@ -372,7 +383,7 @@ def make_bounce_fn(
         # Next bounce's emitter accounting: did this vertex sample a light
         # (diffuse vertices do), and with what pdf (cosθ/π) did it scatter.
         prev_nee = scatter & is_diffuse
-        cos_scatter = torch.clamp((new_d * n_shade).sum(dim=-1), min=0.0)
+        cos_scatter = maximum((new_d * n_shade).sum(dim=-1), 0.0)
         return PathState(
             o=torch.where(s, attrs.point + RAY_OFFSET * n_shade, o),
             d=torch.where(s, new_d, d),

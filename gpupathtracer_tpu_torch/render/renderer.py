@@ -4,7 +4,7 @@ Counterpart of ``gpupathtracer_tpu/render/renderer.py`` for the radiance
 AOV. ``render_frame`` packs the scene (once per block width; the pack is
 cached across frames), then for each sample makes the PCG keys and the
 sub-pixel jitter, generates primary rays and traces paths; the frame is the
-mean over samples.
+mean over samples. The frame is differentiable (see ``render_frame``).
 """
 
 from __future__ import annotations
@@ -115,9 +115,19 @@ def render_frame(
     ``device="cpu"``); returns the mean radiance (H, W, 3) float32.
     ``seed=None`` uses ``settings.seed``.
 
-    The packs are cached on the identity of the scene's tensors, so a scene
-    that already lives on ``device`` is packed once across frames; a scene
-    moved here is packed again on every call."""
+    The frame is differentiable with the JAX package's estimator (interior
+    term, detached sampling): a gradient reaches every tensor of the scene,
+    its materials and the camera that requires one, through the camera rays,
+    ``resolve_hits``, shading, emission, the NEE geometry term and MIS
+    weights, the light table's total area and the film's mean, with one
+    graph across the samples. The searches, the packs, the sort keys and
+    the shadow rays are detached, so a ``Hit`` never carries a gradient.
+    With no input that requires a gradient nothing is recorded.
+
+    The packs are cached on the identity and version of the scene's
+    tensors, so a scene that already lives on ``device`` is packed once
+    across frames and again after an in-place edit; a scene moved here is
+    packed again on every call."""
     device = resolve_device(device)
     if settings.aov != "radiance":
         raise NotImplementedError(f"aov {settings.aov!r} is not ported to gpupathtracer_tpu_torch yet")
@@ -128,16 +138,15 @@ def render_frame(
     camera = camera.to(device)
     settings = narrow_settings(scene, settings)
     check_supported(_integrator_options(settings))
-    with torch.no_grad():
-        packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)
-        packed2 = None
-        if settings.tri_block_secondary is not None and settings.bounces > 1:
-            packed2 = packed_intersect.pack_scene(scene, tri_block=settings.tri_block_secondary)
-        pixel_idx = torch.arange(h * w, device=device)
-        key_data = prng_key_data(settings.seed if seed is None else seed)
-        film_sum = accumulate_radiance(
-            scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2
-        )
+    packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)  # detached
+    packed2 = None
+    if settings.tri_block_secondary is not None and settings.bounces > 1:
+        packed2 = packed_intersect.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    pixel_idx = torch.arange(h * w, device=device)
+    key_data = prng_key_data(settings.seed if seed is None else seed)
+    film_sum = accumulate_radiance(
+        scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2
+    )
     return (film_sum / settings.spp).reshape(h, w, 3)
 
 

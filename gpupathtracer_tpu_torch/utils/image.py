@@ -1,10 +1,14 @@
-"""Image IO for texture files.
+"""Image IO: texture files in, PNGs out.
 
-Counterpart of ``read_ppm`` in ``gpupathtracer_tpu/utils/image.py`` (numpy
-only; copied so that the port imports nothing of the JAX package).
+Counterpart of ``read_ppm`` and ``write_png`` in
+``gpupathtracer_tpu/utils/image.py`` (numpy and the standard library only;
+copied so that the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -24,3 +28,22 @@ def read_ppm(path: str) -> np.ndarray:
     w, h, maxv = int(tokens[1]), int(tokens[2]), int(tokens[3])
     data = np.asarray(tokens[4 : 4 + w * h * 3], dtype=np.int64)
     return np.clip(data, 0, maxv).astype(np.uint8).reshape(h, w, 3)
+
+
+def write_png(path: str, u8_image: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (zlib from the
+    standard library; no imaging package needed)."""
+    img = np.ascontiguousarray(u8_image, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.shape}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)  # filter 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
+        f.write(chunk(b"IEND", b""))

@@ -358,3 +358,55 @@ def test_streamed_launch_shapes_fit_the_card(device):
 def test_resident_launch_shapes_fit_the_card(device):
     """The same for the resident kernels K1 and K2."""
     _assert_launch_shapes_fit(["closest_hit", "occlusion"])
+
+
+def _bench_loss_grads(scene, camera, settings):
+    """Gradients of mean(image) in (v0, albedo); zeros where none reaches."""
+    v0 = scene.v0.detach().clone().requires_grad_()
+    albedo = scene.materials.albedo.detach().clone().requires_grad_()
+    leaf = dataclasses.replace(scene, v0=v0, materials=dataclasses.replace(scene.materials, albedo=albedo))
+    loss = render_frame(leaf, camera, settings).mean()
+    grads = torch.autograd.grad(loss, (v0, albedo), allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, (v0, albedo))]
+
+
+@pytest.mark.parametrize("config", ["config5", "config8"])
+def test_gradients_through_kernels_match_plain_version(device, config):
+    """The same hits, so the gradients of the bench loss through the kernels
+    agree with those through the plain versions within rtol 1e-4, atol
+    1e-6*max|g| (only the order of the scatter-adds backwards differs);
+    config 8 runs K2 on its scan bounces."""
+    if config == "config5":
+        from gpupathtracer_tpu_torch.grad.inverse import _demo_setup
+
+        settings, camera, make_scene, mesh = _demo_setup(width=48, height=48, spp=2, device=device)
+        scene = make_scene(torch.tensor([0.5, 0.5, 0.5], device=device), torch.zeros(mesh.vertices.shape, device=device))
+    else:
+        path = os.path.join(os.path.dirname(SCENE), "config8_icosphere.toml")
+        scene, camera, settings = load_scene_file(path, device=device)
+        camera = dataclasses.replace(camera, width=64, height=64)
+        settings = dataclasses.replace(settings, width=64, height=64, spp=2)
+    before = (tpi.closest_hit.launches, tpi.occluded.launches)
+    got = _bench_loss_grads(scene, camera, settings)
+    assert tpi.closest_hit.launches > before[0]
+    assert (tpi.occluded.launches > before[1]) == (config == "config8")
+    want = _bench_loss_grads(scene, camera, dataclasses.replace(settings, intersector="plucker"))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and (w != 0).any()
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6 * w.abs().max().item())
+
+
+def test_pack_refreshes_after_an_in_place_edit_on_the_card(device):
+    """An in-place edit of v0, then a render, equals a render on a fresh
+    pack, and differs from the render before the edit."""
+    path = os.path.join(os.path.dirname(SCENE), "config5_invert_target.toml")
+    scene, camera, settings = load_scene_file(path, device=device)
+    camera = dataclasses.replace(camera, width=32, height=32)
+    settings = dataclasses.replace(settings, width=32, height=32, spp=1)
+    before = render_frame(scene, camera, settings)
+    with torch.no_grad():
+        scene.v0.add_(0.3)
+    after = render_frame(scene, camera, settings)
+    tpi._PACK_CACHE.clear()
+    assert torch.equal(after, render_frame(scene, camera, settings))
+    assert not torch.equal(after, before)

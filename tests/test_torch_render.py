@@ -279,15 +279,20 @@ def test_film_accumulates_and_converts():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax made unimportable."""
+    """Every module of the port, the trainer and its checkpoints among them,
+    imports with jax, flax and optax made unimportable, and imports nothing
+    of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "import gpupathtracer_tpu_torch.grad.inverse, gpupathtracer_tpu_torch.utils.checkpoint\n"
         "import gpupathtracer_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "bad = ('jax', 'optax', 'gpupathtracer_tpu')\n"
+        "assert not any(k.split('.')[0] in bad for k, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
