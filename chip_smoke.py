@@ -63,7 +63,9 @@ and the differentiable path (the bench's loss, mean(image), in v0 and the
 material albedo; the kernels run unchanged in every forward):
 16. forward+backward at each full-size path's shapes, right after its
     forward frame (config 3 naive 800x800 spp 4, config 8 NEE 512x512 spp 4,
-    config 6 streamed 800x800 spp 2): the launches of each kernel in one
+    config 6 streamed naive 800x800 spp 2, config 6 streamed NEE 800x800
+    spp 1, 3 bounces, so that K4 too runs under autograd): the launches of
+    each kernel in one
     fwd+bwd frame as in the forward, the peak device memory, finite
     gradients, the median time over 3 frames with varied seeds synchronised
     on one scalar of the gradients, fwd+bwd rays/s and the ratio to the
@@ -449,17 +451,19 @@ def phase_image_check(scene, camera, settings, size: int, spp: int) -> None:
         raise AssertionError("render misses the image parity bar")
 
 
-def profile_frame(scene, camera, settings) -> dict:
-    """One frame under torch.profiler: device time per kernel name, and the
-    device's idle share of the frame's wall time."""
+def profile_frame(run, trace_path: str | None = None, top: int = 0) -> dict:
+    """``run()`` once under torch.profiler: its wall time, the device's busy
+    time (the union of the kernel intervals), launches and idle share of
+    that wall time, and the device time of each of the four kernels and of
+    all else; with ``top``, also the ``top`` costliest kernel names, and
+    with ``trace_path``, the Chrome trace written there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    device = scene.v0.device
-    _sync(device)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(render_frame(scene, camera, settings, seed=999).sum())
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
     for e in prof.events():
@@ -477,6 +481,10 @@ def profile_frame(scene, camera, settings) -> dict:
         out[f"{kname}_ms"] = sum(v for k, v in by_name.items() if kname in k)
     out["other_device_ms"] = sum(by_name.values()) - sum(out[f"{k}_ms"] for k in knames)
     out["idle_share_profiled"] = 1.0 - out["device_busy_ms"] / wall_ms if spans else None
+    if top:
+        out["top_kernels_ms"] = [[k[:120], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
     return out
 
 
@@ -513,7 +521,7 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     out = {"launches": launches, "image_mean": mean, "frame_s": frame_s, "frame_s_all": times,
            "rays_per_s": rays / frame_s}
     if profiled:
-        out["profile"] = profile_frame(scene, camera, settings)
+        out["profile"] = profile_frame(lambda: float(render_frame(scene, camera, settings, seed=999).sum()))
     shadow = " (shadow rays not counted)" if settings.estimator != "naive" else ""
     print(
         f"frame, {label} path, {settings.width}x{settings.height} spp {settings.spp} "
@@ -808,12 +816,13 @@ def main() -> None:
         expect_launches(closest_hit_streamed=settings.spp * settings.bounces), streamed["frame_s"],
     )
     nee_settings = dataclasses.replace(nee_settings, spp=1, bounces=3)
-    streamed_nee = phase_full_frame(
-        "streamed nee", scene, camera, nee_settings,
-        expect_launches(
-            closest_hit_streamed=nee_settings.spp * (nee_settings.bounces + 1),
-            occluded_streamed=nee_settings.spp * (nee_settings.bounces - 1),
-        ),
+    streamed_nee_expect = expect_launches(
+        closest_hit_streamed=nee_settings.spp * (nee_settings.bounces + 1),
+        occluded_streamed=nee_settings.spp * (nee_settings.bounces - 1),
+    )
+    streamed_nee = phase_full_frame("streamed nee", scene, camera, nee_settings, streamed_nee_expect)
+    streamed_nee_bwd = phase_fwd_bwd(
+        "config6 streamed nee", scene, camera, nee_settings, streamed_nee_expect, streamed_nee["frame_s"]
     )
     del scene, packed, packed2
     phase_light_cdf(device)
@@ -832,6 +841,7 @@ def main() -> None:
 
     paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee,
              "fwd+bwd naive": naive_bwd, "fwd+bwd nee": nee_bwd, "fwd+bwd streamed naive": streamed_bwd,
+             "fwd+bwd streamed nee": streamed_nee_bwd,
              "grad check config8": grad_nee, "grad check config5": grad_config5, "trainer": trainer}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     summary = [

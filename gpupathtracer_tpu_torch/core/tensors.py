@@ -5,6 +5,7 @@ gradients at their kinks."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -36,27 +37,29 @@ def to_device(obj, device):
 
 # torch.clamp passes the whole gradient to x where x equals the bound, and
 # torch.abs passes none at 0. The JAX package's jnp.maximum / jnp.clip split
-# it in half at a tie, and jnp.abs passes +1 at 0. These helpers take the
-# JAX rule where x needs a gradient and the plain op (no extra launch)
-# elsewhere; their values are the same either way.
+# it in half at a tie, and jnp.abs passes +1 at 0; these helpers take the
+# JAX rule. The bounds go in as 0-d CPU tensors, which a CUDA binary op reads
+# as a scalar (no fill, no copy), made once per value and dtype.
+
+
+@functools.lru_cache(maxsize=None)
+def _cpu_scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype)
 
 
 def maximum(x: torch.Tensor, bound: float) -> torch.Tensor:
     """``max(x, bound)``; at a tie half the gradient reaches ``x``."""
-    if x.requires_grad:
-        return torch.maximum(x, x.new_full((), bound))
-    return torch.clamp(x, min=bound)
+    return torch.maximum(x, _cpu_scalar(bound, x.dtype))
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``min(max(x, lo), hi)``, ties as ``maximum``."""
-    if x.requires_grad:
-        return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
-    return torch.clamp(x, lo, hi)
+    return torch.minimum(maximum(x, lo), _cpu_scalar(hi, x.dtype))
 
 
 def absolute(x: torch.Tensor) -> torch.Tensor:
-    """``|x|``; at 0 the gradient is +1."""
+    """``|x|``; at 0 the gradient is +1. The where-form only where ``x``
+    needs a gradient: it costs two more launches than ``abs``."""
     if x.requires_grad:
         return torch.where(x >= 0, x, -x)
     return x.abs()

@@ -78,6 +78,22 @@ def make_optimizer(params: dict, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam([params[k] for k in PARAM_NAMES], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def adam_state(params: dict, lr: float, step: int, exp_avg: dict, exp_avg_sq: dict) -> dict:
+    """The state dict of ``make_optimizer(params, lr)`` after ``step`` steps
+    with first moments ``exp_avg`` and second moments ``exp_avg_sq`` (dicts
+    like ``params``), as ``utils.checkpoint.save_train_state`` takes it.
+    ``interop.inverse_state_from_numpy`` gives these arguments from a JAX
+    checkpoint."""
+    opt = make_optimizer(params, lr)
+    for k in PARAM_NAMES:
+        opt.state[params[k]] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": exp_avg[k],
+            "exp_avg_sq": exp_avg_sq[k],
+        }
+    return opt.state_dict()
+
+
 def _demo_problem(width, height, spp, bounces, subdivisions, device):
     """The demo's setup, its target image (rendered at the true albedo and
     the sphere squashed by 15% along y) and the truth."""

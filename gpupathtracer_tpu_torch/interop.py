@@ -6,8 +6,9 @@ Each function takes a mapping from field name to array (for example
 become int64 tensors (indices), bools stay bool, floats are float32. A field
 that is None on the JAX side (a scene without image textures) is left out of
 the mapping and stays None in the port. ``inverse_state_from_numpy`` carries
-the inverse-rendering trainer's parameters and optax Adam state across, so a
-JAX checkpoint resumes in the port.
+the inverse-rendering trainer's parameters and optax Adam moments across, so
+a JAX checkpoint resumes in the port (``grad.inverse.adam_state`` makes them
+the optimizer's state).
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import numpy as np
 import torch
 
 from gpupathtracer_tpu_torch.core.tensors import resolve_device
-from gpupathtracer_tpu_torch.grad.inverse import PARAM_NAMES, make_optimizer
 from gpupathtracer_tpu_torch.models.camera import Camera
 from gpupathtracer_tpu_torch.models.materials import MaterialTable
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
@@ -79,25 +79,19 @@ def numpy_fields(obj, names) -> dict[str, np.ndarray]:
 
 def inverse_state_from_numpy(
     params: Mapping[str, np.ndarray], count, mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray],
-    lr: float, device="cuda",
-) -> tuple[dict, dict]:
-    """The JAX inverse demo's train state as the port's: ``params``
+    device="cuda",
+) -> dict:
+    """The JAX inverse demo's train state as tensors: ``params``
     (``albedo_logit`` (3,), ``offsets`` (T, 3, 3)) become leaf tensors that
     require a gradient, and optax's ``ScaleByAdamState`` (``count``, the
     first moments ``mu`` and the second moments ``nu``, each a mapping like
-    ``params``) becomes the state dict of the port's ``torch.optim.Adam``
-    (``grad.inverse.make_optimizer``) at learning rate ``lr``: ``step`` =
-    count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu. Returns ``(params,
-    optimizer state dict)``, as ``utils.checkpoint.save_train_state`` takes
-    them."""
+    ``params``) becomes Adam's ``step``, ``exp_avg`` and ``exp_avg_sq``.
+    Returns ``{"params", "step", "exp_avg", "exp_avg_sq"}``: all the
+    arguments of ``grad.inverse.adam_state`` but ``lr``."""
     device = resolve_device(device)
-    tensors = {k: _tensor(params[k], device).requires_grad_() for k in PARAM_NAMES}
-    opt = make_optimizer(tensors, lr)
-    step = float(np.asarray(count))
-    for k in PARAM_NAMES:
-        opt.state[tensors[k]] = {
-            "step": torch.tensor(step, dtype=torch.float32),
-            "exp_avg": _tensor(mu[k], device),
-            "exp_avg_sq": _tensor(nu[k], device),
-        }
-    return tensors, opt.state_dict()
+    return {
+        "params": {k: _tensor(v, device).requires_grad_() for k, v in params.items()},
+        "step": int(np.asarray(count)),
+        "exp_avg": {k: _tensor(v, device) for k, v in mu.items()},
+        "exp_avg_sq": {k: _tensor(v, device) for k, v in nu.items()},
+    }

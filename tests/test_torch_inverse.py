@@ -2,7 +2,7 @@
 package's ``run_inverse_demo`` at ``tests/test_inverse.py``'s small size:
 the target image, the first step's gradients, the trajectory, a resume
 from the port's own checkpoint and from a JAX checkpoint carried across by
-``interop.inverse_state_from_numpy``.
+``interop.inverse_state_from_numpy`` and ``grad.inverse.adam_state``.
 
 Adam's first step is lr·sign(g), so an entry whose gradient is zero within
 float32 rounding (|g| <= 1e-6·max|g|, the gradient tolerance of
@@ -152,11 +152,11 @@ def test_jax_checkpoint_continues_in_the_port(jax_run, tmp_path):
     state = jax_run["states"][2]
     adam = state["opt_state"][0]  # optax adam: (ScaleByAdamState, EmptyState)
     as_numpy = lambda tree: {k: np.asarray(v) for k, v in tree.items()}
-    params, opt_state = interop.inverse_state_from_numpy(
-        as_numpy(state["params"]), np.asarray(adam.count), as_numpy(adam.mu), as_numpy(adam.nu), lr=LR, device="cpu"
+    carried = interop.inverse_state_from_numpy(
+        as_numpy(state["params"]), np.asarray(adam.count), as_numpy(adam.mu), as_numpy(adam.nu), device="cpu"
     )
     ck = str(tmp_path / "carried.pkl")
-    t_ckpt.save_train_state(ck, params, opt_state, state["step"])
+    t_ckpt.save_train_state(ck, carried["params"], t_inverse.adam_state(lr=LR, **carried), state["step"])
     result = t_inverse.run_inverse_demo(steps=3, lr=LR, checkpoint_path=ck, device="cpu", **SMALL)
     (step, loss), = result["loss_history"]
     assert step == 2

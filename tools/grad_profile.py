@@ -9,9 +9,10 @@ Paths: config 3 naive (scenes/config3_icosphere.toml, 800x800, spp 4,
 3 bounces) and config 6 streamed naive (scenes/config6_icosphere.toml,
 800x800, spp 2, 4 bounces). For each: the wall time of the forward (to a
 synchronised loss) and of the backward (to synchronised gradients), and
-under torch.profiler the device busy time, the device's idle share of the
-profiled wall time, the device launches and the device time of the 12
-costliest kernel names. Prints the card's name and power limit first, then
+under torch.profiler (chip_smoke.profile_frame) the wall time, the device
+busy time, the device's idle share of that wall time, the device launches
+and the device time of each kernel of the port and of the 12 costliest
+kernel names. Prints the card's name and power limit first, then
 one JSON line per path; with OUT_DIR, also writes each path's Chrome trace
 there.
 """
@@ -26,8 +27,6 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -60,28 +59,11 @@ def profile_path(label, path, spp, out_dir):
     leaf, leaves = cs._leaf_scene(scene)
     fwd_bwd(leaf, leaves, camera, settings, seed=1)  # builds the kernels, packs, warms up
     fwd_ms, bwd_ms = fwd_bwd(leaf, leaves, camera, settings, seed=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fwd_bwd(leaf, leaves, camera, settings, seed=3)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of the kernel intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    trace = os.path.join(out_dir, f"fwd_bwd_{label.replace(' ', '_')}.json") if out_dir else None
+    profiled = cs.profile_frame(lambda: fwd_bwd(leaf, leaves, camera, settings, seed=3), trace, top=12)
     row = {"path": label, "size": [settings.width, settings.height], "spp": settings.spp,
-           "bounces": settings.bounces, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "profiled_wall_ms": wall_ms,
-           "device_busy_ms": busy_us / 1e3, "idle_share_profiled": 1.0 - busy_us / 1e3 / wall_ms,
-           "device_launches": len(spans), "top_kernels_ms": [[k[:120], v] for k, v in top]}
+           "bounces": settings.bounces, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, **profiled}
     print(json.dumps(row), flush=True)
-    if out_dir:
-        prof.export_chrome_trace(os.path.join(out_dir, f"fwd_bwd_{label.replace(' ', '_')}.json"))
 
 
 def main() -> None:
