@@ -79,8 +79,44 @@ material albedo; the kernels run unchanged in every forward):
     offsets' errors; the final loss must be below the first;
 19. the pack cache on the card: an in-place edit of v0, then a render,
     equals a render on a fresh pack;
-then a JSON line that summarises the four kernels, and a JSON result line
-last.
+and the entry point with the render options it reaches (in the order they
+run: 20-25 on the naive path, 26-27 on the NEE path, 28-30 on the streamed
+path):
+20. the CLI's progressive render of the config 3 stand-in (800x800, spp 4,
+    chunks of 1 sample, a film checkpoint, the metrics stream, a PPM), in
+    process: exactly 16 K1 launches and 4 chunk events, the PPM equal to
+    to_u8(render_frame), render_progressive within atol 1e-6 of the frame,
+    a resume from a film of 2 samples bit-identical, and the progressive
+    wall time against the one-shot frame's;
+21. K1 on the uncompacted bounce-1 rays with the live mask as alive (what
+    compact_mode "mask" hands it: dead lanes inside tiles), exactly equal
+    to its plain version, its time beside the compacted call's and the
+    share of dead lanes;
+22. the naive frame in compact_mode permute, mask and hybrid: launches,
+    median of 3 frame times, one profiled frame each, and the mask and
+    hybrid images against permute's (the image bar, and the count of
+    differing pixels);
+23. the normal AOVs at 800x800: exactly one K1 launch each and the plain
+    version's image exactly;
+24. glass and mirror (the config 3 stand-in with a two-sided glass body and
+    a mirror floor, built in code): 128x128 spp 2 through the kernels
+    against the plain versions (naive, rr_start 2; NEE and MIS with the
+    floor left diffuse), and the naive frame at 800x800, spp 4: exactly 16
+    K1 launches, the median of 3 frame times and rays/s;
+25. live_view at 800x800 (chunks of 2 up to 4 samples, a camera command
+    after the first chunk restarts accumulation), the CLI's turntable
+    (2 frames) and the CLI's config 5 trainer (3 steps), with their K1
+    launches;
+26. K2 on the uncompacted shadow rays of bounce 1 (max_t = 0 on the dead
+    lanes), exactly equal to its plain version;
+27. the NEE frame in the three compaction modes, as 22;
+28. K3 on the config 6 stand-in's uncompacted bounce-1 rays, as 21;
+29. K4 on its uncompacted shadow rays, as 26;
+30. the streamed naive frame in the three modes, as 22, with the origin
+    sort the route resolves (which turns mask mode into permute) and with
+    the sort off (mask mode hands K3 its dead lanes);
+then the total wall time, a JSON line that summarises the four kernels, and
+a JSON result line last.
 
 The naive path renders scenes/config3_icosphere.toml, the NEE path
 scenes/config8_icosphere.toml and the streamed path
@@ -96,11 +132,13 @@ import json
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from gpupathtracer_tpu_torch import cli
 from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, run_inverse_demo
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
@@ -132,8 +170,14 @@ from gpupathtracer_tpu_torch.render.integrator import (
     light_table,
     make_bounce_fn,
 )
-from gpupathtracer_tpu_torch.render.renderer import narrow_settings, render_frame
-from gpupathtracer_tpu_torch.utils.config import load_scene_file
+from gpupathtracer_tpu_torch.render.film import to_u8
+from gpupathtracer_tpu_torch.render.live import live_view
+from gpupathtracer_tpu_torch.render.progressive import render_progressive
+from gpupathtracer_tpu_torch.render.renderer import narrow_settings, render_frame, render_samples
+from gpupathtracer_tpu_torch.utils import checkpoint as ckpt
+from gpupathtracer_tpu_torch.utils.config import load_config, load_scene_file, parse_config
+from gpupathtracer_tpu_torch.utils.image import read_ppm
+from gpupathtracer_tpu_torch.utils.metrics import read_events
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config3_icosphere.toml")
@@ -309,11 +353,15 @@ def main_path_rays(scene, camera, settings, packed):
     return (o, d), (o2, d2)
 
 
-def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str):
+def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str, mask_mode: bool = False):
     """The any-hit inputs of the shadow rays that bounce 1 casts, as the
     render builds them (compacted, padded, culled and scheduled), taken from
-    a plain-version trace by catching the call of ``plain_name``."""
+    a plain-version trace by catching the call of ``plain_name``. With
+    ``mask_mode``, as compact_mode "mask" casts them: uncompacted, with
+    max_t = 0 on the dead lanes (ray sorting off, which mask mode needs)."""
     _, state, opts = sample0_bounce0(scene, camera, settings, packed)
+    if mask_mode:
+        opts = dataclasses.replace(opts, compact_mode="mask", sort_rays=False)
     bounce1 = make_bounce_fn(scene, opts, packed=packed2, occlusion_kernel=True)
     captured = []
     plain = getattr(packed_intersect, plain_name)
@@ -430,25 +478,34 @@ def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, e
     return row
 
 
-def phase_image_check(scene, camera, settings, size: int, spp: int) -> None:
+def phase_image_check(scene, camera, settings, size: int, spp: int, label: str = "") -> None:
     """render_frame through the kernels against render_frame through the
     plain versions."""
     cam = dataclasses.replace(camera, width=size, height=size)
     st = dataclasses.replace(settings, width=size, height=size, spp=spp)
     img_k = render_frame(scene, cam, st)
-    img_r = render_frame(scene, cam, dataclasses.replace(st, intersector="plucker"))
-    diff = (img_k - img_r).abs()
-    mean_diff = diff.mean().item()
-    off_share = (diff.amax(dim=-1) > IMG_PIXEL).double().mean().item()
-    finite = bool(torch.isfinite(img_k).all())
+    row = image_diff(img_k, render_frame(scene, cam, dataclasses.replace(st, intersector="plucker")))
     print(
-        f"render {st.estimator} {size}x{size} spp {spp}: kernels vs plain mean|diff| {mean_diff:.3e} "
-        f"(bar < {IMG_MEAN}), max|diff| {diff.max().item():.3e}, pixels off by > {IMG_PIXEL}: {off_share:.3e} "
+        f"render {label}{st.estimator} {size}x{size} spp {spp}: kernels vs plain mean|diff| {row['mean_abs_diff']:.3e} "
+        f"(bar < {IMG_MEAN}), max|diff| {row['max_abs_diff']:.3e}, pixels off by > {IMG_PIXEL}: {row['off_share']:.3e} "
         f"(bar < {IMG_OFF_SHARE}), image mean {img_k.mean().item():.6f}",
         flush=True,
     )
-    if not finite or mean_diff >= IMG_MEAN or off_share >= IMG_OFF_SHARE:
+    if not meets_image_bar(row):
         raise AssertionError("render misses the image parity bar")
+
+
+def image_diff(got, want) -> dict:
+    """The image bar's numbers for ``got`` against ``want``, and the count
+    of pixels that differ at all."""
+    diff = (got - want).abs()
+    return {"mean_abs_diff": diff.mean().item(), "max_abs_diff": diff.max().item(),
+            "off_share": (diff.amax(dim=-1) > IMG_PIXEL).double().mean().item(),
+            "pixels_differ": int((diff.amax(dim=-1) > 0).sum()), "finite": bool(torch.isfinite(got).all())}
+
+
+def meets_image_bar(row: dict) -> bool:
+    return row["finite"] and row["mean_abs_diff"] < IMG_MEAN and row["off_share"] < IMG_OFF_SHARE
 
 
 def profile_frame(run, trace_path: str | None = None, top: int = 0) -> dict:
@@ -723,6 +780,183 @@ def phase_pack_refresh(device) -> None:
         raise AssertionError(f"stale pack after an in-place edit: {row}")
 
 
+def phase_cli_progressive(device, frame_s: float) -> dict:
+    """The CLI's progressive render of the config 3 stand-in (800x800, spp 4,
+    4 bounces, chunks of 1 sample, a film checkpoint, the metrics stream, a
+    PPM), in process on the card: exactly 16 K1 launches and 4 chunk events,
+    and the PPM equals to_u8 of render_frame. Then render_progressive
+    against render_frame (atol 1e-6), a resume from a film saved after 2
+    samples (bit-identical to the uninterrupted progressive image), and the
+    wall time of the progressive render against the one-shot frame."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out, film, metrics = (os.path.join(tmp, n) for n in ("x.ppm", "film.npz", "metrics.jsonl"))
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        rc = cli.main(["render", SCENE, "--spp", "4", "--chunk-spp", "1", "--checkpoint", film,
+                       "--metrics", metrics, "--out", out])
+        cli_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        chunks = [e for e in read_events(metrics) if e.get("event") == "chunk"]
+        scene, camera, settings = load_scene_file(SCENE, device=device)
+        settings = dataclasses.replace(settings, spp=4)
+        frame = render_frame(scene, camera, settings)
+        ppm_equal = bool(np.array_equal(read_ppm(out), to_u8(frame)))
+        _sync(device)
+        t0 = time.perf_counter()
+        prog = render_progressive(scene, camera, settings, chunk_spp=1)
+        prog_s = time.perf_counter() - t0
+        resume = os.path.join(tmp, "resume.npz")
+        ckpt.save_film(resume, render_samples(scene, camera, settings, 0, 2), 2, settings)
+        resumed = render_progressive(scene, camera, settings, chunk_spp=1, checkpoint_path=resume)
+    expect = expect_launches(closest_hit=16)
+    row = {"rc": rc, "launches": launches, "chunk_events": len(chunks), "ppm_equals_frame": ppm_equal,
+           "progressive_max_abs_err": (prog - frame.cpu()).abs().max().item(),
+           "resume_bit_identical": bool(torch.equal(resumed, prog)), "cli_wall_s": cli_s,
+           "progressive_s": prog_s, "frame_s": frame_s, "progressive_over_frame": prog_s / frame_s,
+           "chunk_seconds": [e["seconds"] for e in chunks]}
+    print(f"CLI progressive render, config3 800x800 spp 4 bounces 4, chunks of 1 (bar: rc 0, launches {expect}, "
+          f"4 chunk events, PPM = to_u8(render_frame), |progressive - frame| <= 1e-6, resume bit-identical; "
+          f"cli_wall_s includes loading, packing and writing the PPM): {json.dumps(row)}", flush=True)
+    if not (rc == 0 and launches == expect and len(chunks) == 4 and ppm_equal and row["resume_bit_identical"]
+            and row["progressive_max_abs_err"] <= 1e-6):
+        raise AssertionError(f"CLI progressive render: {row}")
+    return row
+
+
+def glass_mirror_scene(device, mirror_floor: bool = True):
+    """The config 3 stand-in with its body made glass (ior 1.5, two-sided,
+    so rays leave it) and its floor a mirror (or, with ``mirror_floor``
+    False, still diffuse), built in code."""
+    cfg = load_config(SCENE)
+    cfg["materials"][0] = {"name": "body", "type": "glass", "refractive_index": 1.5,
+                           "transmittance_color": [0.95, 0.97, 1.0]}
+    if mirror_floor:
+        cfg["materials"][1] = {"name": "floor", "type": "mirror", "specular_color": [0.9, 0.9, 0.9]}
+    specs, materials, camera, settings, _ = parse_config(cfg, os.path.dirname(SCENE))
+    specs = [dataclasses.replace(sp, two_sided=True) if sp.mat_id == 0 else sp for sp in specs]
+    scene = build_scene(specs, materials, pad_to_multiple=settings.tri_block, device=device)
+    return scene, camera.to(device), dataclasses.replace(settings, spp=4)
+
+
+def phase_glass_mirror(device, naive_frame_s: float) -> dict:
+    """Mirror and glass: 128x128 spp 2 through the kernels against the plain
+    versions (naive and naive with rr_start 2; NEE and MIS with the floor
+    left diffuse, since a scene with no diffuse vertex samples no light),
+    then the naive frame at 800x800, spp 4, 4 bounces (exactly 16 K1
+    launches) and its time against the diffuse config 3 frame's."""
+    scene, camera, settings = glass_mirror_scene(device)
+    for change in ({}, {"rr_start": 2}):
+        label = "glass and mirror, " + ("rr_start 2, " if "rr_start" in change else "")
+        phase_image_check(scene, camera, dataclasses.replace(settings, **change), size=128, spp=2, label=label)
+    glass_scene = glass_mirror_scene(device, mirror_floor=False)[0]
+    for estimator in ("nee", "mis"):
+        phase_image_check(glass_scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2,
+                          label="glass body, diffuse floor, ")
+    out = phase_full_frame("glass and mirror naive", scene, camera, settings, expect_launches(closest_hit=16))
+    print(f"glass and mirror frame over the diffuse config3 frame: {out['frame_s'] / naive_frame_s:.4f}", flush=True)
+    return out
+
+
+def phase_mask_hit_check(name: str, label: str, scene, camera, settings, packed, packed2, compacted: dict) -> dict:
+    """K1 or K3 on the uncompacted bounce-1 rays, with the live mask as
+    ``alive`` (what mask mode hands the search), against the plain version,
+    exactly; its time beside the same rays compacted (``compacted``)."""
+    _, state, _ = sample0_bounce0(scene, camera, settings, packed)
+    if name == "closest_hit":
+        args = prepare_rays(state.o, state.d, packed2, alive=state.alive) + (packed2.w, DEFAULT_RAY_TILE)
+        row = hit_check(name, label, closest_hit, closest_hit_reference, args, packed2, exact=True)
+    else:
+        args = prepare_rays_streamed(state.o, state.d, packed2, alive=state.alive) + (STREAM_RAY_TILE,)
+        row = hit_check(name, label, closest_hit_streamed, closest_hit_streamed_reference, args, packed2, exact=True)
+    row["dead_share"] = 1.0 - state.alive.double().mean().item()
+    print(f"{name} {label}: dead lanes {row['dead_share']:.4f}, {row['ms']:.4f} ms uncompacted vs "
+          f"{compacted['ms']:.4f} ms compacted", flush=True)
+    return row
+
+
+def phase_compact_modes(label: str, scene, camera, settings, expect: dict) -> dict:
+    """The frame in compact_mode permute, mask and hybrid: launches, median
+    frame time over 3 and one profiled frame each (phase_full_frame), and the
+    mask and hybrid images against permute's (the image bar; the count of
+    differing pixels is printed)."""
+    rows = {}
+    want = render_frame(scene, camera, settings)
+    for mode in ("permute", "mask", "hybrid"):
+        st = dataclasses.replace(settings, compact_mode=mode)
+        rows[mode] = phase_full_frame(f"{label} {mode}", scene, camera, st, expect, profiled=True)
+        if mode != "permute":
+            rows[mode]["vs_permute"] = image_diff(render_frame(scene, camera, st), want)
+    summary = {mode: {"frame_s": r["frame_s"], "over_permute": r["frame_s"] / rows["permute"]["frame_s"],
+                      "device_busy_ms": r["profile"]["device_busy_ms"], **r.get("vs_permute", {})}
+               for mode, r in rows.items()}
+    print(f"compact modes, {label} (bar: mask and hybrid meet the image bar against permute): "
+          f"{json.dumps(summary)}", flush=True)
+    if not all(meets_image_bar(r["vs_permute"]) for m, r in rows.items() if m != "permute"):
+        raise AssertionError(f"compact modes {label}: a mode misses the image bar against permute: {summary}")
+    return rows
+
+
+def phase_normal_aov(scene, camera, settings) -> dict:
+    """The normal AOVs at full size: exactly one K1 launch each, the image
+    equal to the plain version's, the median time over 3."""
+    out = {}
+    for aov in ("normal", "normal_unit"):
+        st = dataclasses.replace(settings, aov=aov)
+        _reset_launches()
+        img = render_frame(scene, camera, st)
+        _sync(scene.v0.device)
+        launches = _launch_counts()
+        equal = bool(torch.equal(img, render_frame(scene, camera, dataclasses.replace(st, intersector="plucker"))))
+        frame_ms = median_ms(lambda: float(render_frame(scene, camera, st).sum()), scene.v0.device, 3)
+        out[aov] = {"launches": launches, "equals_plain": equal, "hit_share": (img.abs().sum(-1) > 0).double()
+                    .mean().item(), "ms": frame_ms}
+    expect = expect_launches(closest_hit=1)
+    print(f"normal AOVs, config3 {settings.width}x{settings.height} (bar: launches {expect}, equals_plain): "
+          f"{json.dumps(out)}", flush=True)
+    if not all(r["launches"] == expect and r["equals_plain"] for r in out.values()):
+        raise AssertionError(f"normal AOVs: {out}")
+    return out
+
+
+def phase_live_and_view(device) -> dict:
+    """live_view on the config 3 stand-in at 800x800 (chunks of 2 samples up
+    to 4, a 'w' command after the first chunk): accumulation restarts, so
+    3 chunks render (24 K1 launches) and 4 samples remain, the camera moved
+    by 0.2, live.png and status.json written. Then the CLI's turntable
+    (2 frames, spp 1) and the config 5 trainer through the CLI (3 steps)."""
+    scene, camera, settings = load_scene_file(SCENE, device=device)
+    feed = iter([[], ["w"]])
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        t0 = time.perf_counter()
+        cam, spp = live_view(scene, camera, settings, tmp, chunk_spp=2, max_spp=4, command_source=lambda: next(feed, []))
+        live_s = time.perf_counter() - t0
+        live = {"launches": _launch_counts(), "spp": spp, "wall_s": live_s,
+                "moved_z": camera.position[2].item() - cam.position[2].item(),
+                "status": json.load(open(os.path.join(tmp, "status.json"))),
+                "live_png_bytes": os.path.getsize(os.path.join(tmp, "live.png"))}
+        _reset_launches()
+        view_rc = cli.main(["view", SCENE, "--frames", "2", "--spp", "1", "--out", os.path.join(tmp, "turn")])
+        view = {"rc": view_rc, "launches": _launch_counts(), "frames": sorted(os.listdir(os.path.join(tmp, "turn")))}
+        _reset_launches()
+        invert_rc = cli.main(["invert", "--steps", "3"])
+        invert = {"rc": invert_rc, "launches": _launch_counts()}
+    expect_live = expect_launches(closest_hit=3 * 2 * settings.bounces)
+    expect_view = expect_launches(closest_hit=2 * settings.bounces)
+    spp5, bounces5 = 8, 2  # the trainer's defaults: (steps + 1) frames of spp x 2 x bounces K1 launches
+    expect_invert = expect_launches(closest_hit=4 * spp5 * 2 * bounces5)
+    row = {"live": live, "view": view, "invert": invert}
+    print(f"live view and CLI view/invert, config3 800x800 (bar: live {expect_live}, spp 4, moved 0.2, status spp 4; "
+          f"view rc 0, {expect_view}; invert rc 0, {expect_invert}): {json.dumps(row)}", flush=True)
+    ok = (live["launches"] == expect_live and spp == 4 and abs(live["moved_z"] - 0.2) < 1e-5
+          and live["status"]["spp"] == 4 and view_rc == 0 and view["launches"] == expect_view
+          and len(view["frames"]) == 2 and invert_rc == 0 and invert["launches"] == expect_invert)
+    if not ok:
+        raise AssertionError(f"live view / CLI view / invert: {row}")
+    return row
+
+
 def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
     """The summary entry of one kernel over its checks at main-path shapes."""
     b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
@@ -736,6 +970,7 @@ def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> di
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     phase_device()
     device = torch.device("cuda")
     # The parity bars need f32 products, not TF32.
@@ -759,6 +994,14 @@ def main() -> None:
     naive_expect = expect_launches(closest_hit=settings.spp * settings.bounces)
     naive = phase_full_frame("naive", scene, camera, settings, naive_expect, profiled=True)
     naive_bwd = phase_fwd_bwd("config3 naive", scene, camera, settings, naive_expect, naive["frame_s"])
+    # The entry point, the render options and the compaction modes on the naive path.
+    cli_row = phase_cli_progressive(device, naive["frame_s"])
+    k1_mask_row = phase_mask_hit_check("closest_hit", "bounce-1 rays uncompacted, live mask as alive (mask mode)",
+                                       scene, camera, settings, packed, packed2, k1_rows[1])
+    naive_modes = phase_compact_modes("config3 naive", scene, camera, settings, naive_expect)
+    normal = phase_normal_aov(scene, camera, settings)
+    glass = phase_glass_mirror(device, naive["frame_s"])
+    live = phase_live_and_view(device)
 
     # The NEE path (config 8 stand-in).
     scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
@@ -781,6 +1024,12 @@ def main() -> None:
     grad_nee = phase_grad_check("config8", scene, dataclasses.replace(camera, width=128, height=128), small,
                                 nee_expect(small))
     nee_bwd = phase_fwd_bwd("config8 nee", scene, camera, settings, nee_expect(settings), nee["frame_s"])
+    k2_mask_row = occlusion_check(
+        "occluded", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)", occluded,
+        occluded_reference,
+        nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference", mask_mode=True), exact=True,
+    )
+    nee_modes = phase_compact_modes("config8 nee", scene, camera, settings, nee_expect(settings))
     del scene, packed, packed2
 
     # The streamed path (config 6 stand-in): both packs past the budget.
@@ -800,10 +1049,20 @@ def main() -> None:
         phase_split("bounce-1 rays", o2, d2, packed2, k3_rows[1]),
     ]
     del o, d, o2, d2
+    k3_mask_row = phase_mask_hit_check(
+        "closest_hit_streamed", "bounce-1 rays uncompacted, live mask as alive (mask mode)",
+        scene, camera, settings, packed, packed2, k3_rows[1],
+    )
     nee_settings = dataclasses.replace(settings, estimator="nee")
     k4_row = occlusion_check(
         "occluded_streamed", "bounce-1 shadow rays", occluded_streamed, occluded_streamed_reference,
         nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference"),
+    )
+    k4_mask_row = occlusion_check(
+        "occluded_streamed", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)",
+        occluded_streamed, occluded_streamed_reference,
+        nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference", mask_mode=True),
+        exact=True,
     )
     for st in (settings, nee_settings):
         phase_image_check(scene, camera, st, size=128, spp=2)
@@ -824,6 +1083,14 @@ def main() -> None:
     streamed_nee_bwd = phase_fwd_bwd(
         "config6 streamed nee", scene, camera, nee_settings, streamed_nee_expect, streamed_nee["frame_s"]
     )
+    # Streamed packs sort their rays, which turns mask mode into permute;
+    # with the sort off, mask mode hands K3 its dead lanes in place.
+    streamed_expect = expect_launches(closest_hit_streamed=settings.spp * settings.bounces)
+    streamed_modes = phase_compact_modes("config6 streamed naive", scene, camera, settings, streamed_expect)
+    streamed_modes_unsorted = phase_compact_modes(
+        "config6 streamed naive, sort_rays off", scene, camera, dataclasses.replace(settings, sort_rays=False),
+        streamed_expect,
+    )
     del scene, packed, packed2
     phase_light_cdf(device)
     print(json.dumps({"split": split}), flush=True)
@@ -842,7 +1109,14 @@ def main() -> None:
     paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee,
              "fwd+bwd naive": naive_bwd, "fwd+bwd nee": nee_bwd, "fwd+bwd streamed naive": streamed_bwd,
              "fwd+bwd streamed nee": streamed_nee_bwd,
-             "grad check config8": grad_nee, "grad check config5": grad_config5, "trainer": trainer}
+             "grad check config8": grad_nee, "grad check config5": grad_config5, "trainer": trainer,
+             "cli progressive": cli_row, "glass and mirror naive": glass,
+             "normal aov": normal["normal"], "normal_unit aov": normal["normal_unit"],
+             "live view": live["live"], "cli view": live["view"], "cli invert": live["invert"]}
+    for label, rows in (("naive", naive_modes), ("nee", nee_modes), ("streamed naive", streamed_modes),
+                        ("streamed naive unsorted", streamed_modes_unsorted)):
+        for mode in ("mask", "hybrid"):
+            paths[f"{label} {mode}"] = rows[mode]
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     summary = [
         kernel_summary("closest_hit", k1_rows, nee["launches"]["closest_hit"], by_path("closest_hit")),
@@ -852,6 +1126,11 @@ def main() -> None:
         kernel_summary("occluded_streamed", [k4_row], streamed_nee["launches"]["occluded_streamed"],
                        by_path("occluded_streamed")),
     ]
+    mask_rows = {"closest_hit": k1_mask_row, "occluded": k2_mask_row, "closest_hit_streamed": k3_mask_row,
+                 "occluded_streamed": k4_mask_row}
+    print(json.dumps({"mask_mode_checks": {k: {f: r[f] for f in ("ms", "max_abs_err", "bound_ms")}
+                                           for k, r in mask_rows.items()}}), flush=True)
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     result = {
         "ok": True,

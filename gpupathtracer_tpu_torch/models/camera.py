@@ -8,7 +8,8 @@ Counterpart of ``gpupathtracer_tpu/models/camera.py``:
     dir = normalize(wLookAtPoint.xyz - cameraPos)   # no w divide
 
 Both quirks are the reference's behaviour and are kept; sub-pixel jitter
-adds to (x, y) for spp > 1.
+adds to (x, y) for spp > 1. ``move`` and ``mouse_move`` are the reference
+viewer's keyboard and mouse controls.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 import torch
 
 from gpupathtracer_tpu_torch.core import mat4
-from gpupathtracer_tpu_torch.core.tensors import resolve_device, to_device
+from gpupathtracer_tpu_torch.core.tensors import clip, resolve_device, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +123,47 @@ def generate_rays(cam: Camera, jitter_uv=None):
     """Primary rays for the full pixel grid, row-major pixel order."""
     pixel_idx = torch.arange(cam.height * cam.width, device=cam.position.device)
     return generate_rays_for_pixels(cam, pixel_idx, jitter_uv)
+
+
+def mouse_move(cam: Camera, dx: float, dy: float, constrain_pitch: bool = True) -> Camera:
+    """Mouse look (reference ProcessMouseMovement): yaw += dx·0.2,
+    pitch += dy·0.2, pitch clamped to ±89°."""
+    sensitivity = 0.2
+    yaw = cam.yaw + dx * sensitivity
+    pitch = cam.pitch + dy * sensitivity
+    if constrain_pitch:
+        pitch = clip(pitch, -89.0, 89.0)
+    return dataclasses.replace(cam, yaw=yaw, pitch=pitch)
+
+
+def move(cam: Camera, direction: int) -> Camera:
+    """Keyboard controls (reference ProcessKeyboard): 0..5 move forward,
+    backward, left, right, up, down by 0.2; 6/7 yaw -/+ 0.5°; 8/9 pitch
+    +/- 0.5°; 10 resets to the reference's start pose."""
+    velocity = 0.2
+    forward, right, up = camera_basis(cam)
+    pos, yaw, pitch = cam.position, cam.yaw, cam.pitch
+    if direction == 0:
+        pos = pos + forward * velocity
+    elif direction == 1:
+        pos = pos - forward * velocity
+    elif direction == 2:
+        pos = pos - right * velocity
+    elif direction == 3:
+        pos = pos + right * velocity
+    elif direction == 4:
+        pos = pos + up * velocity
+    elif direction == 5:
+        pos = pos - up * velocity
+    elif direction == 6:
+        yaw = yaw - 0.5
+    elif direction == 7:
+        yaw = yaw + 0.5
+    elif direction == 8:
+        pitch = pitch + 0.5
+    elif direction == 9:
+        pitch = pitch - 0.5
+    elif direction == 10:
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=pos.device)
+        return dataclasses.replace(cam, position=f32([0.0, 0.0, 15.0]), yaw=f32(-90.0), pitch=f32(0.0))
+    return dataclasses.replace(cam, position=pos, yaw=yaw, pitch=pitch)

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from gpupathtracer_tpu_torch.core.tensors import clip, maximum
+
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9  # odd multiplier: fold chains stay injective
 
@@ -105,6 +107,10 @@ def cosine_sample_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], dim=-1)
 
 
+def cosine_hemisphere_pdf(cos_theta: torch.Tensor) -> torch.Tensor:
+    return cos_theta / math.pi
+
+
 def make_onb(n: torch.Tensor):
     """Branchless orthonormal basis around unit normal n (..., 3)
     (Duff et al. 2017)."""
@@ -121,3 +127,38 @@ def local_to_world(local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Rotate local (+z = normal) directions into the world frame."""
     t, b = make_onb(n)
     return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
+
+
+def normalize_dir(v: torch.Tensor) -> torch.Tensor:
+    """v / |v|, with the squared length clamped inside the sqrt so that a
+    zero vector's gradient is 0, not NaN."""
+    return v / torch.sqrt(maximum((v * v).sum(dim=-1, keepdim=True), 1e-24))
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of incident direction d about normal n."""
+    return d - 2.0 * (d * n).sum(dim=-1, keepdim=True) * n
+
+
+def refract(d: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
+    """Refraction of incident d through normal n (facing against d) with
+    relative IOR eta (..., 1). Returns ``(refracted_dir, tir)``, where
+    ``tir`` marks total internal reflection. cos_t's argument is clamped to
+    [1e-12, 1]: sqrt'(0) would NaN the backward on TIR lanes, which are
+    masked out anyway."""
+    cos_i = -(d * n).sum(dim=-1, keepdim=True)
+    sin2_t = eta * eta * maximum(1.0 - cos_i * cos_i, 0.0)
+    tir = sin2_t[..., 0] >= 1.0
+    cos_t = torch.sqrt(clip(1.0 - sin2_t, 1e-12, 1.0))
+    return eta * d + (eta * cos_i - cos_t) * n, tir
+
+
+def fresnel_schlick(cos_i: torch.Tensor, eta_i: torch.Tensor, eta_t: torch.Tensor) -> torch.Tensor:
+    """Schlick's Fresnel reflectance. The powers are products in the order
+    JAX lowers ``** 2`` and ``** 5`` (x·x; x·((x·x)·(x·x))), so the result
+    is the same to the bit."""
+    q = (eta_i - eta_t) / (eta_i + eta_t)
+    r0 = q * q
+    x = 1.0 - cos_i
+    x2 = x * x
+    return r0 + (1.0 - r0) * (x * (x2 * x2))

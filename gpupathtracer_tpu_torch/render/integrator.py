@@ -1,25 +1,37 @@
 """Wavefront Monte Carlo path-tracing integrator: naive, NEE and MIS.
 
-Counterpart of ``gpupathtracer_tpu/render/integrator.py`` for emitter and
-diffuse materials: per bounce, intersect, add the background on misses and
-the emitter term on emitter hits, and scatter diffuse hits over the
-cosine-weighted hemisphere (throughput factor = the albedo, flat or from the
-material's checker or image texture). With ``estimator="nee"`` every diffuse
-vertex also samples a point on an emitter (area-weighted) and casts a shadow
-ray; ``"mis"`` weights that light sample and the emitter hits of BSDF
-samples with the balance heuristic. Liveness is data: dead lanes keep
-executing with no effect. Bounce 0 runs uncompacted; the later bounces
-permute live rays to the front (``ops/compaction.py``), sorted for tile
-coherence with ``sort_rays``, and shadow rays are compacted (never sorted)
-on every bounce.
+Counterpart of ``gpupathtracer_tpu/render/integrator.py``: per bounce,
+intersect, add the background on misses and the emitter term on emitter
+hits, and scatter the other hits: diffuse over the cosine-weighted
+hemisphere (throughput factor = the albedo, flat or from the material's
+checker or image texture), mirror by perfect reflection (× the specular
+color), glass by Schlick-Fresnel-weighted reflection or refraction (×
+the transmittance when refracted). With ``estimator="nee"`` every diffuse
+vertex also samples a point on an emitter (area-weighted) and casts a
+shadow ray; ``"mis"`` weights that light sample and the emitter hits of
+BSDF samples with the balance heuristic. ``rr_start`` turns on Russian
+roulette from that bounce. Liveness is data: dead lanes keep executing
+with no effect.
+
+Bounce 0 runs uncompacted. The later bounces drop dead lanes by
+``compact_mode``: "permute" moves live rays to the front
+(``ops/compaction.py``), sorted for tile coherence with ``sort_rays``, and
+compacts shadow rays (never sorted) on every bounce; "mask" hands the live
+mask to the search as ``alive`` and shadow rays go uncompacted with
+``max_t = 0`` on dead lanes (no permutation; with ``sort_rays`` it
+permutes, since the sort needs the permutation); "hybrid" permutes the whole
+path state once after bounce 0 and runs the later bounces in mask mode.
+Per-lane results do not depend on the lane's position, so the three modes
+give the same image.
 
 The step is differentiable as the JAX package's: the searches and the
 shadow rays with their cutoffs are detached, everything else (hit
 attributes, materials, emission, the NEE geometry term, MIS weights, the
-light table's total area) carries gradients.
+light table's total area, the Fresnel and roulette weights) carries
+gradients.
 
-Options outside this path (mirror and glass, Russian roulette, other
-compaction modes) raise NotImplementedError.
+The ``bvh`` and ``brute`` intersectors and ``rng="threefry"`` raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,13 +42,21 @@ from functools import partial
 
 import torch
 
-from gpupathtracer_tpu_torch.core.tensors import absolute, maximum
+from gpupathtracer_tpu_torch.core.tensors import absolute, clip, maximum
 from gpupathtracer_tpu_torch.models.materials import BxdfType, textured_albedo
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
-from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent
+from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent, partition_alive
 from gpupathtracer_tpu_torch.ops.intersect import Hit, resolve_hits
-from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, cosine_sample_hemisphere, local_to_world
+from gpupathtracer_tpu_torch.ops.sampling import (
+    PcgSampler,
+    cosine_sample_hemisphere,
+    fresnel_schlick,
+    local_to_world,
+    normalize_dir,
+    reflect,
+    refract,
+)
 
 # Offset along the oriented normal when spawning secondary and shadow rays.
 RAY_OFFSET = 1e-4
@@ -48,13 +68,14 @@ _KERNEL_INTERSECTORS = ("auto", "pallas")
 _PLAIN_INTERSECTORS = ("plucker",)
 _ESTIMATORS = ("naive", "nee", "mis")
 _SORT_KEYS = ("dir", "origin")
+_COMPACT_MODES = ("permute", "mask", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorOptions:
     bounces: int = 4
     background: tuple = (0.0, 0.0, 0.0)
-    rr_start: int | None = None  # Russian roulette: not ported
+    rr_start: int | None = None  # Russian roulette from this bounce; None = off
     tri_block: int = 128
     use_shading_normals: bool = False
     intersector: str = "auto"
@@ -65,7 +86,7 @@ class IntegratorOptions:
     sort_rays: bool = False
     sort_key: str = "dir"  # "dir" or "origin": the sort key's layout
     compact: bool = True
-    compact_mode: str = "permute"
+    compact_mode: str = "permute"  # "permute", "mask" or "hybrid" (see the module docstring)
     material_set: tuple = (0, 1, 2, 3)
     rng: str = "pcg"
     # Diffuse albedo from the hit UV (checker / image); narrow_settings turns
@@ -76,10 +97,6 @@ class IntegratorOptions:
 def check_supported(options: IntegratorOptions) -> None:
     """Raise NotImplementedError for options outside the ported path."""
     unsupported = [
-        (BxdfType.MIRROR in options.material_set, "mirror materials"),
-        (BxdfType.GLASS in options.material_set, "glass materials"),
-        (options.rr_start is not None, "Russian roulette (rr_start)"),
-        (options.compact_mode != "permute", f"compact_mode {options.compact_mode!r}"),
         (options.intersector in ("bvh", "brute"), f"the {options.intersector} intersector"),
         (options.rng != "pcg", f"rng {options.rng!r}"),
     ]
@@ -92,6 +109,8 @@ def check_supported(options: IntegratorOptions) -> None:
         raise ValueError(f"unknown estimator {options.estimator!r}")
     if options.sort_key not in _SORT_KEYS:
         raise ValueError(f"unknown sort key {options.sort_key!r}")
+    if options.compact_mode not in _COMPACT_MODES:
+        raise ValueError(f"unknown compact_mode {options.compact_mode!r}")
 
 
 def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=None):
@@ -247,6 +266,8 @@ def make_bounce_fn(
     ms = tuple(options.material_set)
     has_emit = BxdfType.EMITTER in ms
     has_diffuse = BxdfType.DIFFUSE in ms
+    has_mirror = BxdfType.MIRROR in ms
+    has_glass = BxdfType.GLASS in ms
     # Light sampling needs an emitter to sample and a diffuse vertex to
     # sample from; without both the estimator is the naive one.
     nee = options.estimator in ("nee", "mis") and has_emit and has_diffuse
@@ -258,11 +279,17 @@ def make_bounce_fn(
         light_cdf, total_light_area = light_table(scene)
 
     compact = partial(compact_rays_coherent, key_mode=options.sort_key) if options.sort_rays else compact_rays
+    # Mask mode hands the live mask to the searches; the sort needs the
+    # physical permutation, so with sort_rays the bounces permute.
+    mask_compact = options.compact and options.compact_mode == "mask" and not options.sort_rays
 
     def masked_intersect(o, d, mask, compact_now: bool) -> Hit:
         """Closest hit for lanes where ``mask`` holds; others report no hit."""
         if not (options.compact and compact_now):
             h = intersect_fn(o, d)
+            return Hit(t=h.t, tri=h.tri, hit=h.hit & mask)
+        if mask_compact:
+            h = intersect_fn(o, d, alive=mask)
             return Hit(t=h.t, tri=h.tri, hit=h.hit & mask)
         o_c, d_c, inv = compact(o, d, mask)
         h = intersect_fn(o_c, d_c)
@@ -270,10 +297,10 @@ def make_bounce_fn(
 
     def masked_occluded(o, d, max_t, mask):
         """Shadow query for lanes where ``mask`` holds (others report
-        unoccluded). Dead lanes carry max_t = 0; with compaction they are
+        unoccluded). Dead lanes carry max_t = 0; in permute mode they are
         also permuted behind the live ones and parked outside the scene."""
         mt = torch.where(mask, max_t, 0.0)
-        if not options.compact:
+        if not options.compact or mask_compact:
             return occlude(o, d, mt) & mask
         o_c, d_c, inv = compact_rays(o, d, mask)
         mt_c = torch.zeros_like(mt)
@@ -300,6 +327,8 @@ def make_bounce_fn(
         no_lanes = torch.zeros_like(found)
         is_emit = (mat["type"] == BxdfType.EMITTER) if has_emit else no_lanes
         is_diffuse = (mat["type"] == BxdfType.DIFFUSE) if has_diffuse else no_lanes
+        is_mirror = (mat["type"] == BxdfType.MIRROR) if has_mirror else no_lanes
+        is_glass = (mat["type"] == BxdfType.GLASS) if has_glass else no_lanes
 
         if has_emit:
             # EMITTER: two-sided Le = emissive * intensity; the path ends.
@@ -370,8 +399,28 @@ def make_bounce_fn(
             use = found & is_diffuse & lit & (total_light_area > 0)
             radiance = radiance + torch.where(use[:, None], contrib, 0.0)
 
+        # The scatter selects, innermost first over the present types; each
+        # type overrides its own lanes, and lanes that do not scatter keep
+        # their ray.
         new_d = d
         tp_factor = torch.ones_like(albedo)
+        if has_glass:
+            # GLASS: reflect or refract, picked by Schlick's Fresnel term.
+            # cos_i, entering and n_glass use the un-oriented normal.
+            cos_i = clip(-(d * n).sum(dim=-1), -1.0, 1.0)
+            entering = cos_i > 0.0
+            n_glass = torch.where(entering[:, None], n, -n)
+            eta_i = torch.where(entering, 1.0, mat["ior"])
+            eta_t = torch.where(entering, mat["ior"], 1.0)
+            fres = fresnel_schlick(absolute(cos_i), eta_i, eta_t)
+            refr, tir = refract(d, n_glass, (eta_i / eta_t)[:, None])
+            reflect_choice = tir | (u[:, 2] < fres)
+            new_d = torch.where(reflect_choice[:, None], reflect(d, n_glass), normalize_dir(refr))
+            tp_factor = torch.where(reflect_choice[:, None], torch.ones_like(albedo), mat["transmittance"])
+        if has_mirror:
+            # MIRROR: perfect specular reflection × the specular color.
+            new_d = torch.where(is_mirror[:, None], reflect(d, n_shade), new_d)
+            tp_factor = torch.where(is_mirror[:, None], mat["specular"], tp_factor)
         if has_diffuse:
             # DIFFUSE: cosine-weighted hemisphere sample; throughput × albedo.
             local = cosine_sample_hemisphere(u[:, 0], u[:, 1])
@@ -380,22 +429,43 @@ def make_bounce_fn(
 
         scatter = found & ~is_emit
         s = scatter[:, None]
+        new_throughput = torch.where(s, throughput * tp_factor, throughput)
+        # A refracted ray starts behind the surface, on the far side of n_glass.
+        offset_n = n_shade
+        if has_glass:
+            offset_n = torch.where((is_glass & ~reflect_choice)[:, None], -n_glass, n_shade)
+
+        alive_next = scatter
+        if options.rr_start is not None and bounce_idx >= options.rr_start:
+            # Russian roulette on the max channel of the new throughput; the
+            # survivors are divided by their survival probability.
+            p = clip(new_throughput.amax(dim=-1), 0.05, 1.0)
+            ur = sampler.uniform(sampler.fold(kb, 7919), 1)[:, 0]
+            survive = ur < p
+            new_throughput = torch.where(survive[:, None], new_throughput / p[:, None], new_throughput)
+            alive_next = alive_next & survive
+
         # Next bounce's emitter accounting: did this vertex sample a light
-        # (diffuse vertices do), and with what pdf (cosθ/π) did it scatter.
+        # (diffuse vertices do; mirror and glass do not, so an emitter hit
+        # after them counts whole), and with what pdf (cosθ/π) did it scatter.
         prev_nee = scatter & is_diffuse
         cos_scatter = maximum((new_d * n_shade).sum(dim=-1), 0.0)
         return PathState(
-            o=torch.where(s, attrs.point + RAY_OFFSET * n_shade, o),
+            o=torch.where(s, attrs.point + RAY_OFFSET * offset_n, o),
             d=torch.where(s, new_d, d),
-            throughput=torch.where(s, throughput * tp_factor, throughput),
+            throughput=new_throughput,
             radiance=radiance,
-            alive=scatter,
+            alive=alive_next,
             prev_nee=prev_nee,
             prev_pdf=torch.where(prev_nee, cos_scatter / math.pi, 0.0),
             keys=state.keys,
         )
 
     return bounce
+
+
+def _permute_state(state: PathState, perm: torch.Tensor) -> PathState:
+    return PathState(**{f.name: getattr(state, f.name).index_select(0, perm) for f in dataclasses.fields(state)})
 
 
 def trace_paths(
@@ -419,9 +489,16 @@ def trace_paths(
     from ``packed_secondary``; bounce 0, and every bounce without a second
     pack, thresholds the closest hit, as the JAX package's ``render_frame``
     does (its own intersect function turns the any-hit kernel off there).
+
+    ``compact_mode="hybrid"`` permutes the whole path state alive-first
+    once after bounce 0, runs the later bounces in mask mode and permutes
+    the radiance back.
     """
     if packed_secondary is not None and intersect_fn is not None:
         raise ValueError("packed_secondary would replace the custom intersect_fn of the later bounces")
+    hybrid = options.compact and options.compact_mode == "hybrid" and options.bounces > 1
+    if hybrid:
+        options = dataclasses.replace(options, compact_mode="mask")
     bounce = make_bounce_fn(scene, options, intersect_fn=intersect_fn, packed=packed)
     scan_bounce = bounce
     if packed_secondary is not None and options.bounces > 1:
@@ -429,7 +506,29 @@ def trace_paths(
     # Bounce 0: every lane is alive and camera-coherent, so compaction is
     # pure overhead there.
     state = bounce(init_path_state(origins, directions, keys), 0, compact_now=False)
+    inv = None
+    if hybrid:
+        perm, inv = partition_alive(state.alive)
+        state = _permute_state(state, perm)
     for b in range(1, options.bounces):
         state = scan_bounce(state, b)
-    return state.radiance
+    return state.radiance if inv is None else state.radiance.index_select(0, inv)
 
+
+def normal_aov(
+    scene: TriangleScene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    options: IntegratorOptions,
+    reference_parity: bool = True,
+    intersect_fn=None,
+) -> torch.Tensor:
+    """The reference's shading: ``|world normal|`` on a hit, else 0, after
+    one closest-hit search. ``reference_parity=True`` takes the
+    unnormalised inverse-transpose normal ``gn_ref``; False the unit
+    geometric normal."""
+    if intersect_fn is None:
+        intersect_fn = make_intersect_fn(scene, options)
+    hit = intersect_fn(origins, directions)
+    n = (scene.gn_ref if reference_parity else scene.gn).index_select(0, hit.tri.clamp(min=0))
+    return torch.where(hit.hit[:, None], absolute(n), 0.0)

@@ -1,10 +1,13 @@
 """Top-level renderer: camera + scene + settings → image.
 
-Counterpart of ``gpupathtracer_tpu/render/renderer.py`` for the radiance
-AOV. ``render_frame`` packs the scene (once per block width; the pack is
-cached across frames), then for each sample makes the PCG keys and the
-sub-pixel jitter, generates primary rays and traces paths; the frame is the
-mean over samples. The frame is differentiable (see ``render_frame``).
+Counterpart of ``gpupathtracer_tpu/render/renderer.py``. ``render_frame``
+packs the scene (once per block width; the pack is cached across frames),
+then for each sample makes the PCG keys and the sub-pixel jitter, generates
+primary rays and traces paths; the frame is the mean over samples. The
+frame is differentiable (see ``render_frame``). The normal AOVs take one
+closest-hit search of the unjittered camera rays. ``render_samples`` sums
+the radiance over a range of global sample ids, the unit of progressive
+and checkpointed rendering.
 """
 
 from __future__ import annotations
@@ -14,12 +17,19 @@ import dataclasses
 import torch
 
 from gpupathtracer_tpu_torch.core.tensors import resolve_device
-from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays_for_pixels
+from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays, generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
 from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
-from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, check_supported, trace_paths
+from gpupathtracer_tpu_torch.render.integrator import (
+    IntegratorOptions,
+    check_supported,
+    make_intersect_fn,
+    normal_aov,
+    trace_paths,
+)
+from gpupathtracer_tpu_torch.utils.debug import check_frame
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +44,7 @@ class RenderSettings:
     seed: int = 1234
     jitter: bool = True  # sub-pixel jitter for spp > 1
     background: tuple = (0.0, 0.0, 0.0)
-    aov: str = "radiance"
+    aov: str = "radiance"  # "radiance", "normal" or "normal_unit"
     rr_start: int | None = None
     tri_block: int = 128
     # Second pack width for bounces 1..N-1; None = one pack at tri_block.
@@ -104,6 +114,27 @@ def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSet
     return settings
 
 
+_AOVS = ("radiance", "normal", "normal_unit")
+
+
+def _prepare(scene, camera, settings, device):
+    """The scene and camera on ``device``, the narrowed settings and the
+    packs (cached, see ``render_frame``)."""
+    if settings.aov not in _AOVS:
+        raise ValueError(f"unknown aov {settings.aov!r}")
+    if (camera.width, camera.height) != (settings.width, settings.height):
+        raise ValueError("camera/screen size mismatch")
+    scene = scene.to(device)
+    camera = camera.to(device)
+    settings = narrow_settings(scene, settings)
+    check_supported(_integrator_options(settings))
+    packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)  # detached
+    packed2 = None
+    if settings.tri_block_secondary is not None and settings.bounces > 1:
+        packed2 = packed_intersect.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    return scene, camera, settings, packed, packed2
+
+
 def render_frame(
     scene: TriangleScene,
     camera: Camera,
@@ -112,7 +143,9 @@ def render_frame(
     device="cuda",
 ) -> torch.Tensor:
     """Render a frame on ``device`` (the card unless the caller passes
-    ``device="cpu"``); returns the mean radiance (H, W, 3) float32.
+    ``device="cpu"``); returns the mean radiance (H, W, 3) float32, or for
+    ``aov="normal"``/``"normal_unit"`` the absolute normal of the closest
+    hit of each pixel's unjittered camera ray (``normal_aov``).
     ``seed=None`` uses ``settings.seed``.
 
     The frame is differentiable with the JAX package's estimator (interior
@@ -129,34 +162,60 @@ def render_frame(
     across frames and again after an in-place edit; a scene moved here is
     packed again on every call."""
     device = resolve_device(device)
-    if settings.aov != "radiance":
-        raise NotImplementedError(f"aov {settings.aov!r} is not ported to gpupathtracer_tpu_torch yet")
+    scene, camera, settings, packed, packed2 = _prepare(scene, camera, settings, device)
     h, w = settings.height, settings.width
-    if (camera.width, camera.height) != (w, h):
-        raise ValueError("camera/screen size mismatch")
-    scene = scene.to(device)
-    camera = camera.to(device)
-    settings = narrow_settings(scene, settings)
-    check_supported(_integrator_options(settings))
-    packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)  # detached
-    packed2 = None
-    if settings.tri_block_secondary is not None and settings.bounces > 1:
-        packed2 = packed_intersect.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    if settings.aov != "radiance":
+        o, d = generate_rays(camera)
+        opts = _integrator_options(settings)
+        color = normal_aov(scene, o, d, opts, reference_parity=settings.aov == "normal",
+                           intersect_fn=make_intersect_fn(scene, opts, packed=packed))
+        return check_frame(color.reshape(h, w, 3), "render_frame")
     pixel_idx = torch.arange(h * w, device=device)
     key_data = prng_key_data(settings.seed if seed is None else seed)
     film_sum = accumulate_radiance(
         scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2
     )
-    return (film_sum / settings.spp).reshape(h, w, 3)
+    return check_frame((film_sum / settings.spp).reshape(h, w, 3), "render_frame")
 
 
-def accumulate_radiance(scene, camera, pixel_idx, settings, key_data, packed, packed_secondary=None):
-    """Sum over ``settings.spp`` samples of the radiance of the given pixels.
-    Sample keys depend only on (seed, pixel id, sample id), so any split of
-    the pixels gives the same sums."""
+def render_samples(
+    scene: TriangleScene,
+    camera: Camera,
+    settings: RenderSettings,
+    sample_start: int,
+    num_samples: int,
+    seed: int | None = None,
+    device="cuda",
+) -> torch.Tensor:
+    """The radiance SUM (H, W, 3) over global samples
+    ``[sample_start, sample_start + num_samples)``, on ``device`` as
+    ``render_frame``. Sample keys depend only on (seed, pixel, sample id), so
+    summing the chunks of a partition of ``[0, spp)`` in order gives
+    ``render_frame · spp``: the sums are formed in the same order. Always
+    the radiance, whatever ``settings.aov`` says (as the JAX package's)."""
+    device = resolve_device(device)
+    scene, camera, settings, packed, packed2 = _prepare(scene, camera, settings, device)
+    h, w = settings.height, settings.width
+    pixel_idx = torch.arange(h * w, device=device)
+    key_data = prng_key_data(settings.seed if seed is None else seed)
+    film_sum = accumulate_radiance(
+        scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2,
+        sample_start=sample_start, num_samples=num_samples,
+    )
+    return check_frame(film_sum.reshape(h, w, 3), "render_samples")
+
+
+def accumulate_radiance(
+    scene, camera, pixel_idx, settings, key_data, packed, packed_secondary=None, sample_start=0, num_samples=None
+):
+    """Sum of the radiance of the given pixels over global samples
+    ``[sample_start, sample_start + num_samples)`` (all ``settings.spp`` by
+    default). Sample keys depend only on (seed, pixel id, sample id), so any
+    split of the pixels or of the samples gives the same per-sample values."""
     opts = _integrator_options(settings)
+    n = settings.spp if num_samples is None else num_samples
     film_sum = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32, device=pixel_idx.device)
-    for s in range(settings.spp):
+    for s in range(sample_start, sample_start + n):
         keys = PcgSampler.path_keys(key_data, pixel_idx, s)
         jitter_uv = None
         if settings.jitter and settings.spp > 1:

@@ -1,8 +1,9 @@
-"""Image IO: texture files in, PNGs out.
+"""Image IO: PPM (the reference's ASCII P3) and PNG.
 
-Counterpart of ``read_ppm`` and ``write_png`` in
-``gpupathtracer_tpu/utils/image.py`` (numpy and the standard library only;
-copied so that the port imports nothing of the JAX package).
+Counterpart of ``gpupathtracer_tpu/utils/image.py`` (numpy and the standard
+library only; copied so that the port imports nothing of the JAX package).
+``write_ppm`` writes the reference's ``saveToPPM`` format: "P3", "<w> <h>",
+"255", then one RGB triple per line.
 """
 
 from __future__ import annotations
@@ -11,6 +12,17 @@ import struct
 import zlib
 
 import numpy as np
+
+
+def write_ppm(path: str, u8_image: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an ASCII P3 PPM."""
+    h, w = u8_image.shape[:2]
+    flat = u8_image.reshape(-1, 3).astype(np.int64)
+    with open(path, "w") as f:
+        f.write("P3\n")
+        f.write(f"{w} {h}\n")
+        f.write("255\n")
+        np.savetxt(f, flat, fmt="%d")
 
 
 def read_ppm(path: str) -> np.ndarray:
@@ -47,3 +59,11 @@ def write_png(path: str, u8_image: np.ndarray) -> None:
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
         f.write(chunk(b"IEND", b""))
+
+
+def write_image(path: str, u8_image: np.ndarray) -> None:
+    """PPM for a ``.ppm`` path, PNG otherwise."""
+    if path.endswith(".ppm"):
+        write_ppm(path, u8_image)
+    else:
+        write_png(path, u8_image)

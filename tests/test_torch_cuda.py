@@ -8,6 +8,7 @@ no JAX, so it also runs where only the port is installed:
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -410,3 +411,139 @@ def test_pack_refreshes_after_an_in_place_edit_on_the_card(device):
     tpi._PACK_CACHE.clear()
     assert torch.equal(after, render_frame(scene, camera, settings))
     assert not torch.equal(after, before)
+
+
+def _in_tile_dead_lanes(n, tile, device, seed):
+    """Random dead lanes inside tiles (about half), plus two whole dead tiles."""
+    g = torch.Generator().manual_seed(seed)
+    dead = torch.rand(n, generator=g) < 0.5
+    dead[2 * tile : 3 * tile] = True
+    dead[7 * tile : 8 * tile] = True
+    return dead.to(device)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["K1", "K3"])
+def test_closest_hit_kernels_exact_on_in_tile_dead_lanes(device, streamed, monkeypatch):
+    """The mask-mode input: dead lanes between live ones in a tile, and
+    all-dead tiles. Hits and t equal the plain version's exactly; dead lanes
+    report -inf / -1."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=40 + int(streamed), rays=4096)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    tile = tpi.STREAM_RAY_TILE if streamed else tpi.DEFAULT_RAY_TILE
+    dead = _in_tile_dead_lanes(o.shape[0], tile, device, seed=int(streamed))
+    if streamed:
+        args = tpi.prepare_rays_streamed(o, d, packed, alive=~dead) + (tile,)
+        kernel, plain = tpi.closest_hit_streamed, tpi.closest_hit_streamed_reference
+    else:
+        args = tpi.prepare_rays(o, d, packed, alive=~dead) + (packed.w, tile)
+        kernel, plain = tpi.closest_hit, tpi.closest_hit_reference
+    bt, bi = kernel(*args)
+    rt, ri = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bi, ri) and torch.equal(bt, rt)
+    assert torch.isneginf(bt[: o.shape[0]][dead]).all() and (bi[: o.shape[0]][dead] == -1).all()
+    assert (bi[: o.shape[0]][~dead] >= 0).sum() > 200
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["K2", "K4"])
+def test_anyhit_kernels_exact_on_interleaved_zero_cutoffs(device, streamed, monkeypatch):
+    """Uncompacted shadow rays, as mask mode casts them: max_t = 0 on random
+    lanes between live ones. Flags equal the plain version's exactly and no
+    max_t = 0 lane is occluded."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=50 + int(streamed), rays=4096)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    hit = tpi.intersect_packed(o, d, packed)
+    scale = (0.5 + torch.rand(o.shape[0], generator=torch.Generator().manual_seed(6))).to(device)
+    maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
+    tile = tpi.STREAM_RAY_TILE if streamed else tpi.DEFAULT_RAY_TILE
+    maxt = maxt.masked_fill(_in_tile_dead_lanes(o.shape[0], tile, device, seed=7), 0.0)
+    if streamed:
+        args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed) + (tile,)
+        occ, ref = tpi.occluded_streamed(*args), tpi.occluded_streamed_reference(*args)
+    else:
+        args = tpi.prepare_shadow_rays(o, d, maxt, packed) + (packed.w, tile)
+        occ, ref = tpi.occluded(*args), tpi.occluded_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, ref) and 0.05 < ref.double().mean().item() < 0.9
+    assert (occ[: o.shape[0]][maxt == 0] == 0).all()
+
+
+def _image_bar(got, want):
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert diff.mean().item() < 2e-3
+    assert (diff.amax(dim=-1) > 3e-2).double().mean().item() < 5e-3
+
+
+@pytest.mark.parametrize("mode", ["mask", "hybrid"])
+@pytest.mark.parametrize("change", [{}, {"estimator": "nee"}], ids=["naive", "nee"])
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_compact_mode_frames_meet_the_bar_against_permute(device, mode, change, streamed, monkeypatch):
+    """Mask and hybrid frames through the kernels against the permute frame
+    (the image bar; the CPU tests hold them equal to the bit). Streamed
+    packs sort no rays here, so mask mode hands K3 and K4 dead lanes."""
+    if streamed:
+        monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+    scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
+    camera = dataclasses.replace(camera, width=96, height=96)
+    settings = dataclasses.replace(settings, width=96, height=96, spp=2, sort_rays=False, **change)
+    want = render_frame(scene, camera, settings)
+    got = render_frame(scene, camera, dataclasses.replace(settings, compact_mode=mode))
+    assert tpi.is_resident(tpi.pack_scene(scene, tri_block=settings.tri_block)) != streamed
+    _image_bar(got, want)
+
+
+GLASS_MIRROR = [{"type": "glass", "refractive_index": 1.5, "transmittance_color": (0.95, 0.97, 1.0)},
+                {"type": "mirror", "specular_color": (0.9, 0.9, 0.9)},
+                {"type": "emitter", "emissive_color": (1.0, 0.95, 0.9), "intensity": 6.0}]
+
+
+@pytest.mark.parametrize("change", [{}, {"estimator": "nee"}, {"estimator": "mis"}, {"rr_start": 2}])
+def test_glass_mirror_frame_kernels_match_plain_version(device, change):
+    """The config 3 stand-in with a two-sided glass body and a mirror floor."""
+    from gpupathtracer_tpu_torch.models.scene import plane_spec, sphere_spec
+
+    specs = [dataclasses.replace(sphere_spec(radius=2.0, subdivisions=3), two_sided=True),
+             plane_spec((0.0, -2.0, 0.0), (90.0, 0.0, 0.0), (20.0, 20.0, 20.0), mat_id=1),
+             plane_spec((0.0, 6.0, 2.0), (60.0, 0.0, 0.0), (8.0, 8.0, 8.0), mat_id=2)]
+    scene = build_scene(specs, GLASS_MIRROR, pad_to_multiple=128, device=device)
+    _, camera, settings = load_scene_file(SCENE, device=device)
+    camera = dataclasses.replace(camera, width=64, height=64)
+    settings = dataclasses.replace(settings, width=64, height=64, spp=2, **change)
+    before = tpi.closest_hit.launches
+    got = render_frame(scene, camera, settings)
+    assert tpi.closest_hit.launches > before
+    want = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
+    assert want.mean().item() > 0.01
+    _image_bar(got, want)
+
+
+def test_cli_checkpointed_resume_on_the_card(device, tmp_path):
+    """The CLI's progressive render on the card (chunks of 1 sample, a film
+    checkpoint): the image equals the one-shot frame's; a film saved after 2
+    of 4 samples and finished equals the uninterrupted progressive image."""
+    from gpupathtracer_tpu_torch import cli
+    from gpupathtracer_tpu_torch.render.film import to_u8
+    from gpupathtracer_tpu_torch.render.progressive import render_progressive
+    from gpupathtracer_tpu_torch.render.renderer import render_samples
+    from gpupathtracer_tpu_torch.utils import checkpoint as ckpt
+    from gpupathtracer_tpu_torch.utils.config import load_config
+    from gpupathtracer_tpu_torch.utils.image import read_ppm
+
+    cfg = load_config(SCENE)
+    cfg["render"].update(width=64, height=64, spp=4)
+    path = str(tmp_path / "scene.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    out, film = str(tmp_path / "x.ppm"), str(tmp_path / "film.npz")
+    assert cli.main(["render", path, "--chunk-spp", "1", "--checkpoint", film, "--out", out]) == 0
+    scene, camera, settings = load_scene_file(path, device=device)
+    frame = render_frame(scene, camera, settings)
+    np.testing.assert_array_equal(read_ppm(out), to_u8(frame))
+    prog = render_progressive(scene, camera, settings, chunk_spp=1)
+    torch.testing.assert_close(prog, frame.cpu(), rtol=0, atol=1e-6)
+    resume = str(tmp_path / "resume.npz")
+    ckpt.save_film(resume, render_samples(scene, camera, settings, 0, 2), 2, settings)
+    assert torch.equal(render_progressive(scene, camera, settings, chunk_spp=1, checkpoint_path=resume), prog)

@@ -1,6 +1,7 @@
 """The port's render path against the JAX package's ``render_frame``, plus the
 port's contracts: the any-hit search runs only where the JAX package runs
-its kernel, options outside the slice raise, entry points default to the
+its kernel, options outside the slice (the BVH and brute intersectors,
+threefry, the edge-sampled demos) raise, entry points default to the
 card and a missing GPU raises, and the port imports no JAX."""
 
 import dataclasses
@@ -178,26 +179,31 @@ def test_entry_points_default_to_the_card(entry):
         entry()
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        {"estimator": "nee", "rr_start": 2},
-        {"estimator": "mis", "material_set": (0, 1, 2)},
-        {"rr_start": 2},
-        {"compact_mode": "mask"},
-        {"compact_mode": "hybrid"},
-        {"aov": "normal"},
-        {"intersector": "bvh"},
-        {"intersector": "brute"},
-        {"rng": "threefry"},
-        {"material_set": (0, 1, 2)},
-        {"material_set": (1, 3)},
-    ],
-)
-def test_options_outside_the_slice_raise(change):
+def _render_with(change):
     (_, _, _), (ts_, tc, tst) = _resized("config5_invert_target.toml", 8, 1)
+    return render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
+
+
+def _invert_cli(mode):
+    from gpupathtracer_tpu_torch import cli
+
+    return cli.main(["--device", "cpu", "invert", "--mode", mode, "--steps", "1"])
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: _render_with({"intersector": "bvh"}),
+        lambda: _render_with({"intersector": "brute"}),
+        lambda: _render_with({"rng": "threefry"}),
+        lambda: _invert_cli("silhouette"),
+        lambda: _invert_cli("camera"),
+    ],
+    ids=["bvh", "brute", "threefry", "invert silhouette", "invert camera"],
+)
+def test_options_outside_the_slice_raise(call):
     with pytest.raises(NotImplementedError):
-        render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
+        call()
 
 
 def test_unknown_sort_key_raises():
