@@ -115,6 +115,34 @@ path):
 30. the streamed naive frame in the three modes, as 22, with the origin
     sort the route resolves (which turns mask mode into permute) and with
     the sort off (mask mode hands K3 its dead lanes);
+and the boundary gradient (grad/edges.py) with what it brought:
+31. value_and_grad_with_edges on the config 3 stand-in (800x800, spp 4, 4
+    bounces, naive; the parameter scales the body's vertices, the target
+    is the render at scale 0.95, the loss the mean squared difference;
+    1,024 edge samples, 4 trace samples): K1 launches of one call as
+    expected, peak memory, the median of 3 calls with varied keys, one
+    profiled call split by the function's own spans (the interior fwd+bwd,
+    the primary and shadow boundary terms: host seconds and the device
+    time of the work each launched), the packing every call repeats, the
+    edge count, the boundary term's share of the gradient (against the
+    detached gradient), and the gradient through the plain versions with
+    the same key (rtol 1e-4);
+32. the same on the config 8 stand-in (512x512, NEE) with the shadow term
+    (512 samples): K1 and K2 launches;
+33. the config 6 stand-in's edges: build_edge_table and
+    build_edge_clusters seconds, and one shadow_edge_gradient call at 512
+    samples on the streamed packs (3 K3 launches), then the same call
+    profiled (the hierarchical picker's span ran once) and through the
+    plain versions with the same key and clusters (rtol 1e-4);
+34. the silhouette and camera demos' first step (64x64, spp 16, blocks of
+    8) through the kernels and through the plain versions with the same key
+    (loss to rtol 1e-6, gradient to rtol 1e-4); the demos at their defaults
+    (40 and 60 steps, through K1): recovered errors, the detached gradient
+    at the start (exactly 0), seconds per step; the CLI's invert --mode
+    silhouette and camera (4 steps, spp 4);
+35. the config 3 stand-in's naive frame with rng="threefry" (800x800,
+    spp 4) through the kernels against the plain versions (the image bar),
+    and its frame time beside the PCG frame's, in turns;
 then the total wall time, a JSON line that summarises the four kernels, and
 a JSON result line last.
 
@@ -129,6 +157,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -139,7 +168,7 @@ import numpy as np
 import torch
 
 from gpupathtracer_tpu_torch import cli
-from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, run_inverse_demo
+from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, camera_problem, run_inverse_demo, silhouette_problem
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
 from gpupathtracer_tpu_torch.models.obj import MeshData
@@ -542,6 +571,41 @@ def profile_frame(run, trace_path: str | None = None, top: int = 0) -> dict:
         out["top_kernels_ms"] = [[k[:120], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
     if trace_path:
         prof.export_chrome_trace(trace_path)
+    return out
+
+
+def span_times(run, names) -> dict:
+    """``run()`` once under torch.profiler, split by the record_function
+    spans in ``names``: for each, how often it ran, its host seconds, and
+    the device seconds and count of the kernels, copies and fills launched
+    inside it (a launch belongs to a span when its runtime call lies in the
+    span's host interval; the backward's launches come from autograd's
+    threads while the span waits for them). Also the call's wall and all
+    its device seconds. Read from the exported Chrome trace, which joins
+    each device event to its launch by the correlation id."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    out = {"wall_s": wall, "device_s": sum(e["dur"] for e in device) / 1e6}
+    for name in names:
+        own = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "user_annotation" and e["name"] == name]
+        at = lambda e: launched.get(e.get("args", {}).get("correlation"), float("nan"))
+        inside = [e for e in device if any(a <= at(e) <= b for a, b in own)]
+        out[name] = {"count": len(own), "host_s": sum(b - a for a, b in own) / 1e6,
+                     "device_s": sum(e["dur"] for e in inside) / 1e6, "device_ops": len(inside)}
     return out
 
 
@@ -957,6 +1021,269 @@ def phase_live_and_view(device) -> dict:
     return row
 
 
+def body_scale_scene(path: str, device):
+    """``(scene_fn(scale), camera, settings)`` of a stand-in config whose
+    body (the icosphere: the one-sided geometry, the planes are two-sided)
+    has its vertices scaled by the tensor ``scale``; the scene is built on
+    ``device`` as load_scene_file builds it."""
+    specs, materials, camera, settings, textures = parse_config(load_config(path), os.path.dirname(path))
+    body = {i: sp.vertices.to(device) for i, sp in enumerate(specs) if not sp.two_sided}
+
+    def scene_fn(scale):
+        scaled = [dataclasses.replace(sp, vertices=body[i] * scale) if i in body else sp for i, sp in enumerate(specs)]
+        return build_scene(scaled, materials, pad_to_multiple=settings.tri_block, textures=textures, device=device)
+
+    return scene_fn, camera.to(device), settings
+
+
+def edge_call_launches(settings, trace_spp: int, shadow: bool, receivers: int = 1) -> dict:
+    """K1/K2 launches of one value_and_grad_with_edges call on a resident
+    pack: the interior frame (as the full-frame phases count it), the
+    primary term's f_in/f_out traces (trace_spp samples each, one pack, so
+    every bounce's shadow rays threshold K1) and, with ``shadow``, per
+    receiver set one search of the walk (no mirror or glass in the stand-ins)
+    and two of f_sa."""
+    nee = settings.estimator != "naive"
+    if nee:
+        k1, k2 = settings.spp * (settings.bounces + 1), settings.spp * (settings.bounces - 1)
+    else:
+        k1, k2 = settings.spp * settings.bounces, 0
+    k1 += 2 * trace_spp * settings.bounces * (2 if nee else 1)
+    if shadow:
+        k1 += 3 * receivers
+    return expect_launches(closest_hit=k1, occluded=k2)
+
+
+def _timed(fn, device, reps: int = 3):
+    """Median and all wall times of ``fn(i)`` for i in range(reps),
+    synchronised before and after each."""
+    times = []
+    for i in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn(i)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def phase_edge_gradient(label: str, path: str, device, shadow: bool = False, n_samples: int = 1024,
+                        trace_spp: int = 4, shadow_samples: int = 512, spp: int = 4) -> dict:
+    """value_and_grad_with_edges at a stand-in's full size: the parameter
+    scales the body's vertices, the target is the render at scale 0.95 and
+    the loss the mean squared difference. One call with the counts set to 0
+    (launches as edge_call_launches says, peak device memory), then the
+    median of 3 calls with varied keys, one more call split by its spans
+    (span_times: the interior fwd+bwd, the primary term, and the shadow
+    term with ``shadow``), the packing that every call repeats (scene_fn
+    builds fresh tensors), the edge count, the boundary term's share of the
+    gradient (the call's less the detached one); then the same key through
+    the plain versions: the hits are the same, so the gradients agree
+    within rtol 1e-4, the bar of the other kernel-vs-plain gradient checks."""
+    from gpupathtracer_tpu_torch.grad import edges
+    from gpupathtracer_tpu_torch.ops import threefry
+
+    scene_fn, camera, settings = body_scale_scene(path, device)
+    settings = dataclasses.replace(settings, spp=spp)
+    one = torch.tensor(1.0, device=device)
+    with torch.no_grad():
+        target = render_frame(scene_fn(torch.tensor(0.95, device=device)), camera, settings)
+
+    def image_loss(img):
+        return ((img - target) ** 2).mean()
+
+    t0 = time.perf_counter()
+    table = edges.build_edge_table(scene_fn(one))
+    table_s = time.perf_counter() - t0
+    kw = dict(n_samples=n_samples, trace_spp=trace_spp, shadow_edges=shadow, shadow_samples=shadow_samples)
+    key = lambda i: threefry.PRNGKey(i, device=device)
+    call = lambda st, i: edges.value_and_grad_with_edges(image_loss, scene_fn, one, camera, st, table, key(i), **kw)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    loss, g = call(settings, 0)
+    _sync(device)
+    launches, peak = _launch_counts(), torch.cuda.max_memory_allocated(device)
+    expect = edge_call_launches(settings, trace_spp, shadow)
+    total_s, total_all = _timed(lambda i: float(call(settings, 100 + i)[1]), device)
+    spans = span_times(lambda: call(settings, 200), ("edges.interior", "edges.primary", "edges.shadow"))
+    leaf = one.detach().requires_grad_()
+    detached = image_loss(render_frame(scene_fn(leaf), camera, settings))  # the interior term alone
+    g_interior = torch.autograd.grad(detached, leaf)[0] if detached.requires_grad else torch.zeros_like(one)
+    pack_times = []
+    for _ in range(3):  # a fresh scene each time: the cache misses, as in every call
+        fresh = scene_fn(one)
+        _sync(device)
+        t0 = time.perf_counter()
+        pack_scene(fresh, tri_block=settings.tri_block)
+        _sync(device)
+        pack_times.append(time.perf_counter() - t0)
+    plain_loss, g_plain = call(dataclasses.replace(settings, intersector="plucker"), 0)
+    g_b = (g - g_interior).item()
+    row = {
+        "size": [settings.width, settings.height], "spp": settings.spp, "bounces": settings.bounces,
+        "estimator": settings.estimator, "edges": table.num_edges, "build_edge_table_s": table_s,
+        "n_samples": n_samples, "trace_spp": trace_spp, "shadow_samples": shadow_samples if shadow else 0,
+        "launches": launches, "expected_launches": expect, "peak_allocated_bytes": peak,
+        "call_s": total_s, "call_s_all": total_all, "profiled_call": spans,
+        "pack_tri_block_s": statistics.median(pack_times),
+        "packs_per_call": 2 + (1 if settings.tri_block_secondary else 0) + (1 if shadow else 0),
+        "loss": loss.item(), "grad": g.item(), "grad_interior": g_interior.item(), "grad_boundary": g_b,
+        "boundary_share": abs(g_b) / max(abs(g_b) + abs(g_interior.item()), 1e-30),
+        "grad_plain": g_plain.item(), "loss_plain": plain_loss.item(),
+    }
+    bar = (f"launches {expect}; finite; |g - g_plain| <= {GRAD_RTOL}|g_plain|; loss to rtol 1e-6; each span "
+           "launched device work")
+    print(f"edge gradient, {label} (bar: {bar}): {json.dumps(row)}", flush=True)
+    ok = (launches == expect and bool(torch.isfinite(g)) and abs(g.item() - g_plain.item()) <= GRAD_RTOL * abs(g_plain.item())
+          and abs(loss.item() - plain_loss.item()) <= 1e-6 * abs(plain_loss.item()) and g_b != 0.0
+          and spans["edges.interior"]["device_ops"] > 0 and spans["edges.primary"]["device_ops"] > 0
+          and (spans["edges.shadow"]["device_ops"] > 0) == shadow)
+    if not ok:
+        raise AssertionError(f"edge gradient {label}: {row}")
+    return row
+
+
+def phase_edge_hierarchy(device, n_samples: int = 512) -> dict:
+    """The config 6 stand-in's edges: build_edge_table and
+    build_edge_clusters seconds, then one shadow_edge_gradient call with the
+    clusters on the streamed packs (K3 carries its closest hits): seconds,
+    launches, peak memory; the same call profiled, where the hierarchical
+    picker's span must run once; and the same key and clusters through the
+    plain versions (rtol 1e-4)."""
+    from gpupathtracer_tpu_torch.grad import edges
+    from gpupathtracer_tpu_torch.ops import threefry
+
+    scene_fn, camera, settings = body_scale_scene(STREAM_SCENE, device)
+    one = torch.tensor(1.0, device=device)
+    scene = scene_fn(one)
+    t0 = time.perf_counter()
+    table = edges.build_edge_table(scene)
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clusters = edges.build_edge_clusters(scene, table)
+    clusters_s = time.perf_counter() - t0
+    del scene
+    cot = torch.full((settings.height, settings.width, 3), 1.0 / (settings.height * settings.width * 3), device=device)
+    key = threefry.PRNGKey(13, device=device)
+    call = lambda st: edges.shadow_edge_gradient(scene_fn, one, camera, st, cot, table, key, n_samples=n_samples,
+                                                 clusters=clusters)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    g = call(settings)
+    float(g)
+    call_s = time.perf_counter() - t0
+    launches, peak = _launch_counts(), torch.cuda.max_memory_allocated(device)
+    spans = span_times(lambda: call(settings), ("edges.pick_hierarchical",))
+    g_plain = call(dataclasses.replace(settings, intersector="plucker"))
+    expect = expect_launches(closest_hit_streamed=3)
+    row = {"edges": table.num_edges, "threshold": edges._HIER_EDGE_THRESHOLD, "build_edge_table_s": table_s,
+           "build_edge_clusters_s": clusters_s, "clusters": clusters.num_clusters, "cluster_size": clusters.size,
+           "shadow_samples": n_samples, "call_s": call_s, "launches": launches, "peak_allocated_bytes": peak,
+           "profiled_call": spans, "grad": g.item(), "grad_plain": g_plain.item()}
+    print(f"edge hierarchy, config6 stand-in (bar: launches {expect}; the hierarchical picker ran once; finite; "
+          f"|g - g_plain| <= {GRAD_RTOL}|g_plain|): {json.dumps(row)}", flush=True)
+    if (spans["edges.pick_hierarchical"]["count"] != 1 or launches != expect or not bool(torch.isfinite(g))
+            or abs(g.item() - g_plain.item()) > GRAD_RTOL * abs(g_plain.item())):
+        raise AssertionError(f"edge hierarchy config6: {row}")
+    return row
+
+
+def demo_first_step_check(device) -> dict:
+    """Each edge demo's first step (its problem at the defaults, its first
+    key) through the kernels and through the plain versions: the loss to
+    rtol 1e-6 and each gradient leaf to rtol 1e-4."""
+    from gpupathtracer_tpu_torch.ops import threefry
+
+    out = {}
+    for name, problem, seed, n_samples in (("silhouette", silhouette_problem, 3, 1024),
+                                           ("camera", camera_problem, 9, 2048)):
+        pr = problem(device=device)
+        _, k = threefry.split(threefry.PRNGKey(seed, device=device))
+        loss, g = pr.value_and_grad(k, n_samples)
+        plain_loss, g_plain = pr.value_and_grad(k, n_samples, dataclasses.replace(pr.settings, intersector="plucker"))
+        g, g_plain = ({"scale": g}, {"scale": g_plain}) if name == "silhouette" else (g, g_plain)
+        row = {"loss": loss.item(), "loss_plain": plain_loss.item(), "grad": {k_: v.item() for k_, v in g.items()},
+               "grad_plain": {k_: v.item() for k_, v in g_plain.items()}}
+        out[name] = row
+        ok = abs(row["loss"] - row["loss_plain"]) <= 1e-6 * abs(row["loss_plain"]) and all(
+            math.isfinite(row["grad"][k_]) and abs(row["grad"][k_] - v) <= GRAD_RTOL * abs(v)
+            for k_, v in row["grad_plain"].items()
+        )
+        if not ok:
+            raise AssertionError(f"{name} demo, first step against the plain versions: {row}")
+    print(f"edge demos' first step (bar: loss to rtol 1e-6, |g - g_plain| <= {GRAD_RTOL}|g_plain| per leaf): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_edge_demos(device) -> dict:
+    """The silhouette (40 steps) and camera (60 steps) demos at their
+    defaults (64x64, spp 16, blocks of 8 through K1), after their first
+    step against the plain versions (demo_first_step_check): the recovered
+    errors, the detached gradient at the start (exactly 0), seconds per
+    step with the target frame, K1 launches; then the CLI's invert --mode
+    silhouette and camera for 4 steps at spp 4."""
+    from gpupathtracer_tpu_torch.grad.inverse import run_camera_demo, run_silhouette_demo
+
+    out = {"first step": demo_first_step_check(device)}
+    for name, demo, steps in (("silhouette", run_silhouette_demo, 40), ("camera", run_camera_demo, 60)):
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        result = demo(device=device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        g0 = result["detached_gradient_at_init"]
+        g0 = [g0] if name == "silhouette" else list(g0.values())
+        losses = [h[1] for h in result["history"]]
+        out[name] = {"steps": steps, "wall_s": wall, "s_per_step": wall / steps, "launches": _launch_counts(),
+                     "losses": losses, **{k: v for k, v in result.items() if k != "history"}}
+        if any(v != 0.0 for v in g0) or not losses[-1] < losses[0] or out[name]["launches"]["closest_hit"] == 0:
+            raise AssertionError(f"{name} demo: {out[name]}")
+    for mode in ("silhouette", "camera"):
+        _reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["invert", "--mode", mode, "--steps", "4", "--spp", "4"])
+        out[f"cli {mode}"] = {"rc": rc, "wall_s": time.perf_counter() - t0, "launches": _launch_counts()}
+        if rc != 0 or out[f"cli {mode}"]["launches"]["closest_hit"] == 0:
+            raise AssertionError(f"cli invert --mode {mode}: {out[f'cli {mode}']}")
+    print(f"edge demos (bar: detached_gradient_at_init = 0, final loss < first, K1 launches > 0; CLI rc 0): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_threefry_frame(scene, camera, settings) -> dict:
+    """The naive frame with rng="threefry" at full size through the kernels
+    against the plain versions (the image bar), and its median frame time
+    over 3 seeds beside the PCG frame's, measured in turns (PCG, threefry)."""
+    st = dataclasses.replace(settings, rng="threefry")
+    _reset_launches()
+    img = render_frame(scene, camera, st)
+    _sync(scene.v0.device)
+    launches = _launch_counts()
+    row = image_diff(img, render_frame(scene, camera, dataclasses.replace(st, intersector="plucker")))
+    times = {"pcg": [], "threefry": []}
+    for i in range(3):
+        for name, s in (("pcg", settings), ("threefry", st)):
+            _sync(scene.v0.device)
+            t0 = time.perf_counter()
+            float(render_frame(scene, camera, s, seed=1000 + i).sum())
+            _sync(scene.v0.device)
+            times[name].append(time.perf_counter() - t0)
+    frame_s, pcg_s = statistics.median(times["threefry"]), statistics.median(times["pcg"])
+    row.update(launches=launches, frame_s=frame_s, frame_s_all=times["threefry"], pcg_frame_s=pcg_s,
+               pcg_frame_s_all=times["pcg"], threefry_over_pcg=frame_s / pcg_s, image_mean=img.mean().item())
+    expect = expect_launches(closest_hit=settings.spp * settings.bounces)
+    print(f"threefry frame, config3 naive {settings.width}x{settings.height} spp {settings.spp} "
+          f"(bar: the image bar against the plain versions; launches {expect}): {json.dumps(row)}", flush=True)
+    if not meets_image_bar(row) or launches != expect:
+        raise AssertionError(f"threefry frame: {row}")
+    return row
+
+
 def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
     """The summary entry of one kernel over its checks at main-path shapes."""
     b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
@@ -1106,13 +1433,29 @@ def main() -> None:
     trainer = phase_trainer(device)
     phase_pack_refresh(device)
 
+    # The boundary term (grad/edges.py) and what it brought: primary
+    # silhouettes on config 3, primary and shadow silhouettes on config 8,
+    # the edge hierarchy on config 6's streamed packs, the demos and their
+    # CLI, and the threefry sampler.
+    edge3 = phase_edge_gradient("config3 stand-in, primary term", SCENE, device)
+    edge8 = phase_edge_gradient("config8 stand-in, primary and shadow terms", NEE_SCENE, device, shadow=True)
+    hier6 = phase_edge_hierarchy(device)
+    demos = phase_edge_demos(device)
+    scene, camera, settings = load_scene_file(SCENE, device=device)
+    threefry_row = phase_threefry_frame(scene, camera, dataclasses.replace(settings, spp=4))
+    del scene
+
     paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee,
              "fwd+bwd naive": naive_bwd, "fwd+bwd nee": nee_bwd, "fwd+bwd streamed naive": streamed_bwd,
              "fwd+bwd streamed nee": streamed_nee_bwd,
              "grad check config8": grad_nee, "grad check config5": grad_config5, "trainer": trainer,
              "cli progressive": cli_row, "glass and mirror naive": glass,
              "normal aov": normal["normal"], "normal_unit aov": normal["normal_unit"],
-             "live view": live["live"], "cli view": live["view"], "cli invert": live["invert"]}
+             "live view": live["live"], "cli view": live["view"], "cli invert": live["invert"],
+             "edge gradient config3": edge3, "edge gradient config8": edge8, "edge hierarchy config6": hier6,
+             "silhouette demo": demos["silhouette"], "camera demo": demos["camera"],
+             "cli invert silhouette": demos["cli silhouette"], "cli invert camera": demos["cli camera"],
+             "threefry frame": threefry_row}
     for label, rows in (("naive", naive_modes), ("nee", nee_modes), ("streamed naive", streamed_modes),
                         ("streamed naive unsorted", streamed_modes_unsorted)):
         for mode in ("mask", "hybrid"):

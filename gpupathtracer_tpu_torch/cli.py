@@ -10,8 +10,10 @@ running on the CPU. ``render`` writes a PPM or a PNG by the output's suffix
 and takes the progressive path (``render/progressive.py``) with
 ``--checkpoint`` or ``--chunk-spp``. ``view`` renders a turntable of PNG
 frames, or with ``--live`` runs the live preview (``render/live.py``).
-``invert --mode albedo`` runs the config 5 trainer; the silhouette and
-camera demos are not ported yet.
+``invert --mode albedo`` runs the config 5 trainer; ``--mode silhouette``
+and ``--mode camera`` run the edge-sampled demos (``grad/inverse.py``),
+which recover an occluder's scale and the camera's pose from the boundary
+term alone.
 """
 
 from __future__ import annotations
@@ -114,13 +116,12 @@ def cmd_view(args) -> int:
 
 
 def cmd_invert(args) -> int:
-    if args.mode != "albedo":
-        raise NotImplementedError(
-            f"invert --mode {args.mode} needs the edge-sampled boundary term (grad/edges.py), which is not "
-            "ported to gpupathtracer_tpu_torch yet (ROADMAP item 12)"
-        )
-    from gpupathtracer_tpu_torch.grad.inverse import run_inverse_demo
+    from gpupathtracer_tpu_torch.grad.inverse import run_camera_demo, run_inverse_demo, run_silhouette_demo
 
+    if args.mode in ("silhouette", "camera"):
+        demo = run_silhouette_demo if args.mode == "silhouette" else run_camera_demo
+        print(json.dumps(demo(steps=args.steps, out_dir=args.out, spp=args.spp, device=args.device)))
+        return 0
     result = run_inverse_demo(
         steps=args.steps, out_dir=args.out, checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, width=args.size, height=args.size, spp=args.spp,
@@ -165,8 +166,8 @@ def build_parser() -> argparse.ArgumentParser:
     pi = sub.add_parser("invert", help="inverse-rendering demo (config 5)")
     pi.add_argument(
         "--mode", default="albedo", choices=["albedo", "silhouette", "camera"],
-        help="albedo = recover albedo and vertex offsets (detached gradients); silhouette and camera "
-        "need grad/edges.py and raise NotImplementedError",
+        help="albedo = recover albedo and vertex offsets (detached gradients); silhouette = an occluder's "
+        "scale, camera = the camera's x/z offset (edge-sampled boundary gradients)",
     )
     pi.add_argument("--steps", type=int, default=100)
     pi.add_argument("--out", default=None)

@@ -8,7 +8,12 @@ that is None on the JAX side (a scene without image textures) is left out of
 the mapping and stays None in the port. ``inverse_state_from_numpy`` carries
 the inverse-rendering trainer's parameters and optax Adam moments across, so
 a JAX checkpoint resumes in the port (``grad.inverse.adam_state`` makes them
-the optimizer's state).
+the optimizer's state). The edge table and clusters of ``grad/edges.py``
+are host-side numpy in both packages: ``edge_table_from_numpy`` and
+``edge_clusters_from_numpy`` take them across with the JAX package's
+dtypes. The module imports only ``core/`` and ``models/`` (and the packed
+scene's dataclass); the two edge functions import ``grad.edges`` when they
+are called.
 """
 
 from __future__ import annotations
@@ -95,3 +100,25 @@ def inverse_state_from_numpy(
         "exp_avg": {k: _tensor(v, device) for k, v in mu.items()},
         "exp_avg_sq": {k: _tensor(v, device) for k, v in nu.items()},
     }
+
+
+_EDGE_TABLE_DTYPES = {"tri1": np.int32, "corner": np.int32, "tri2": np.int32, "two_sided": np.bool_}
+_EDGE_CLUSTER_DTYPES = {
+    "edge_ids": np.int32, "gn_lo": np.float32, "gn_hi": np.float32, "c_lo": np.float32, "c_hi": np.float32,
+    "box_lo": np.float32, "box_hi": np.float32, "count": np.int32, "has_boundary": np.bool_,
+    "has_two_boundary": np.bool_,
+}
+
+
+def edge_table_from_numpy(fields: Mapping[str, np.ndarray]):
+    """EdgeTable from numpy fields (``numpy_fields(jax_table, ...)``)."""
+    from gpupathtracer_tpu_torch.grad.edges import EdgeTable  # here: interop sits below grad/
+
+    return EdgeTable(**{k: np.array(fields[k], dtype=t) for k, t in _EDGE_TABLE_DTYPES.items()})
+
+
+def edge_clusters_from_numpy(fields: Mapping[str, np.ndarray], size: int):
+    """EdgeClusters of ``size`` edges a cluster from numpy fields."""
+    from gpupathtracer_tpu_torch.grad.edges import EdgeClusters
+
+    return EdgeClusters(size=int(size), **{k: np.array(fields[k], dtype=t) for k, t in _EDGE_CLUSTER_DTYPES.items()})

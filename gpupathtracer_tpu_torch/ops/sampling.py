@@ -1,9 +1,12 @@
-"""Sampling warps, shading frames and the counter-based PCG4D sampler.
+"""Sampling warps, shading frames and the two counter-based path samplers.
 
-Counterpart of ``gpupathtracer_tpu/ops/sampling.py``. The sampler is
-stateless: a key is four uint32 words (seed, pixel, sample, stream) and
-every draw is one PCG4D evaluation, so sample sequences depend only on
-logical ids and match the JAX package bit for bit.
+Counterpart of ``gpupathtracer_tpu/ops/sampling.py``. Both samplers are
+stateless and depend only on logical ids, and match the JAX package's bit
+for bit. ``PcgSampler`` (``rng="pcg"``): a key is four uint32 words (seed,
+pixel, sample, stream) and every draw is one PCG4D evaluation.
+``ThreefrySampler`` (``rng="threefry"``): a key is two words of
+``jax.random``'s threefry engine (``ops/threefry.py``), folded with the
+sample and pixel ids.
 
 torch has no uint32 arithmetic, so words are held in int64 tensors with
 values in [0, 2^32). Every add is masked back to 32 bits, products are
@@ -18,16 +21,11 @@ import math
 import torch
 
 from gpupathtracer_tpu_torch.core.tensors import clip, maximum
+from gpupathtracer_tpu_torch.ops import threefry
+from gpupathtracer_tpu_torch.ops.threefry import mul32 as _mul32
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9  # odd multiplier: fold chains stay injective
-
-
-def _mul32(a: torch.Tensor, b) -> torch.Tensor:
-    """(a * b) mod 2^32 for uint32 words in int64, without int64 overflow."""
-    lo = a * (b & 0xFFFF)
-    hi = ((a * (b >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
 
 
 def pcg4d(v: torch.Tensor) -> torch.Tensor:
@@ -93,10 +91,46 @@ class PcgSampler:
         return _uniform_from_bits(pcg4d(keys)[..., :n])
 
 
-def path_keys(seed: int, ids: torch.Tensor, sample_idx: int = 0) -> torch.Tensor:
+class ThreefrySampler:
+    """``jax.random``'s threefry engine behind the same interface, batched
+    over lanes: key rows are the two words of a threefry key (int64, R × 2).
+    ``path_keys`` folds the sample id, then each pixel id, into the base key
+    (the JAX package's ``pixel_sample_key``); ``fold`` folds a stream
+    constant into every row; ``uniform`` is ``jax.random.uniform(key, (n,))``
+    of every row."""
+
+    @staticmethod
+    def path_keys(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:
+        base = torch.tensor([int(k) & _M32 for k in key_data], dtype=torch.int64, device=pixel_idx.device)
+        return threefry.fold_in(threefry.fold_in(base, sample_idx), pixel_idx.to(torch.int64))
+
+    @staticmethod
+    def fold(keys: torch.Tensor, c: int) -> torch.Tensor:
+        return threefry.fold_in(keys, c)
+
+    @staticmethod
+    def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+        """n floats in [0, 1) per lane: the threefry words of counters 0..n-1."""
+        i = torch.arange(n, dtype=torch.int64, device=keys.device)
+        y1, y2 = threefry.threefry2x32(keys[:, 0:1], keys[:, 1:2], 0, i)
+        return threefry.bits_to_unit(y1 ^ y2)
+
+
+SAMPLERS = {"pcg": PcgSampler, "threefry": ThreefrySampler}
+
+
+def make_sampler(impl: str):
+    """The sampler class of ``rng`` name ``impl``."""
+    try:
+        return SAMPLERS[impl]
+    except KeyError:
+        raise ValueError(f"unknown rng impl {impl!r}; expected one of {sorted(SAMPLERS)}") from None
+
+
+def path_keys(seed: int, ids: torch.Tensor, sample_idx: int = 0, impl: str = "pcg") -> torch.Tensor:
     """Per-lane path keys for seed ``seed``, as the JAX package's
-    ``path_keys(seed, ids, sample_idx)`` makes them."""
-    return PcgSampler.path_keys(prng_key_data(seed), ids, sample_idx)
+    ``path_keys(seed, ids, sample_idx, impl)`` makes them."""
+    return make_sampler(impl).path_keys(prng_key_data(seed), ids, sample_idx)
 
 
 def cosine_sample_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

@@ -30,8 +30,11 @@ attributes, materials, emission, the NEE geometry term, MIS weights, the
 light table's total area, the Fresnel and roulette weights) carries
 gradients.
 
-The ``bvh`` and ``brute`` intersectors and ``rng="threefry"`` raise
-NotImplementedError.
+The ``brute`` intersector runs the Möller–Trumbore oracle
+(``ops/intersect.py``) over the unpacked scene, in triangle blocks of
+``tri_block`` and ray chunks of ``ray_chunk``; its shadow rays threshold its
+closest hit. ``rng`` picks the PCG or the threefry sampler
+(``ops/sampling.py``). The ``bvh`` intersector raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,12 +50,13 @@ from gpupathtracer_tpu_torch.models.materials import BxdfType, textured_albedo
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
 from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent, partition_alive
-from gpupathtracer_tpu_torch.ops.intersect import Hit, resolve_hits
+from gpupathtracer_tpu_torch.ops.intersect import Hit, intersect_brute, resolve_hits
 from gpupathtracer_tpu_torch.ops.sampling import (
-    PcgSampler,
+    SAMPLERS,
     cosine_sample_hemisphere,
     fresnel_schlick,
     local_to_world,
+    make_sampler,
     normalize_dir,
     reflect,
     refract,
@@ -63,9 +67,11 @@ RAY_OFFSET = 1e-4
 
 # Intersector names: "auto" and "pallas" run the kernels (their plain
 # versions on CPU tensors); "plucker" runs the plain PyTorch versions on any
-# device, as the JAX package's "plucker" runs its plain jnp product.
+# device, as the JAX package's "plucker" runs its plain jnp product; "brute"
+# runs the Möller–Trumbore oracle, which needs no pack.
 _KERNEL_INTERSECTORS = ("auto", "pallas")
 _PLAIN_INTERSECTORS = ("plucker",)
+_UNPACKED_INTERSECTORS = ("brute",)
 _ESTIMATORS = ("naive", "nee", "mis")
 _SORT_KEYS = ("dir", "origin")
 _COMPACT_MODES = ("permute", "mask", "hybrid")
@@ -77,6 +83,7 @@ class IntegratorOptions:
     background: tuple = (0.0, 0.0, 0.0)
     rr_start: int | None = None  # Russian roulette from this bounce; None = off
     tri_block: int = 128
+    ray_chunk: int = 8192  # rays per chunk of the brute intersector
     use_shading_normals: bool = False
     intersector: str = "auto"
     estimator: str = "naive"  # "naive", "nee" or "mis"
@@ -96,15 +103,12 @@ class IntegratorOptions:
 
 def check_supported(options: IntegratorOptions) -> None:
     """Raise NotImplementedError for options outside the ported path."""
-    unsupported = [
-        (options.intersector in ("bvh", "brute"), f"the {options.intersector} intersector"),
-        (options.rng != "pcg", f"rng {options.rng!r}"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to gpupathtracer_tpu_torch yet")
-    if options.intersector not in _KERNEL_INTERSECTORS + _PLAIN_INTERSECTORS:
+    if options.intersector == "bvh":
+        raise NotImplementedError("the bvh intersector is not ported to gpupathtracer_tpu_torch yet")
+    if options.intersector not in _KERNEL_INTERSECTORS + _PLAIN_INTERSECTORS + _UNPACKED_INTERSECTORS:
         raise ValueError(f"unknown intersector {options.intersector!r}")
+    if options.rng not in SAMPLERS:
+        raise ValueError(f"unknown rng {options.rng!r}")
     if options.estimator not in _ESTIMATORS:
         raise ValueError(f"unknown estimator {options.estimator!r}")
     if options.sort_key not in _SORT_KEYS:
@@ -118,8 +122,14 @@ def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=N
     scene (packed here at ``options.tri_block`` unless ``packed`` is
     given). With ``sort_rays`` and compaction off it sorts every call's rays
     (``make_sorted_intersect``); with compaction on the sort is part of the
-    compaction permutation instead."""
+    compaction permutation instead. The brute intersector searches the
+    scene itself (no pack, no sort); its callers mask the lanes that are
+    not alive."""
     check_supported(options)
+    if options.intersector in _UNPACKED_INTERSECTORS:
+        return lambda o, d, alive=None: intersect_brute(
+            o, d, scene, tri_block=options.tri_block, ray_chunk=options.ray_chunk
+        )
     if packed is None:
         packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
     fn = partial(
@@ -137,11 +147,12 @@ def make_occlusion_fn(
     t < max_t; lanes with ``max_t = 0`` report False.
 
     ``use_kernel=True`` runs the any-hit search over ``packed`` (its plain
-    version for the plain intersector); otherwise the closest hit of
-    ``intersect_fn`` is thresholded, with the ``max_t = 0`` lanes passed as
-    dead. Both answer the same predicate.
+    version for the plain intersector); otherwise, and always for the
+    brute intersector, the closest hit of ``intersect_fn`` is thresholded,
+    with the ``max_t = 0`` lanes passed as dead. Both answer the same
+    predicate.
     """
-    if use_kernel:
+    if use_kernel and options.intersector not in _UNPACKED_INTERSECTORS:
         if packed is None:
             packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
         return partial(
@@ -221,7 +232,7 @@ class PathState:
     alive: torch.Tensor  # (R,) bool
     prev_nee: torch.Tensor  # (R,) bool — the previous vertex sampled a light
     prev_pdf: torch.Tensor  # (R,) float32 — its solid-angle BSDF pdf (MIS)
-    keys: torch.Tensor  # (R, 4) PCG keys
+    keys: torch.Tensor  # (R, 4) PCG or (R, 2) threefry keys
 
 
 def init_path_state(origins, directions, keys) -> PathState:
@@ -259,10 +270,10 @@ def make_bounce_fn(
     if occlusion_kernel and intersect_fn is not None:
         raise ValueError("occlusion_kernel searches the pack, which would bypass the custom intersect_fn")
     if intersect_fn is None:
-        if packed is None:
+        if packed is None and options.intersector not in _UNPACKED_INTERSECTORS:
             packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
         intersect_fn = make_intersect_fn(scene, options, packed=packed)
-    sampler = PcgSampler
+    sampler = make_sampler(options.rng)
     ms = tuple(options.material_set)
     has_emit = BxdfType.EMITTER in ms
     has_diffuse = BxdfType.DIFFUSE in ms

@@ -21,7 +21,7 @@ from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays, generat
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
 from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS
-from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
+from gpupathtracer_tpu_torch.ops.sampling import make_sampler, prng_key_data
 from gpupathtracer_tpu_torch.render.integrator import (
     IntegratorOptions,
     check_supported,
@@ -47,6 +47,7 @@ class RenderSettings:
     aov: str = "radiance"  # "radiance", "normal" or "normal_unit"
     rr_start: int | None = None
     tri_block: int = 128
+    ray_chunk: int = 8192  # rays per chunk of the brute intersector
     # Second pack width for bounces 1..N-1; None = one pack at tri_block.
     tri_block_secondary: int | None = None
     use_shading_normals: bool = False
@@ -70,6 +71,7 @@ def _integrator_options(s: RenderSettings) -> IntegratorOptions:
         background=s.background,
         rr_start=s.rr_start,
         tri_block=s.tri_block,
+        ray_chunk=s.ray_chunk,
         use_shading_normals=s.use_shading_normals,
         intersector=s.intersector,
         estimator=s.estimator,
@@ -128,6 +130,8 @@ def _prepare(scene, camera, settings, device):
     camera = camera.to(device)
     settings = narrow_settings(scene, settings)
     check_supported(_integrator_options(settings))
+    if settings.intersector == "brute":  # searches the scene itself
+        return scene, camera, settings, None, None
     packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)  # detached
     packed2 = None
     if settings.tri_block_secondary is not None and settings.bounces > 1:
@@ -213,13 +217,14 @@ def accumulate_radiance(
     default). Sample keys depend only on (seed, pixel id, sample id), so any
     split of the pixels or of the samples gives the same per-sample values."""
     opts = _integrator_options(settings)
+    sampler = make_sampler(settings.rng)
     n = settings.spp if num_samples is None else num_samples
     film_sum = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32, device=pixel_idx.device)
     for s in range(sample_start, sample_start + n):
-        keys = PcgSampler.path_keys(key_data, pixel_idx, s)
+        keys = sampler.path_keys(key_data, pixel_idx, s)
         jitter_uv = None
         if settings.jitter and settings.spp > 1:
-            jitter_uv = PcgSampler.uniform(PcgSampler.fold(keys, 0xA11A), 2)
+            jitter_uv = sampler.uniform(sampler.fold(keys, 0xA11A), 2)
         o, d = generate_rays_for_pixels(camera, pixel_idx, jitter_uv)
         film_sum = film_sum + trace_paths(
             scene, o, d, keys, opts, packed=packed, packed_secondary=packed_secondary

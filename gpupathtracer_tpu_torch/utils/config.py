@@ -124,6 +124,7 @@ def parse_config(cfg: dict, config_dir: str = "."):
         aov=rnd.get("aov", "radiance"),
         rr_start=rnd.get("rr_start"),
         tri_block=int(rnd.get("tri_block", 512)),
+        ray_chunk=int(rnd.get("ray_chunk", 8192)),
         tri_block_secondary=(
             int(rnd["tri_block_secondary"]) if "tri_block_secondary" in rnd else None
         ),

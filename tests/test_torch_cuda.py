@@ -547,3 +547,108 @@ def test_cli_checkpointed_resume_on_the_card(device, tmp_path):
     resume = str(tmp_path / "resume.npz")
     ckpt.save_film(resume, render_samples(scene, camera, settings, 0, 2), 2, settings)
     assert torch.equal(render_progressive(scene, camera, settings, chunk_spp=1, checkpoint_path=resume), prog)
+
+
+def test_threefry_draws_on_the_card_equal_the_cpu(device):
+    """The threefry words are integer arithmetic, so the card's equal the
+    CPU's bit for bit; uniforms too, and the categorical picks."""
+    from gpupathtracer_tpu_torch.ops import sampling, threefry
+
+    for seed in (0, 3, 1234):
+        kc, kg = threefry.PRNGKey(seed), threefry.PRNGKey(seed, device=device)
+        assert torch.equal(threefry.split(kg, 8).cpu(), threefry.split(kc, 8))
+        assert torch.equal(threefry.fold_in(kg, 0x5EC2).cpu(), threefry.fold_in(kc, 0x5EC2))
+        assert torch.equal(threefry.random_bits(kg, (64, 33), row_start=5).cpu(), threefry.random_bits(kc, (64, 33), row_start=5))
+        assert torch.equal(threefry.uniform(kg, (4096, 2)).cpu(), threefry.uniform(kc, (4096, 2)))
+        assert torch.equal(threefry.randint(kg, (4096,), 0, 640000).cpu(), threefry.randint(kc, (4096,), 0, 640000))
+        logits = torch.log(torch.rand(3000, generator=torch.Generator().manual_seed(seed)))
+        picks = threefry.categorical(kg, logits.to(device), shape=(1024,), row_chunk=256).cpu()
+        assert torch.equal(picks, threefry.categorical(kc, logits, shape=(1024,)))
+        ids = torch.arange(5000)
+        tk = sampling.ThreefrySampler.path_keys((0, seed), ids.to(device), 3)
+        assert torch.equal(tk.cpu(), sampling.ThreefrySampler.path_keys((0, seed), ids, 3))
+        u = sampling.ThreefrySampler.uniform(sampling.ThreefrySampler.fold(tk, 7919), 3)
+        assert torch.equal(u.cpu(), sampling.ThreefrySampler.uniform(sampling.ThreefrySampler.fold(tk.cpu(), 7919), 3))
+
+
+def _edge_shadow_scene(device):
+    """A floor under a light with a black occluder between (its scale s is
+    the parameter) and a mirror: ``scene_fn(params)`` and the camera."""
+    from gpupathtracer_tpu_torch.models.camera import Camera
+    from gpupathtracer_tpu_torch.models.scene import GeometrySpec
+
+    quad = torch.tensor([[[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [0.5, 0.5, 0.0]],
+                         [[-0.5, -0.5, 0.0], [0.5, 0.5, 0.0], [-0.5, 0.5, 0.0]]], device=device)
+    materials = [{"type": "diffuse", "albedo": (0.6, 0.6, 0.6)},
+                 {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 6.0},
+                 {"type": "diffuse", "albedo": (0.0, 0.0, 0.0)},
+                 {"type": "mirror", "specular_color": (0.9, 0.9, 0.9)}]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+
+    def scene_fn(p):
+        occ = GeometrySpec(vertices=quad * p["s"], normals=f32([[[0.0, 0.0, 1.0]] * 3] * 2), uvs=torch.zeros(2, 3, 2, device=device),
+                           position=f32([0.0, 1.5, 0.0]), rotation_deg=f32([90.0, 0.0, 0.0]), scale=f32([1.0] * 3),
+                           mat_id=2, two_sided=True)
+        specs = [plane_spec((0.0, 0.0, 0.0), (90.0, 0.0, 0.0), (6.0, 6.0, 6.0), mat_id=0),
+                 plane_spec((0.0, 3.0, 0.0), (90.0, 0.0, 0.0), (1.5, 1.5, 1.5), mat_id=1), occ,
+                 plane_spec((1.8, 1.0, -0.5), (0.0, -40.0, 0.0), (2.0, 2.0, 1.0), mat_id=3)]
+        return build_scene(specs, materials, pad_to_multiple=8, device=device)
+
+    camera = Camera.create(position=(0.0, 1.0, 4.5), pitch=-25.0, fov_deg=50.0, width=48, height=48, device=device)
+    return scene_fn, camera
+
+
+def test_edge_gradient_through_kernels_matches_plain_version(device):
+    """value_and_grad_with_edges (interior, primary and shadow terms, NEE,
+    the mirror prefix, camera_fn) through the kernels against the plain
+    versions, with the same key: the hits are the same, so the gradients
+    agree within rtol 1e-4, atol 1e-6*max|g|."""
+    from gpupathtracer_tpu_torch.grad import edges
+    from gpupathtracer_tpu_torch.ops import threefry
+    from gpupathtracer_tpu_torch.render.renderer import RenderSettings
+
+    scene_fn, camera = _edge_shadow_scene(device)
+    params = {"s": torch.tensor(1.0, device=device), "dx": torch.tensor(0.0, device=device)}
+    cam_fn = lambda p: dataclasses.replace(camera, position=camera.position + torch.tensor([1.0, 0.0, 0.0], device=device) * p["dx"])
+    table = edges.build_edge_table(scene_fn(params))
+    settings = RenderSettings(width=48, height=48, spp=4, bounces=2, tri_block=8, estimator="nee", tri_block_secondary=32)
+    out = {}
+    for intersector in ("auto", "plucker"):
+        before = tpi.closest_hit.launches
+        loss, g = edges.value_and_grad_with_edges(
+            torch.mean, scene_fn, params, camera, dataclasses.replace(settings, intersector=intersector), table,
+            threefry.PRNGKey(7, device=device), n_samples=512, trace_spp=2, shadow_edges=True, shadow_samples=512,
+            camera_fn=cam_fn, device=device,
+        )
+        assert (tpi.closest_hit.launches > before) == (intersector == "auto")
+        out[intersector] = (loss, g)
+    torch.testing.assert_close(out["auto"][0], out["plucker"][0], rtol=1e-6, atol=0)
+    for k in params:
+        got, want = out["auto"][1][k], out["plucker"][1][k]
+        assert torch.isfinite(got) and want != 0, k
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * want.abs().item())
+
+
+def test_hierarchical_picks_equal_on_card_and_cpu(device):
+    """The cluster hierarchy's picks for one key are the same on the card
+    and the CPU (the shading points, endpoints and bounds are the same
+    tensors moved)."""
+    from gpupathtracer_tpu_torch.grad import edges
+    from gpupathtracer_tpu_torch.models.scene import sphere_spec
+    from gpupathtracer_tpu_torch.ops import threefry
+
+    scene = build_scene([sphere_spec(subdivisions=4), plane_spec((0.0, -1.5, 0.0), (90.0, 0.0, 0.0), (8.0, 8.0, 8.0))],
+                        [{"type": "diffuse"}], pad_to_multiple=128, device="cpu")
+    table = edges.build_edge_table(scene)
+    clusters = edges.build_edge_clusters(scene, table, cluster_size=64)
+    x = torch.as_tensor(np.random.default_rng(4).normal(size=(512, 3)).astype(np.float32) * 3)
+    tri1, corner = torch.as_tensor(table.tri1).long(), torch.as_tensor(table.corner).long()
+    picks = {}
+    for dev in ("cpu", device):
+        s = scene.to(dev)
+        va, vb = edges.edge_endpoints(s, tri1.to(dev), corner.to(dev))
+        pick, q = edges._pick_edges_hierarchical(s, table, clusters, x.to(dev), va, vb, threefry.PRNGKey(11, device=dev))
+        picks[str(dev)] = (pick.cpu(), q.cpu())
+    (pc, qc), (pg, qg) = picks["cpu"], picks[str(device)]
+    assert torch.equal(pg, pc)
+    torch.testing.assert_close(qg, qc, rtol=1e-5, atol=0)
