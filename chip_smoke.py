@@ -143,8 +143,37 @@ and the boundary gradient (grad/edges.py) with what it brought:
 35. the config 3 stand-in's naive frame with rng="threefry" (800x800,
     spp 4) through the kernels against the plain versions (the image bar),
     and its frame time beside the PCG frame's, in turns;
+and the BVH route, the host builders and the distributed renderer
+(parallel/), whose scene-sharded searches run the kernels on packs of a
+slice of the scene's rows:
+36. right after phase 2: the host library (csrc/firefly_native.cpp: OBJ,
+    BVH and edge-table builders) built by the host C++ compiler from this
+    checkout, timed;
+37. beside phases 3 and 9: K1 on phase 3's camera and bounce-1 rays
+    against scene shard 1 of 2 of the config 3 stand-in (what a rank of a
+    1x2 scene axis searches), exactly equal to its plain version; K3 on
+    phase 9's rays against shard 1 of 2 of the config 6 stand-in (a
+    streamed shard pack), with the hit bar and the same packed rows;
+38. the config 3 stand-in's naive frame with intersector "bvh" (800x800,
+    spp 4, 4 bounces): no kernel launch, within the image bar of the K1
+    frame, the median of 3 frames of each route in turns, one profiled bvh
+    frame at spp 1 (device busy, idle share);
+39. the config 6 stand-in's edge table and BVH through the native and the
+    Python builders: seconds, arrays equal;
+40. the bvh frame of the config 6 stand-in cut to 400x400, spp 1 (a
+    diagnostic: the BVH route against K3), as 38;
+41. the distributed renderer, two processes on the one card under gloo:
+    the config 3 stand-in at full width on meshes 2x1 and 1x2 under each
+    scene strategy, the config 6 stand-in (800x800, spp 2) on 1x2
+    (allgather; K3 on the shard packs), the config 8 stand-in's NEE on 2x1
+    (K1 and K2), each against the single-process frame (exact, else the
+    image bar with the count of differing pixels), with the launches of
+    each kernel per rank (counts set to 0 just before each frame) and the
+    median frame time per rank; and one 2x1 fwd+bwd of the bench loss whose
+    gradient is within rtol 1e-4 of the single-process one;
 then the total wall time, a JSON line that summarises the four kernels, and
-a JSON result line last.
+a JSON result line last. Lines starting "elapsed:" mark where the time of
+the run goes.
 
 The naive path renders scenes/config3_icosphere.toml, the NEE path
 scenes/config8_icosphere.toml and the streamed path
@@ -167,7 +196,7 @@ import time
 import numpy as np
 import torch
 
-from gpupathtracer_tpu_torch import cli
+from gpupathtracer_tpu_torch import cli, native
 from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, camera_problem, run_inverse_demo, silhouette_problem
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
@@ -202,6 +231,8 @@ from gpupathtracer_tpu_torch.render.integrator import (
 from gpupathtracer_tpu_torch.render.film import to_u8
 from gpupathtracer_tpu_torch.render.live import live_view
 from gpupathtracer_tpu_torch.render.progressive import render_progressive
+from gpupathtracer_tpu_torch.parallel.render import STRATEGIES, render_frame_distributed, scene_shard
+from gpupathtracer_tpu_torch.render import renderer
 from gpupathtracer_tpu_torch.render.renderer import narrow_settings, render_frame, render_samples
 from gpupathtracer_tpu_torch.utils import checkpoint as ckpt
 from gpupathtracer_tpu_torch.utils.config import load_config, load_scene_file, parse_config
@@ -410,10 +441,12 @@ def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str,
     return captured[0]
 
 
-def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5, exact: bool = False) -> dict:
+def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5, exact: bool = False,
+              rows_exact: bool = False, plain_reps: int | None = None) -> dict:
     """A closest-hit kernel against its plain version on the same inputs;
     ``exact`` also requires the same packed row and a bit-equal t on every
-    lane."""
+    lane, ``rows_exact`` the same packed row only. The plain version is
+    timed over ``plain_reps`` runs (``reps`` unless given)."""
     device = args[0].device
     bt_k, bi_k = kernel(*args)
     bt_r, bi_r, work = plain(*args, count_work=True)
@@ -428,7 +461,7 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
     same_row = (bi_k == bi_r).double().mean().item()
     t_equal = bool(torch.equal(bt_k, bt_r))
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
-    plain_ms = median_ms(lambda: plain(*args), device, reps)
+    plain_ms = median_ms(lambda: plain(*args), device, plain_reps or reps)
     b = bound(FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block, _nbytes(*args, bt_k, bi_k))
     ray_tile = args[-1]
     row = {
@@ -441,27 +474,38 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
     }
     bar = f"same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|"
     bar += "; exact: same_tri = same_row = 1, max_abs_err = 0, t_equal" if exact else ""
+    bar += "; same_row = 1" if rows_exact else ""
     print(f"{name} {label} (bar: {bar}): {json.dumps(row)}", flush=True)
     if agree < HIT_AGREE or not t_ok:
         raise AssertionError(f"{name} {label} misses the hit parity bar: same_tri {agree}, t ok {t_ok}")
     if exact and not (agree == 1.0 and same_row == 1.0 and max_abs_err == 0.0 and t_equal):
         raise AssertionError(f"{name} {label} is not exact: same_tri {agree}, same_row {same_row}, "
                              f"max_abs_err {max_abs_err}, t_equal {t_equal}")
+    if rows_exact and same_row != 1.0:
+        raise AssertionError(f"{name} {label}: same_row {same_row}, expected 1")
     return row
 
 
-def phase_kernel_check(label: str, o, d, packed) -> dict:
+# Runs that time the plain version in a check whose plain time no summary
+# reads (the scene-shard and mask-mode checks): one, to keep the script
+# well inside its time limit.
+PLAIN_REPS_UNREPORTED = 1
+
+
+def phase_kernel_check(label: str, o, d, packed, plain_reps: int | None = None) -> dict:
     """K1 against closest_hit_reference at its main-path shapes."""
     args = prepare_rays(o, d, packed) + (packed.w, DEFAULT_RAY_TILE)
-    return hit_check("closest_hit", label, closest_hit, closest_hit_reference, args, packed, exact=True)
+    return hit_check("closest_hit", label, closest_hit, closest_hit_reference, args, packed, exact=True,
+                     plain_reps=plain_reps)
 
 
-def phase_streamed_check(label: str, o, d, packed) -> dict:
+def phase_streamed_check(label: str, o, d, packed, rows_exact: bool = False, plain_reps: int | None = None) -> dict:
     """K3 against closest_hit_streamed_reference at its main-path shapes."""
     if is_resident(packed):
         raise AssertionError(f"the streamed check needs a pack past the resident budget ({label})")
     args = prepare_rays_streamed(o, d, packed) + (STREAM_RAY_TILE,)
-    return hit_check("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference, args, packed)
+    return hit_check("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference, args, packed,
+                     rows_exact=rows_exact, plain_reps=plain_reps)
 
 
 def phase_split(label: str, o, d, packed, k3_row: dict) -> dict:
@@ -479,9 +523,11 @@ def phase_split(label: str, o, d, packed, k3_row: dict) -> dict:
     return row
 
 
-def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, exact: bool = False) -> dict:
+def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, exact: bool = False,
+                    plain_reps: int | None = None) -> dict:
     """An any-hit kernel against its plain version on the same inputs;
-    ``exact`` requires every flag equal."""
+    ``exact`` requires every flag equal. The plain version is timed over
+    ``plain_reps`` runs (``reps`` unless given)."""
     feats, maxt, w = args[-4], args[-3], args[-2]
     device = feats.device
     occ_k = kernel(*args)
@@ -490,7 +536,7 @@ def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, e
     agree = (occ_k == occ_r).double().mean().item()
     dead_occluded = int((occ_k[maxt == 0] != 0).sum())
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
-    plain_ms = median_ms(lambda: plain(*args), device, reps)
+    plain_ms = median_ms(lambda: plain(*args), device, plain_reps or reps)
     tb = w.shape[2] // NSCALARS
     b = bound(FLOP_PER_PAIR * work["lane_blocks"] * tb, _nbytes(*args, occ_k))
     row = {
@@ -929,10 +975,12 @@ def phase_mask_hit_check(name: str, label: str, scene, camera, settings, packed,
     _, state, _ = sample0_bounce0(scene, camera, settings, packed)
     if name == "closest_hit":
         args = prepare_rays(state.o, state.d, packed2, alive=state.alive) + (packed2.w, DEFAULT_RAY_TILE)
-        row = hit_check(name, label, closest_hit, closest_hit_reference, args, packed2, exact=True)
+        row = hit_check(name, label, closest_hit, closest_hit_reference, args, packed2, exact=True,
+                        plain_reps=PLAIN_REPS_UNREPORTED)
     else:
         args = prepare_rays_streamed(state.o, state.d, packed2, alive=state.alive) + (STREAM_RAY_TILE,)
-        row = hit_check(name, label, closest_hit_streamed, closest_hit_streamed_reference, args, packed2, exact=True)
+        row = hit_check(name, label, closest_hit_streamed, closest_hit_streamed_reference, args, packed2, exact=True,
+                        plain_reps=PLAIN_REPS_UNREPORTED)
     row["dead_share"] = 1.0 - state.alive.double().mean().item()
     print(f"{name} {label}: dead lanes {row['dead_share']:.4f}, {row['ms']:.4f} ms uncompacted vs "
           f"{compacted['ms']:.4f} ms compacted", flush=True)
@@ -1284,6 +1332,258 @@ def phase_threefry_frame(scene, camera, settings) -> dict:
     return row
 
 
+def phase_native_build() -> dict:
+    """The host library (csrc/firefly_native.cpp: OBJ, BVH and edge-table
+    builders) compiled from this checkout by the host C++ compiler, timed
+    from scratch."""
+    t0 = time.perf_counter()
+    path = native.build_library(force=True)
+    row = {"source": os.path.relpath(_build.HOST_SOURCE, ROOT), "library": os.path.relpath(path, ROOT),
+           "compiler": _build.HOST_CXX, "flags": _build.HOST_CXX_FLAGS, "build_s": time.perf_counter() - t0}
+    print(f"build: host library {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_host_builders(scene) -> dict:
+    """The config 6 stand-in's edge table and BVH through the native
+    builders and the Python ones: seconds of each, and the arrays equal
+    element for element. The Python BVH is built through the renderer's
+    cache, so the BVH frames of this scene reuse it."""
+    from gpupathtracer_tpu_torch.grad import edges
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    e_nat, e_nat_s = timed(lambda: edges.build_edge_table(scene))
+    e_py, e_py_s = timed(lambda: edges.build_edge_table(scene, native=False))
+    b_nat, b_nat_s = timed(lambda: native.build_bvh_native(scene))
+    b_py, b_py_s = timed(lambda: renderer._cached_bvh(scene))
+    edges_equal = all(np.array_equal(getattr(e_nat, f), getattr(e_py, f)) for f in ("tri1", "corner", "tri2", "two_sided"))
+    bvh_equal = all(torch.equal(getattr(b_nat, f), getattr(b_py, f))
+                    for f in ("box_lo", "box_hi", "first", "count", "miss", "tri_order"))
+    row = {"triangles": scene.num_triangles, "edges": e_nat.num_edges, "bvh_nodes": b_nat.num_nodes,
+           "edge_table_native_s": e_nat_s, "edge_table_python_s": e_py_s, "bvh_native_s": b_nat_s,
+           "bvh_python_s": b_py_s, "edge_tables_equal": edges_equal, "bvhs_equal": bvh_equal,
+           "edge_table_python_s_pr8": 6.25}
+    print(f"host builders, config6 stand-in (bar: native arrays equal the Python builders'): {json.dumps(row)}",
+          flush=True)
+    if not (edges_equal and bvh_equal):
+        raise AssertionError(f"native and Python builders disagree: {row}")
+    return row
+
+
+def phase_bvh_frame(label: str, scene, camera, settings, frames: int = 3, profiled: bool = True) -> dict:
+    """The bvh route (render_frame with intersector "bvh": the host-built
+    BVH and the batched traversal, no kernel): launches of one frame (the
+    counts set to 0 just before it; none expected), a finite image within
+    the image bar of the kernel route's image with the same seed, the
+    median frame time of each route over ``frames`` frames in turns, and,
+    if ``profiled``, one profiled bvh frame at spp 1 (device busy and idle
+    share; the traversal's ~50,000 small launches a sample make the
+    profiler's own bookkeeping cost tens of seconds at full spp)."""
+    device = scene.v0.device
+    st = dataclasses.replace(settings, intersector="bvh")
+    _reset_launches()
+    img = render_frame(scene, camera, st)
+    _sync(device)
+    launches = _launch_counts()
+    row = image_diff(img, render_frame(scene, camera, settings))
+    times = {"bvh": [], "kernels": []}
+    for i in range(frames):
+        for name, s_ in (("kernels", settings), ("bvh", st)):
+            _sync(device)
+            t0 = time.perf_counter()
+            float(render_frame(scene, camera, s_, seed=1000 + i).sum())
+            times[name].append(time.perf_counter() - t0)
+    bvh = renderer._cached_bvh(scene)
+    frame_s, kernel_s = statistics.median(times["bvh"]), statistics.median(times["kernels"])
+    rays = settings.width * settings.height * settings.spp * settings.bounces
+    row.update(launches=launches, bvh_nodes=bvh.num_nodes, leaf_size=bvh.leaf_size, frame_s=frame_s,
+               frame_s_all=times["bvh"], rays_per_s=rays / frame_s, kernel_frame_s=kernel_s,
+               kernel_frame_s_all=times["kernels"], bvh_over_kernels=frame_s / kernel_s,
+               image_mean=img.mean().item())
+    if profiled:
+        row.update(profile_spp=1, profile=profile_frame(
+            lambda: float(render_frame(scene, camera, dataclasses.replace(st, spp=1), seed=999).sum())))
+    expect = expect_launches()
+    print(f"bvh frame, {label} {settings.width}x{settings.height} spp {settings.spp} bounces {settings.bounces} "
+          f"(bar: the image bar against the kernel route; launches {expect}): {json.dumps(row)}", flush=True)
+    if not meets_image_bar(row) or launches != expect:
+        raise AssertionError(f"bvh frame {label}: {row}")
+    return row
+
+
+DIST_WORLD = 2
+DIST_JOIN_TIMEOUT_S = 600
+
+
+def _dist_expect(settings, n_scene: int, strategy: str, streamed: bool = False) -> dict:
+    """Per-rank launches of one distributed frame: every closest-hit call is
+    one search of the rank's shard (n_scene of them under "ring"); with one
+    scene shard the renderer's packs run as in a single process (with NEE,
+    K2 on the scan bounces' shadow rays). NEE is driven on one shard only."""
+    if settings.estimator == "naive":
+        k1, k2 = settings.spp * settings.bounces, 0
+    else:
+        assert n_scene == 1, "the distributed NEE phase runs on one scene shard"
+        k1, k2 = settings.spp * (settings.bounces + 1), settings.spp * (settings.bounces - 1)
+    k1 *= n_scene if strategy == "ring" else 1
+    if streamed:
+        return expect_launches(closest_hit_streamed=k1, occluded_streamed=k2)
+    return expect_launches(closest_hit=k1, occluded=k2)
+
+
+def _dist_frame(scene, camera, settings, mesh, strategy: str, ref, expect: dict, frames: int = 3,
+                plain_check: bool = False) -> dict:
+    """One distributed frame on this rank: launches (counts set to 0 just
+    before it), the image against the single-process frame (the image bar
+    and the count of differing pixels), and the median of ``frames``
+    frames with varied seeds, the ranks started together. With
+    ``plain_check`` the same distributed frame is rendered again through
+    the plain versions (intersector "plucker"), so the kernels are held to
+    them on this rank's own rays: ``plain_pixels_differ`` must be 0."""
+    import torch.distributed as dist
+
+    device = scene.v0.device
+    dist.barrier()
+    _reset_launches()
+    img = render_frame_distributed(scene, camera, settings, mesh, scene_strategy=strategy, device=device)
+    _sync(device)
+    row = {"launches": _launch_counts(), "expected_launches": expect, **image_diff(img, ref)}
+    if plain_check:
+        plain = render_frame_distributed(scene, camera, dataclasses.replace(settings, intersector="plucker"), mesh,
+                                         scene_strategy=strategy, device=device)
+        row["plain_pixels_differ"] = int((img != plain).any(dim=-1).sum())
+    times = []
+    for i in range(frames):
+        dist.barrier()
+        t0 = time.perf_counter()
+        float(render_frame_distributed(scene, camera, settings, mesh, seed=1000 + i, scene_strategy=strategy,
+                                       device=device).sum())
+        times.append(time.perf_counter() - t0)
+    row.update(frame_s=statistics.median(times), frame_s_all=times)
+    return row
+
+
+def dist_worker(rank: int, world: int, tmp: str, paths: dict, device_name: str) -> None:
+    """One rank of the distributed phases, two ranks on the one card under
+    gloo: the config 3 stand-in at full width on meshes 2x1 and 1x2 under
+    each strategy, the config 6 stand-in streamed on 1x2 (allgather), the
+    config 8 stand-in's NEE on 2x1, and one 2x1 fwd+bwd of the bench loss.
+    Each frame is held against the single-process frame that the parent
+    saved in ``tmp``; the rows go to ``tmp/rank<r>.json``. ``paths`` maps
+    "config3", "config6" and "config8" to their scene files."""
+    import torch.distributed as dist
+
+    from gpupathtracer_tpu_torch.parallel.mesh import make_mesh
+    from gpupathtracer_tpu_torch.parallel.multihost import init_distributed
+
+    device = torch.device(device_name)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+    init_distributed(init_method=f"file://{tmp}/store", world_size=world, rank=rank, backend="gloo", device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs = torch.load(os.path.join(tmp, "refs.pt"), map_location=device)
+    rows = {}
+    scene, camera, settings = load_scene_file(paths["config3"], device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    for n_data, n_scene in ((2, 1), (1, 2)):
+        mesh = make_mesh(n_data, n_scene)
+        for strategy in STRATEGIES:
+            rows[f"config3 naive {n_data}x{n_scene} {strategy}"] = _dist_frame(
+                scene, camera, settings, mesh, strategy, refs["config3"], _dist_expect(settings, n_scene, strategy),
+                plain_check=(n_data, n_scene, strategy) == (2, 1, "allgather"))
+    scene, camera, settings = load_scene_file(paths["config6"], device=device)
+    settings = dataclasses.replace(settings, spp=2)
+    rows["config6 streamed naive 1x2 allgather"] = _dist_frame(
+        scene, camera, settings, make_mesh(1, 2), "allgather", refs["config6"],
+        _dist_expect(settings, 2, "allgather", streamed=True))
+    del scene
+    scene, camera, settings = load_scene_file(paths["config8"], device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    mesh = make_mesh(2, 1)
+    rows["config8 nee 2x1"] = _dist_frame(scene, camera, settings, mesh, "allgather", refs["config8"],
+                                          _dist_expect(settings, 1, "allgather"), plain_check=True)
+    leaf, leaves = _leaf_scene(scene)
+    dist.barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss = render_frame_distributed(leaf, camera, settings, mesh, device=device).mean()
+    grads = torch.autograd.grad(loss, leaves)
+    float(grads[0].reshape(-1)[0])
+    row = {"launches": _launch_counts(), "expected_launches": _dist_expect(settings, 1, "allgather"),
+           "fwd_bwd_s": time.perf_counter() - t0, "loss": loss.item(), "loss_single": refs["config8_loss"].item()}
+    for name, g, want in zip(("v0", "albedo"), grads, refs["config8_grads"]):
+        diff = (g - want).abs()
+        row[name] = {"max_abs_g": want.abs().max().item(), "max_abs_diff": diff.max().item(),
+                     "outside_tolerance": int((diff > GRAD_RTOL * want.abs()
+                                               + GRAD_ATOL_OF_MAX * want.abs().max()).sum()),
+                     "finite": bool(torch.isfinite(g).all())}
+    rows["config8 nee 2x1 fwd+bwd"] = row
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dist.destroy_process_group()
+
+
+def phase_distributed(device) -> dict:
+    """The distributed renderer on the one card: two processes under gloo
+    (NCCL refuses two ranks on one card), each frame against the
+    single-process frame of this process (exact, else the image bar with
+    the count of differing pixels), launches per rank as _dist_expect
+    says, frame times per rank; the 2x1 gradient within GRAD_RTOL of the
+    single-process one. Every process started here is joined or killed."""
+    paths = {"config3": SCENE, "config6": STREAM_SCENE, "config8": NEE_SCENE}
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {}
+        for key, spp in (("config3", 4), ("config6", 2), ("config8", 4)):
+            scene, camera, settings = load_scene_file(paths[key], device=device)
+            settings = dataclasses.replace(settings, spp=spp)
+            refs[key] = render_frame(scene, camera, settings)
+            if key == "config8":
+                leaf, leaves = _leaf_scene(scene)
+                loss, grads = bench_loss_grads(leaf, leaves, camera, settings)
+                refs["config8_loss"], refs["config8_grads"] = loss.detach(), [g.detach() for g in grads]
+        torch.save(refs, os.path.join(tmp, "refs.pt"))
+        del refs, scene
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(dist_worker, args=(DIST_WORLD, tmp, paths, str(device)),
+                                                    nprocs=DIST_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1):
+                if time.perf_counter() - t0 > DIST_JOIN_TIMEOUT_S:
+                    raise TimeoutError(f"distributed ranks still running after {DIST_JOIN_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = {}
+    for label in ranks[0]:
+        row = {"launches": ranks[0][label]["launches"], "by_rank": [rk[label] for rk in ranks]}
+        out[label] = row
+        ok = all(rk[label]["launches"] == rk[label]["expected_launches"] for rk in ranks)
+        if "fwd+bwd" in label:
+            ok = ok and all(rk[label][n]["outside_tolerance"] == 0 and rk[label][n]["finite"]
+                            for rk in ranks for n in ("v0", "albedo"))
+            bar = f"launches as expected; gradients outside_tolerance = 0 at rtol {GRAD_RTOL}, atol {GRAD_ATOL_OF_MAX}*max|g|"
+        else:
+            ok = ok and all(meets_image_bar(rk[label]) and rk[label].get("plain_pixels_differ", 0) == 0 for rk in ranks)
+            bar = "launches as expected; exact (pixels_differ = 0) or the image bar against the single-process frame"
+            bar += "; plain_pixels_differ = 0 against the plain versions" if "plain_pixels_differ" in ranks[0][label] else ""
+        print(f"distributed, {label}, {DIST_WORLD} ranks on one card, gloo (bar: {bar}): {json.dumps(row)}", flush=True)
+        if not ok:
+            raise AssertionError(f"distributed {label}: {row}")
+    print(f"distributed: {DIST_WORLD} processes, wall {wall:.1f} s with their start", flush=True)
+    return out
+
+
 def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
     """The summary entry of one kernel over its checks at main-path shapes."""
     b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
@@ -1298,13 +1598,16 @@ def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> di
 
 def main() -> None:
     t_start = time.perf_counter()
+    elapsed = lambda label: print(f"elapsed: {time.perf_counter() - t_start:.1f} s at {label}", flush=True)
     phase_device()
     device = torch.device("cuda")
     # The parity bars need f32 products, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phase_native_build()
 
+    elapsed("naive path")
     # The naive path (config 3 stand-in).
     scene, camera, settings = load_scene_file(SCENE, device=device)
     settings = dataclasses.replace(settings, spp=4)  # the bench's spp
@@ -1317,6 +1620,14 @@ def main() -> None:
         phase_kernel_check("camera rays", o, d, packed),
         phase_kernel_check("bounce-1 rays", o2, d2, packed2),
     ]
+    # What a rank of a 1x2 scene axis searches: the same rays against scene
+    # shard 1 of 2, packed at the one width the sharded frames use.
+    shard3 = pack_scene(scene_shard(scene, 2, 1), tri_block=settings.tri_block)
+    k1_shard_rows = [
+        phase_kernel_check("camera rays, scene shard 1 of 2", o, d, shard3, plain_reps=PLAIN_REPS_UNREPORTED),
+        phase_kernel_check("bounce-1 rays, scene shard 1 of 2", o2, d2, shard3, plain_reps=PLAIN_REPS_UNREPORTED),
+    ]
+    del shard3
     phase_image_check(scene, camera, settings, size=256, spp=2)
     naive_expect = expect_launches(closest_hit=settings.spp * settings.bounces)
     naive = phase_full_frame("naive", scene, camera, settings, naive_expect, profiled=True)
@@ -1330,6 +1641,7 @@ def main() -> None:
     glass = phase_glass_mirror(device, naive["frame_s"])
     live = phase_live_and_view(device)
 
+    elapsed("NEE path")
     # The NEE path (config 8 stand-in).
     scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
     settings = dataclasses.replace(settings, spp=4)
@@ -1355,10 +1667,12 @@ def main() -> None:
         "occluded", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)", occluded,
         occluded_reference,
         nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference", mask_mode=True), exact=True,
+        plain_reps=PLAIN_REPS_UNREPORTED,
     )
     nee_modes = phase_compact_modes("config8 nee", scene, camera, settings, nee_expect(settings))
     del scene, packed, packed2
 
+    elapsed("streamed path")
     # The streamed path (config 6 stand-in): both packs past the budget.
     scene, camera, settings = load_scene_file(STREAM_SCENE, device=device)
     settings = dataclasses.replace(settings, spp=2)  # the bench's spp for config 6
@@ -1371,6 +1685,15 @@ def main() -> None:
         phase_streamed_check("camera rays", o, d, packed),
         phase_streamed_check("bounce-1 rays", o2, d2, packed2),
     ]
+    shard6 = pack_scene(scene_shard(scene, 2, 1), tri_block=settings.tri_block)
+    phase_live_zeros("config6 scene shard 1 of 2", shard6)
+    k3_shard_rows = [
+        phase_streamed_check("camera rays, scene shard 1 of 2", o, d, shard6, rows_exact=True,
+                             plain_reps=PLAIN_REPS_UNREPORTED),
+        phase_streamed_check("bounce-1 rays, scene shard 1 of 2", o2, d2, shard6, rows_exact=True,
+                             plain_reps=PLAIN_REPS_UNREPORTED),
+    ]
+    del shard6
     split = [
         phase_split("camera rays", o, d, packed, k3_rows[0]),
         phase_split("bounce-1 rays", o2, d2, packed2, k3_rows[1]),
@@ -1389,7 +1712,7 @@ def main() -> None:
         "occluded_streamed", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)",
         occluded_streamed, occluded_streamed_reference,
         nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference", mask_mode=True),
-        exact=True,
+        exact=True, plain_reps=PLAIN_REPS_UNREPORTED,
     )
     for st in (settings, nee_settings):
         phase_image_check(scene, camera, st, size=128, spp=2)
@@ -1422,6 +1745,7 @@ def main() -> None:
     phase_light_cdf(device)
     print(json.dumps({"split": split}), flush=True)
 
+    elapsed("config 5 gradients and trainer")
     # The differentiable path on config 5: gradients through K1 against the
     # plain versions at the trainer's shapes, the trainer, the pack refresh.
     settings, camera, make_scene, mesh = _demo_setup(device=device)
@@ -1433,6 +1757,7 @@ def main() -> None:
     trainer = phase_trainer(device)
     phase_pack_refresh(device)
 
+    elapsed("boundary gradient")
     # The boundary term (grad/edges.py) and what it brought: primary
     # silhouettes on config 3, primary and shadow silhouettes on config 8,
     # the edge hierarchy on config 6's streamed packs, the demos and their
@@ -1443,7 +1768,24 @@ def main() -> None:
     demos = phase_edge_demos(device)
     scene, camera, settings = load_scene_file(SCENE, device=device)
     threefry_row = phase_threefry_frame(scene, camera, dataclasses.replace(settings, spp=4))
+
+    elapsed("bvh, host builders")
+    # The BVH route, the host builders and the distributed renderer.
+    bvh3 = phase_bvh_frame("config3 stand-in", scene, camera, dataclasses.replace(settings, spp=4))
+    elapsed("host builders")
+    scene, camera, settings = load_scene_file(STREAM_SCENE, device=device)
+    phase_host_builders(scene)
+    elapsed("bvh config 6")
+    # A diagnostic, cut from 800x800 spp 2 to 400x400 spp 1, one timed frame
+    # a route and no profile: the bvh frame is some 30x the K3 frame.
+    small = dataclasses.replace(settings, width=400, height=400, spp=1)
+    bvh6 = phase_bvh_frame("config6 stand-in (reduced)", scene, dataclasses.replace(camera, width=400, height=400),
+                           small, frames=1, profiled=False)
     del scene
+    elapsed("distributed")
+    distributed = phase_distributed(device)
+    print(json.dumps({"scene_shard_checks": {"closest_hit": k1_shard_rows, "closest_hit_streamed": k3_shard_rows}}),
+          flush=True)
 
     paths = {"naive": naive, "nee": nee, "streamed naive": streamed, "streamed nee": streamed_nee,
              "fwd+bwd naive": naive_bwd, "fwd+bwd nee": nee_bwd, "fwd+bwd streamed naive": streamed_bwd,
@@ -1455,7 +1797,8 @@ def main() -> None:
              "edge gradient config3": edge3, "edge gradient config8": edge8, "edge hierarchy config6": hier6,
              "silhouette demo": demos["silhouette"], "camera demo": demos["camera"],
              "cli invert silhouette": demos["cli silhouette"], "cli invert camera": demos["cli camera"],
-             "threefry frame": threefry_row}
+             "threefry frame": threefry_row, "bvh config3": bvh3, "bvh config6 reduced": bvh6,
+             **{f"distributed {k}": v for k, v in distributed.items()}}
     for label, rows in (("naive", naive_modes), ("nee", nee_modes), ("streamed naive", streamed_modes),
                         ("streamed naive unsorted", streamed_modes_unsorted)):
         for mode in ("mask", "hybrid"):

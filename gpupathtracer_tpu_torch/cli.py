@@ -144,7 +144,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--aov", default=None, choices=["radiance", "normal", "normal_unit"])
     pr.add_argument("--gamma", type=float, default=None)
     pr.add_argument("--estimator", default=None, choices=["naive", "nee", "mis"])
-    pr.add_argument("--intersector", default=None, choices=["auto", "pallas", "plucker"])
+    pr.add_argument("--intersector", default=None, choices=["auto", "pallas", "plucker", "brute"])
     pr.add_argument("--checkpoint", default=None, help="film checkpoint path (.npz); resumes if present")
     pr.add_argument("--chunk-spp", type=int, default=None, help="progressive chunk size")
     pr.add_argument("--metrics", default=None, help="JSONL metrics stream path")

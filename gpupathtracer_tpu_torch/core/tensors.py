@@ -1,11 +1,13 @@
-"""Moving the port's dataclasses of tensors between devices, and the
-clamps and absolute value of the differentiable path with the JAX package's
-gradients at their kinks."""
+"""Moving the port's dataclasses of tensors between devices, the cache of
+values made from tensors (packs, BVHs), and the clamps and absolute value
+of the differentiable path with the JAX package's gradients at their
+kinks."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import torch
 
@@ -33,6 +35,36 @@ def to_device(obj, device):
         elif dataclasses.is_dataclass(v):
             changes[f.name] = to_device(v, device)
     return dataclasses.replace(obj, **changes)
+
+
+class TensorCache:
+    """A small LRU of values made from tensors, keyed on the tensors'
+    identity and an extra key. An entry holds weakrefs to the tensors
+    (against id() reuse after they are freed) and their version counters,
+    so an in-place edit of any of them (an optimizer step on a parameter,
+    ``add_`` under ``no_grad``) is a miss. An edit made through ``.data``
+    bypasses the counter, and the cache cannot see it."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._entries: dict[tuple, tuple] = {}
+
+    def get(self, tensors, extra: tuple, make):
+        """The value cached for ``tensors`` and ``extra``, else ``make()``."""
+        key = tuple(id(x) for x in tensors) + extra
+        versions = tuple(x._version for x in tensors)
+        entry = self._entries.pop(key, None)
+        if entry is not None and entry[1] == versions and all(r() is x for r, x in zip(entry[0], tensors)):
+            self._entries[key] = entry  # re-insert: most recently used last
+            return entry[2]
+        value = make()
+        self._entries[key] = (tuple(weakref.ref(x) for x in tensors), versions, value)
+        while len(self._entries) > self.size:
+            self._entries.pop(next(iter(self._entries)))
+        return value
+
+    def clear(self) -> None:
+        self._entries.clear()
 
 
 # torch.clamp passes the whole gradient to x where x equals the bound, and

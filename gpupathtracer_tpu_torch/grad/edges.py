@@ -112,15 +112,21 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def build_edge_table(scene: TriangleScene) -> EdgeTable:
+def build_edge_table(scene: TriangleScene, native: bool = True) -> EdgeTable:
     """Hash quantized endpoint pairs → unique edges and adjacency.
 
     Works on triangle soups (the scene format): duplicated vertices merge by
     position quantization (1e-5 of the bbox diagonal). Non-manifold extras
-    (more than 2 faces on an edge) keep the first two faces. The Python
-    loop of the JAX package, with its dict insertion order, so the arrays
-    are the JAX package's.
+    (more than 2 faces on an edge) keep the first two faces. ``native=True``
+    runs the C++ builder (``native.build_edge_table_native``), and raises
+    with the compiler's message when it cannot be built; ``native=False``
+    runs the Python loop of the JAX package, with its dict insertion order.
+    Both give the JAX package's arrays.
     """
+    if native:
+        from gpupathtracer_tpu_torch import native as native_mod
+
+        return native_mod.build_edge_table_native(scene)
     v0, e1, e2 = _host(scene.v0), _host(scene.e1), _host(scene.e2)
     valid = _host(scene.valid)
     two = _host(scene.two_sided)

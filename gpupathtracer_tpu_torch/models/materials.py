@@ -142,3 +142,10 @@ def textured_albedo(base, tex_kind, tex_id, checker_color, checker_scale, uv, te
     c11 = texel(b + y1 * tw + x1)
     bil = c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) + c10 * (1 - du) * dv + c11 * du * dv
     return torch.where((tex_kind == TEX_IMAGE)[:, None], bil, out)
+
+
+def no_hit_color(device="cuda") -> torch.Tensor:
+    """The reference's miss color, pink (float32 (3,), on ``device``). The
+    reference never writes it (misses stay black); a render config's
+    ``background`` picks either behaviour."""
+    return torch.tensor([1.0, 0.75, 0.79], dtype=torch.float32, device=resolve_device(device))

@@ -241,3 +241,31 @@ def build_scene(
             for k, v in out.items()
         }
     return TriangleScene(materials=materials, textures=textures, **out)
+
+
+def reference_scene(scene_resources: str | None = None) -> tuple[list[GeometrySpec], list[dict]]:
+    """The reference main()'s hardcoded scene, as the JAX package builds it:
+    rocketman.obj rotated (0, 90, 180) and four unit planes scaled 5x at
+    z = ±2.5 and y = ±2.5, sharing one red diffuse material, with the
+    emitter wired to the +z plane. The mesh is read from
+    ``scene_resources`` (default: the config loader's asset directory).
+    Returns (specs, materials) for ``build_scene``."""
+    import os
+
+    if scene_resources is None:
+        from gpupathtracer_tpu_torch.utils.config import DEFAULT_ASSET_DIRS
+
+        scene_resources = DEFAULT_ASSET_DIRS[0]
+    mesh = mesh_spec(os.path.join(scene_resources, "rocketman.obj"), rotation_deg=(0.0, 90.0, 180.0), mat_id=0)
+    specs = [
+        mesh,
+        plane_spec((0.0, 0.0, 2.5), (0.0, 0.0, 0.0), (5.0, 5.0, 5.0), mat_id=1),
+        plane_spec((0.0, 0.0, -2.5), (0.0, 0.0, 0.0), (5.0, 5.0, 5.0), mat_id=0),
+        plane_spec((0.0, -2.5, 0.0), (90.0, 0.0, 0.0), (5.0, 5.0, 5.0), mat_id=0),
+        plane_spec((0.0, 2.5, 0.0), (90.0, 0.0, 0.0), (5.0, 5.0, 5.0), mat_id=0),
+    ]
+    materials = [
+        {"type": "diffuse", "albedo": (1.0, 0.0, 0.0)},
+        {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0},
+    ]
+    return specs, materials

@@ -8,6 +8,11 @@ shared library in ``gpupathtracer_tpu_torch/build/`` at first use, and the
 library is loaded with ``ctypes``. The file name carries a hash of the
 source, the shared headers and the flags, so an edit rebuilds. Nothing is
 built or loaded when this module is imported.
+
+The host library ``csrc/firefly_native.cpp`` (the OBJ parser, BVH builder
+and edge-table builder of ``native.py``) is built the same way by the host
+C++ compiler (``build_host``), with ``-ffp-contract=off`` so that no sum is
+fused into a multiply-add the Python builders do not make.
 """
 
 from __future__ import annotations
@@ -44,6 +49,13 @@ KERNELS = {
 # a launch shape, -1 if the kernel does not take it. It takes the launch's
 # ray_tile, groups (and rays_per_thread) ints; here, their count.
 OCCUPANCY = {"closest_hit": 3, "occlusion": 2, "closest_hit_streamed": 3, "occlusion_streamed": 2}
+
+
+HOST_SOURCE = os.path.join(CSRC, "firefly_native.cpp")
+HOST_CXX = "c++"
+# No -march=native: the library's name keys on the source and the flags,
+# not on the CPU, and the build directory may be carried to another host.
+HOST_CXX_FLAGS = ["-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
 
 def source(name: str) -> str:
@@ -123,3 +135,34 @@ def library(name: str) -> ctypes.CDLL:
     occupancy.argtypes = [_I] * OCCUPANCY[name]
     occupancy.restype = ctypes.c_int
     return lib
+
+
+def host_library_path() -> str:
+    h = hashlib.sha256(" ".join([HOST_CXX, *HOST_CXX_FLAGS]).encode())
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libfirefly_native-{h.hexdigest()[:16]}.so")
+
+
+def build_host() -> str:
+    """Compile ``csrc/firefly_native.cpp`` with the host C++ compiler into
+    ``BUILD_DIR`` (to a temporary name, then moved into place, so processes
+    building at once never load a partial file). Returns the library's path;
+    raises RuntimeError with the compiler's message if the build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run([HOST_CXX, *HOST_CXX_FLAGS, "-o", tmp, HOST_SOURCE],
+                                  capture_output=True, text=True, timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"{HOST_CXX} could not be run to build {HOST_SOURCE}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{HOST_CXX} {HOST_SOURCE} failed with code {proc.returncode}:\n{proc.stderr}")
+        path = host_library_path()
+        os.replace(tmp, path)
+        return path
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)

@@ -34,22 +34,36 @@ def _dot(a, b):
     return (a * b).sum(dim=-1)
 
 
+def _mt(o, d, v0, e1, e2, two_sided, t_min: float):
+    """Möller–Trumbore on broadcast shapes: o, d (..., 3) against v0, e1,
+    e2 (..., 3) and two_sided (...). Returns (t, ok) of the broadcast shape."""
+    pvec = torch.linalg.cross(d, e2)
+    det = _dot(e1, pvec)
+    ok_det = torch.where(two_sided, det.abs() >= EPSILON, det >= EPSILON)
+    inv_det = torch.where(det.abs() > 0, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tvec = o - v0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = torch.linalg.cross(tvec, e1)
+    v = _dot(d, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    ok = ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
+    return t, ok
+
+
 def mt_block(o, d, v0, e1, e2, two_sided, t_min: float = EPSILON):
     """Möller–Trumbore for all (ray, triangle) pairs of a block.
 
     o, d: (R, 3); v0, e1, e2: (B, 3); two_sided: (B,). Returns (t, ok): (R, B).
     """
-    pvec = torch.linalg.cross(d[:, None, :], e2[None, :, :])
-    det = _dot(e1[None], pvec)
-    ok_det = torch.where(two_sided[None, :], det.abs() >= EPSILON, det >= EPSILON)
-    inv_det = torch.where(det.abs() > 0, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
-    tvec = o[:, None, :] - v0[None, :, :]
-    u = _dot(tvec, pvec) * inv_det
-    qvec = torch.linalg.cross(tvec, e1[None, :, :])
-    v = _dot(d[:, None, :], qvec) * inv_det
-    t = _dot(e2[None], qvec) * inv_det
-    ok = ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
-    return t, ok
+    return _mt(o[:, None, :], d[:, None, :], v0[None], e1[None], e2[None], two_sided[None, :], t_min)
+
+
+def mt_pairs(o, d, v0, e1, e2, two_sided, t_min: float = EPSILON):
+    """Möller–Trumbore for each ray against its own S triangles.
+
+    o, d: (R, 3); v0, e1, e2: (R, S, 3); two_sided: (R, S). Returns (t, ok): (R, S).
+    """
+    return _mt(o[:, None, :], d[:, None, :], v0, e1, e2, two_sided, t_min)
 
 
 def intersect_brute(

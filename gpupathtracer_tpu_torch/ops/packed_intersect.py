@@ -34,11 +34,10 @@ elsewhere (one carried from the JAX package) once it has checked the zeros.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import torch
 
-from gpupathtracer_tpu_torch.core.tensors import to_device
+from gpupathtracer_tpu_torch.core.tensors import TensorCache, to_device
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
@@ -166,13 +165,9 @@ def _morton_codes(centroids: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -
     return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
 
 
-# Pack cache: repeated frames pack the same scene tensors. Keyed on the
-# identity of the five tensors the pack reads plus tri_block; an entry holds
-# weakrefs (against id() reuse after the tensors are freed) and the tensors'
-# version counters, so an in-place edit of any of them (an optimizer step on
-# a parameter, ``add_`` under ``no_grad``) is a miss. Small LRU.
-_PACK_CACHE: dict[tuple, tuple] = {}
-_PACK_CACHE_SIZE = 4
+# Pack cache: repeated frames pack the same scene tensors; keyed on the five
+# tensors the pack reads and tri_block.
+_PACK_CACHE = TensorCache(size=4)
 
 
 def _pack_cache_fields(scene: TriangleScene):
@@ -189,35 +184,30 @@ def pack_scene(scene: TriangleScene, tri_block: int = 512) -> PackedScene:
     searches are discrete, and ``resolve_hits`` re-derives the hit
     attributes differentiably from the scene.
 
-    Cached on the identity and the version counter of the scene's tensors.
-    ``torch.optim`` steps a parameter in place through the parameter itself,
-    which bumps its version, so the next frame repacks; an edit made through
-    ``.data`` bypasses the counter, and the cache cannot see it.
+    Cached on the identity and the version counter of the scene's tensors
+    (``core.tensors.TensorCache``). ``torch.optim`` steps a parameter in
+    place through the parameter itself, which bumps its version, so the
+    next frame repacks; an edit made through ``.data`` bypasses the
+    counter, and the cache cannot see it.
     """
-    fields = _pack_cache_fields(scene)
-    key = tuple(id(x) for x in fields) + (tri_block,)
-    versions = tuple(x._version for x in fields)
-    entry = _PACK_CACHE.pop(key, None)
-    if entry is not None and entry[1] == versions and all(r() is f for r, f in zip(entry[0], fields)):
-        _PACK_CACHE[key] = entry  # re-insert: most recently used last
-        return entry[2]
-    v0, e1, e2 = (x.detach() for x in fields[:3])
-    orig = torch.nonzero(scene.valid).flatten()
-    flip = torch.nonzero(scene.two_sided & scene.valid).flatten()
-    a = torch.cat([v0[orig], v0[flip]])
-    b = torch.cat([v0[orig] + e1[orig], v0[flip] + e2[flip]])
-    c = torch.cat([v0[orig] + e2[orig], v0[flip] + e1[flip]])
-    packed = _pack_rows(a, b, c, torch.cat([orig, flip]), tri_block)
-    _PACK_CACHE[key] = (tuple(weakref.ref(x) for x in fields), versions, packed)
-    while len(_PACK_CACHE) > _PACK_CACHE_SIZE:
-        _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
-    return packed
+
+    def make():
+        v0, e1, e2 = (x.detach() for x in (scene.v0, scene.e1, scene.e2))
+        orig = torch.nonzero(scene.valid).flatten()
+        flip = torch.nonzero(scene.two_sided & scene.valid).flatten()
+        a = torch.cat([v0[orig], v0[flip]])
+        b = torch.cat([v0[orig] + e1[orig], v0[flip] + e2[flip]])
+        c = torch.cat([v0[orig] + e2[orig], v0[flip] + e1[flip]])
+        return _pack_rows(a, b, c, torch.cat([orig, flip]), tri_block)
+
+    return _PACK_CACHE.get(_pack_cache_fields(scene), (tri_block,), make)
 
 
 def _pack_rows(a2, b2, c2, tri_map, tri_block: int) -> PackedScene:
     dev = a2.device
     m = a2.shape[0]
-    pad = (-m) % tri_block
+    # A scene with no live row (a scene shard of padding) packs one dead block.
+    pad = (-m) % tri_block if m else tri_block
     live_row = torch.ones((m + pad,), dtype=torch.bool, device=dev)
     if pad:
         z = torch.zeros((pad, 3), dtype=torch.float32, device=dev)

@@ -33,8 +33,11 @@ gradients.
 The ``brute`` intersector runs the Möller–Trumbore oracle
 (``ops/intersect.py``) over the unpacked scene, in triangle blocks of
 ``tri_block`` and ray chunks of ``ray_chunk``; its shadow rays threshold its
-closest hit. ``rng`` picks the PCG or the threefry sampler
-(``ops/sampling.py``). The ``bvh`` intersector raises NotImplementedError.
+closest hit. The ``bvh`` intersector is ``render_frame``'s alone: it
+builds the BVH and hands ``accel/bvh.intersect_bvh`` in as a custom
+intersect function; ``make_intersect_fn`` raises ValueError for it, as the
+JAX package's does. ``rng`` picks the PCG or the threefry sampler
+(``ops/sampling.py``).
 """
 
 from __future__ import annotations
@@ -68,10 +71,11 @@ RAY_OFFSET = 1e-4
 # Intersector names: "auto" and "pallas" run the kernels (their plain
 # versions on CPU tensors); "plucker" runs the plain PyTorch versions on any
 # device, as the JAX package's "plucker" runs its plain jnp product; "brute"
-# runs the Möller–Trumbore oracle, which needs no pack.
+# runs the Möller–Trumbore oracle, which needs no pack; "bvh" needs no pack
+# either and takes a caller's intersect function (render_frame's).
 _KERNEL_INTERSECTORS = ("auto", "pallas")
 _PLAIN_INTERSECTORS = ("plucker",)
-_UNPACKED_INTERSECTORS = ("brute",)
+_UNPACKED_INTERSECTORS = ("brute", "bvh")
 _ESTIMATORS = ("naive", "nee", "mis")
 _SORT_KEYS = ("dir", "origin")
 _COMPACT_MODES = ("permute", "mask", "hybrid")
@@ -102,9 +106,7 @@ class IntegratorOptions:
 
 
 def check_supported(options: IntegratorOptions) -> None:
-    """Raise NotImplementedError for options outside the ported path."""
-    if options.intersector == "bvh":
-        raise NotImplementedError("the bvh intersector is not ported to gpupathtracer_tpu_torch yet")
+    """Raise ValueError for unknown option values."""
     if options.intersector not in _KERNEL_INTERSECTORS + _PLAIN_INTERSECTORS + _UNPACKED_INTERSECTORS:
         raise ValueError(f"unknown intersector {options.intersector!r}")
     if options.rng not in SAMPLERS:
@@ -124,8 +126,12 @@ def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=N
     (``make_sorted_intersect``); with compaction on the sort is part of the
     compaction permutation instead. The brute intersector searches the
     scene itself (no pack, no sort); its callers mask the lanes that are
-    not alive."""
+    not alive. The bvh intersector has none of its own and raises
+    ValueError, as the JAX package's ``make_intersect_fn`` does."""
     check_supported(options)
+    if options.intersector == "bvh":
+        raise ValueError("intersector 'bvh' has no intersect function of its own: render_frame builds the BVH "
+                         "and passes intersect_bvh in, and no other path takes it (as in the JAX package)")
     if options.intersector in _UNPACKED_INTERSECTORS:
         return lambda o, d, alive=None: intersect_brute(
             o, d, scene, tri_block=options.tri_block, ray_chunk=options.ray_chunk

@@ -7,16 +7,20 @@ primary rays and traces paths; the frame is the mean over samples. The
 frame is differentiable (see ``render_frame``). The normal AOVs take one
 closest-hit search of the unjittered camera rays. ``render_samples`` sums
 the radiance over a range of global sample ids, the unit of progressive
-and checkpointed rendering.
+and checkpointed rendering. ``intersector="bvh"`` builds the flattened BVH
+on the host (``accel/bvh.py``, cached like the packs) and renders with its
+traversal; ``render`` returns the frame as a host numpy array.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from gpupathtracer_tpu_torch.core.tensors import resolve_device
+from gpupathtracer_tpu_torch.accel.bvh import build_bvh, intersect_bvh
+from gpupathtracer_tpu_torch.core.tensors import TensorCache, resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays, generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
@@ -130,7 +134,7 @@ def _prepare(scene, camera, settings, device):
     camera = camera.to(device)
     settings = narrow_settings(scene, settings)
     check_supported(_integrator_options(settings))
-    if settings.intersector == "brute":  # searches the scene itself
+    if settings.intersector in ("brute", "bvh"):  # search the scene or its BVH, no pack
         return scene, camera, settings, None, None
     packed = packed_intersect.pack_scene(scene, tri_block=settings.tri_block)  # detached
     packed2 = None
@@ -164,20 +168,30 @@ def render_frame(
     The packs are cached on the identity and version of the scene's
     tensors, so a scene that already lives on ``device`` is packed once
     across frames and again after an in-place edit; a scene moved here is
-    packed again on every call."""
+    packed again on every call.
+
+    ``intersector="bvh"`` searches the scene's BVH (``_cached_bvh``, built on
+    the host and cached as the packs are) with ``intersect_bvh`` for every
+    closest hit and every shadow ray (thresholded), as the JAX package's
+    ``render_frame`` does; no kernel runs."""
     device = resolve_device(device)
     scene, camera, settings, packed, packed2 = _prepare(scene, camera, settings, device)
     h, w = settings.height, settings.width
+    intersect_fn = None
+    if settings.intersector == "bvh":
+        bvh = _cached_bvh(scene)
+        intersect_fn = lambda o, d, alive=None: intersect_bvh(o, d, scene, bvh)
     if settings.aov != "radiance":
         o, d = generate_rays(camera)
         opts = _integrator_options(settings)
         color = normal_aov(scene, o, d, opts, reference_parity=settings.aov == "normal",
-                           intersect_fn=make_intersect_fn(scene, opts, packed=packed))
+                           intersect_fn=intersect_fn or make_intersect_fn(scene, opts, packed=packed))
         return check_frame(color.reshape(h, w, 3), "render_frame")
     pixel_idx = torch.arange(h * w, device=device)
     key_data = prng_key_data(settings.seed if seed is None else seed)
     film_sum = accumulate_radiance(
-        scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2
+        scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2,
+        intersect_fn=intersect_fn,
     )
     return check_frame((film_sum / settings.spp).reshape(h, w, 3), "render_frame")
 
@@ -210,12 +224,14 @@ def render_samples(
 
 
 def accumulate_radiance(
-    scene, camera, pixel_idx, settings, key_data, packed, packed_secondary=None, sample_start=0, num_samples=None
+    scene, camera, pixel_idx, settings, key_data, packed, packed_secondary=None, sample_start=0, num_samples=None,
+    intersect_fn=None,
 ):
     """Sum of the radiance of the given pixels over global samples
     ``[sample_start, sample_start + num_samples)`` (all ``settings.spp`` by
     default). Sample keys depend only on (seed, pixel id, sample id), so any
-    split of the pixels or of the samples gives the same per-sample values."""
+    split of the pixels or of the samples gives the same per-sample values.
+    ``intersect_fn`` replaces the packed search (``trace_paths``)."""
     opts = _integrator_options(settings)
     sampler = make_sampler(settings.rng)
     n = settings.spp if num_samples is None else num_samples
@@ -227,6 +243,21 @@ def accumulate_radiance(
             jitter_uv = sampler.uniform(sampler.fold(keys, 0xA11A), 2)
         o, d = generate_rays_for_pixels(camera, pixel_idx, jitter_uv)
         film_sum = film_sum + trace_paths(
-            scene, o, d, keys, opts, packed=packed, packed_secondary=packed_secondary
+            scene, o, d, keys, opts, intersect_fn=intersect_fn, packed=packed, packed_secondary=packed_secondary
         )
     return film_sum
+
+
+# BVH cache, as the pack cache: keyed on the four tensors the builder reads.
+_BVH_CACHE = TensorCache(size=4)
+
+
+def _cached_bvh(scene: TriangleScene):
+    """The scene's BVH (``accel.bvh.build_bvh`` at its default leaf size),
+    built once per geometry and again after an in-place edit."""
+    return _BVH_CACHE.get((scene.v0, scene.e1, scene.e2, scene.valid), (), lambda: build_bvh(scene))
+
+
+def render(scene: TriangleScene, camera: Camera, settings: RenderSettings, device="cuda") -> np.ndarray:
+    """``render_frame`` on ``device``, returned as a host numpy array."""
+    return render_frame(scene, camera, settings, device=device).detach().cpu().numpy()

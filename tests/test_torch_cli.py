@@ -342,3 +342,14 @@ def test_profiling_trace_timer_and_scope(tmp_path):
     assert stats["seconds"] > 0 and stats["rays_per_sec"] > 0
     trace = json.load(open(tmp_path / "prof" / "trace.json"))
     assert any(e.get("name") == "frame" for e in trace["traceEvents"])
+
+
+def test_cli_render_takes_the_brute_intersector(tmp_path):
+    """``--intersector brute`` (a choice of the JAX package's CLI): the PPM is
+    the brute-force render's."""
+    cfg = small_config(tmp_path, spp=1)
+    out = str(tmp_path / "brute.ppm")
+    assert _cpu("render", cfg, "--intersector", "brute", "--out", out) == 0
+    scene, camera, settings = t_load(cfg, device="cpu")
+    want = to_u8(render_frame(scene, camera, dataclasses.replace(settings, intersector="brute"), device="cpu"))
+    np.testing.assert_array_equal(read_ppm(out), want)

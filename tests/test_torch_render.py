@@ -1,8 +1,8 @@
 """The port's render path against the JAX package's ``render_frame``, plus the
 port's contracts: the any-hit search runs only where the JAX package runs
-its kernel, the BVH intersector (outside the port so far) raises, entry
-points default to the card and a missing GPU raises, and the port imports
-no JAX."""
+its kernel, the BVH intersector raises outside ``render_frame`` (as the
+JAX package's does), entry points default to the card and a missing GPU
+raises, and the port imports no JAX."""
 
 import dataclasses
 import os
@@ -179,14 +179,25 @@ def test_entry_points_default_to_the_card(entry):
         entry()
 
 
-def _render_with(change):
+def _bvh_outside_render_frame():
+    """The bvh intersector on the paths the JAX package refuses it on:
+    ``render_samples`` (and through it the progressive path) and the
+    renderer's own intersect function, which the edge traces use."""
     (_, _, _), (ts_, tc, tst) = _resized("config5_invert_target.toml", 8, 1)
-    return render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
+    tst = dataclasses.replace(tst, intersector="bvh")
+    from gpupathtracer_tpu_torch.render.renderer import _integrator_options, render_samples
+
+    with pytest.raises(ValueError, match="bvh"):
+        render_samples(ts_, tc, tst, 0, 1, device="cpu")
+    raise_bvh = make_intersect_fn(ts_, _integrator_options(tst))  # raises before returning
+    raise AssertionError(f"make_intersect_fn returned {raise_bvh}")
 
 
-@pytest.mark.parametrize("call", [lambda: _render_with({"intersector": "bvh"})], ids=["bvh"])
+@pytest.mark.parametrize("call", [_bvh_outside_render_frame], ids=["bvh"])
 def test_options_outside_the_slice_raise(call):
-    with pytest.raises(NotImplementedError):
+    """Since the BVH route was ported (render_frame, tests/test_torch_bvh.py),
+    what stays outside raises ValueError, as in the JAX package."""
+    with pytest.raises(ValueError, match="bvh"):
         call()
 
 

@@ -144,3 +144,26 @@ def test_camera_from_numpy_gives_jax_rays():
     to, td = t_rays(tc, torch.as_tensor(pixels))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=2e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=2e-6)
+
+
+def test_reference_scene_specs_match_jax(tmp_path):
+    """The reference main()'s scene (its mesh, rocketman.obj, is not in the
+    repo: a stand-in OBJ is written under the same name): the same specs
+    and materials as the JAX package's."""
+    (tmp_path / "rocketman.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nf 1 2 3\nf 1 3 4\n")
+    j_specs, j_mats = j_scene.reference_scene(str(tmp_path))
+    t_specs, t_mats = t_scene.reference_scene(str(tmp_path))
+    assert t_mats == j_mats and len(t_specs) == len(j_specs) == 5
+    for js_, ts_ in zip(j_specs, t_specs):
+        assert (ts_.mat_id, ts_.two_sided) == (js_.mat_id, js_.two_sided)
+        for f in ("vertices", "normals", "uvs", "position", "rotation_deg", "scale"):
+            _assert_field(f, getattr(js_, f), getattr(ts_, f))
+
+
+def test_no_hit_color_matches_jax():
+    from gpupathtracer_tpu.models.materials import no_hit_color as j_no_hit
+    from gpupathtracer_tpu_torch.models.materials import no_hit_color
+
+    got = no_hit_color(device="cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_no_hit()))
