@@ -171,6 +171,20 @@ slice of the scene's rows:
     each kernel per rank (counts set to 0 just before each frame) and the
     median frame time per rank; and one 2x1 fwd+bwd of the bench loss whose
     gradient is within rtol 1e-4 of the single-process one;
+and the last modules: the staged wavefront and the bench:
+42. the staged wavefront (parallel/pipeline.py), four processes on the one
+    card under gloo, one a stage (4 bounces, 4 microbatches): the config 3
+    stand-in at full width (800x800, spp 4; K1), the config 8 stand-in's
+    NEE with 4 bounces (512x512, spp 4; K1, K2) and the config 6 stand-in's
+    NEE, streamed (800x800, spp 1, 4 bounces; K3, K4), each against the
+    single-process render_frame and against its frame through the plain
+    versions (0 differing pixels each), with the launches of each kernel per
+    stage (the skip rule: M a sample for each search of the stage's bounce),
+    the frame seconds and the host seconds inside shift per rank;
+43. the bench (gpupathtracer_tpu_torch/bench.py): the CLI's benchmark verb
+    without --full on the config 3 stand-in (headline, fwd+bwd and the
+    spec-spp frame; the compact line must parse with value > 0 and name the
+    scene; K1 launches as its frames need), then _bench_kernel once;
 then the total wall time, a JSON line that summarises the four kernels, and
 a JSON result line last. Lines starting "elapsed:" mark where the time of
 the run goes.
@@ -184,7 +198,9 @@ in code (grad/inverse.py) or read from scenes/config5_invert_target.toml.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -196,7 +212,8 @@ import time
 import numpy as np
 import torch
 
-from gpupathtracer_tpu_torch import cli, native
+from gpupathtracer_tpu_torch import bench, cli, native
+from gpupathtracer_tpu_torch.bench import bench_leaves, bench_loss_grads
 from gpupathtracer_tpu_torch.grad.inverse import _demo_setup, camera_problem, run_inverse_demo, silhouette_problem
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
@@ -744,24 +761,6 @@ def phase_light_cdf(device) -> None:
         raise AssertionError(f"the light CDF differs between card and CPU in {differ} entries")
 
 
-def _leaf_scene(scene):
-    """The scene with ``v0`` and the material albedo as fresh leaves that
-    require a gradient: ``(scene, (v0, albedo))``."""
-    v0 = scene.v0.detach().clone().requires_grad_()
-    albedo = scene.materials.albedo.detach().clone().requires_grad_()
-    leaf = dataclasses.replace(scene, v0=v0, materials=dataclasses.replace(scene.materials, albedo=albedo))
-    return leaf, (v0, albedo)
-
-
-def bench_loss_grads(scene, leaves, camera, settings, seed=None):
-    """The bench's loss, mean(image) (``gpupathtracer_tpu/bench.py``), and
-    its gradients in (v0, albedo); zeros where no gradient reaches (the
-    naive estimator's v0)."""
-    loss = render_frame(scene, camera, settings, seed=seed).mean()
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss, [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-
-
 def _launch_counts() -> dict:
     return {name: k["counter"].launches for name, k in KERNELS.items()}
 
@@ -777,7 +776,7 @@ def phase_grad_check(label: str, scene, camera, settings, expect: dict) -> dict:
     same, so they agree within rtol 1e-4 and atol 1e-6*max|g| (only the
     order of the scatter-adds backwards differs). Also the kernel launches
     of the kernel run, as expected."""
-    leaf, leaves = _leaf_scene(scene)
+    leaf, leaves = bench_leaves(scene)
     _reset_launches()
     loss_k, g_k = bench_loss_grads(leaf, leaves, camera, settings)
     _sync(scene.v0.device)
@@ -810,7 +809,7 @@ def phase_fwd_bwd(label: str, scene, camera, settings, expect: dict, forward_s: 
     ratio to the forward frame's time of this run. The leaves are made once
     and not stepped, so the pack cache holds across the frames."""
     device = scene.v0.device
-    leaf, leaves = _leaf_scene(scene)
+    leaf, leaves = bench_leaves(scene)
     _sync(device)
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
@@ -1506,7 +1505,7 @@ def dist_worker(rank: int, world: int, tmp: str, paths: dict, device_name: str) 
     mesh = make_mesh(2, 1)
     rows["config8 nee 2x1"] = _dist_frame(scene, camera, settings, mesh, "allgather", refs["config8"],
                                           _dist_expect(settings, 1, "allgather"), plain_check=True)
-    leaf, leaves = _leaf_scene(scene)
+    leaf, leaves = bench_leaves(scene)
     dist.barrier()
     _reset_launches()
     t0 = time.perf_counter()
@@ -1542,7 +1541,7 @@ def phase_distributed(device) -> dict:
             settings = dataclasses.replace(settings, spp=spp)
             refs[key] = render_frame(scene, camera, settings)
             if key == "config8":
-                leaf, leaves = _leaf_scene(scene)
+                leaf, leaves = bench_leaves(scene)
                 loss, grads = bench_loss_grads(leaf, leaves, camera, settings)
                 refs["config8_loss"], refs["config8_grads"] = loss.detach(), [g.detach() for g in grads]
         torch.save(refs, os.path.join(tmp, "refs.pt"))
@@ -1582,6 +1581,245 @@ def phase_distributed(device) -> dict:
             raise AssertionError(f"distributed {label}: {row}")
     print(f"distributed: {DIST_WORLD} processes, wall {wall:.1f} s with their start", flush=True)
     return out
+
+
+PIPE_WORLD = 4
+PIPE_MICROBATCHES = 4
+PIPE_JOIN_TIMEOUT_S = 600
+# (label, scene, settings changes): 4 bounces for the 4 stages; config 8 and
+# config 6 with NEE, so that K2 and K4 answer the later stages' shadow rays.
+PIPE_CASES = (
+    ("config3 naive", "config3", {"spp": 4}),
+    ("config8 nee", "config8", {"spp": 4, "bounces": 4}),
+    ("config6 streamed nee", "config6", {"spp": 1, "bounces": 4, "estimator": "nee"}),
+)
+
+
+def _pipe_expect(settings, stage: int, streamed: bool) -> dict:
+    """Launches on pipe stage ``stage`` in one pipelined frame: the stage
+    applies its bounce once for each microbatch of each sample and skips
+    the steps where it holds none. Bounce 0 searches the closest hit, and
+    with NEE its shadow rays by a thresholded closest hit; a later bounce
+    searches the closest hit on the second pack, and with NEE its shadow
+    rays by the any-hit search."""
+    calls = settings.spp * PIPE_MICROBATCHES
+    nee = settings.estimator != "naive"
+    closest, anyhit = (calls * (1 + nee), 0) if stage == 0 else (calls, calls * nee)
+    if streamed:
+        return expect_launches(closest_hit_streamed=closest, occluded_streamed=anyhit)
+    return expect_launches(closest_hit=closest, occluded=anyhit)
+
+
+def pipe_worker(rank: int, world: int, tmp: str, paths: dict, device_name: str) -> None:
+    """One pipe stage of the staged-wavefront phase, four ranks on the one
+    card under gloo: each case of PIPE_CASES rendered once through
+    render_frame_pipelined (launches counted from 0 just before it, the
+    host seconds inside ``shift``) and held against the single-process
+    frames that the parent saved in ``tmp`` (through the kernels and through
+    the plain versions), then timed once more with another seed. Rows go to
+    ``tmp/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from gpupathtracer_tpu_torch.parallel import pipeline
+    from gpupathtracer_tpu_torch.parallel.multihost import init_distributed
+
+    device = torch.device(device_name)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+    init_distributed(init_method=f"file://{tmp}/store", world_size=world, rank=rank, backend="gloo", device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shift_s = [0.0]
+    untimed_shift = pipeline.shift
+
+    def timed_shift(xs, group=None):
+        t0 = time.perf_counter()
+        out = untimed_shift(xs, group)
+        shift_s[0] += time.perf_counter() - t0
+        return out
+
+    pipeline.shift = timed_shift
+    mesh = pipeline.make_pipe_mesh(world)
+    refs = torch.load(os.path.join(tmp, "refs.pt"), map_location=device)
+    rows = {}
+    for label, key, change in PIPE_CASES:
+        scene, camera, settings = load_scene_file(paths[key], device=device)
+        settings = dataclasses.replace(settings, **change)
+        dist.barrier()
+        _reset_launches()
+        shift_s[0] = 0.0
+        t0 = time.perf_counter()
+        img = pipeline.render_frame_pipelined(scene, camera, settings, mesh, microbatches=PIPE_MICROBATCHES,
+                                              device=device)
+        _sync(device)
+        row = {"launches": _launch_counts(), "expected_launches": _pipe_expect(settings, rank, key == "config6"),
+               "first_frame_s": time.perf_counter() - t0, "shift_host_s": shift_s[0],
+               **image_diff(img, refs[label]),
+               "plain_pixels_differ": int((img != refs[f"{label} plain"]).any(dim=-1).sum())}
+        dist.barrier()
+        shift_s[0] = 0.0
+        t0 = time.perf_counter()
+        float(pipeline.render_frame_pipelined(scene, camera, settings, mesh, seed=1000,
+                                              microbatches=PIPE_MICROBATCHES, device=device).sum())
+        row.update(frame_s=time.perf_counter() - t0, frame_shift_host_s=shift_s[0])
+        rows[label] = row
+        del scene, img
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dist.destroy_process_group()
+
+
+def phase_pipeline(device) -> dict:
+    """The staged wavefront (parallel/pipeline.py) on the one card: four
+    processes under gloo, one a stage, each case of PIPE_CASES (4 bounces on
+    4 stages, 4 microbatches) against this process's render_frame at the
+    same settings through the kernels and through the plain versions
+    (0 differing pixels against each), the launches of each kernel per
+    stage as _pipe_expect says, and per rank the frame seconds and the host
+    seconds inside shift (which wait for the neighbours and, through the
+    staging copy, for the stage's own work). Every process started here is
+    joined or killed."""
+    paths = {"config3": SCENE, "config6": STREAM_SCENE, "config8": NEE_SCENE}
+    with tempfile.TemporaryDirectory() as tmp:
+        refs, ref_s = {}, {}
+        for label, key, change in PIPE_CASES:
+            scene, camera, settings = load_scene_file(paths[key], device=device)
+            settings = dataclasses.replace(settings, **change)
+            t0 = time.perf_counter()
+            refs[label] = render_frame(scene, camera, settings)
+            _sync(device)
+            ref_s[label] = time.perf_counter() - t0
+            refs[f"{label} plain"] = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
+        torch.save(refs, os.path.join(tmp, "refs.pt"))
+        del refs, scene
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(pipe_worker, args=(PIPE_WORLD, tmp, paths, str(device)),
+                                                    nprocs=PIPE_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1):
+                if time.perf_counter() - t0 > PIPE_JOIN_TIMEOUT_S:
+                    raise TimeoutError(f"pipe stages still running after {PIPE_JOIN_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(PIPE_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = {}
+    for label, _, _ in PIPE_CASES:
+        by_rank = [rk[label] for rk in ranks]
+        total = {name: sum(rk["launches"][name] for rk in by_rank) for name in KERNELS}
+        row = {"launches": total, "single_process_first_frame_s": ref_s[label], "by_rank": by_rank}
+        out[label] = row
+        ok = all(rk["launches"] == rk["expected_launches"] and rk["pixels_differ"] == 0 and rk["finite"]
+                 and rk["plain_pixels_differ"] == 0 for rk in by_rank)
+        print(f"pipeline, {label}, {PIPE_WORLD} stages x {PIPE_MICROBATCHES} microbatches on one card, gloo "
+              f"(bar: launches per stage as expected, pixels_differ = 0 against render_frame and "
+              f"plain_pixels_differ = 0 against its plain versions; launches = the sum of the stages): "
+              f"{json.dumps(row)}", flush=True)
+        if not ok:
+            raise AssertionError(f"pipeline {label}: {row}")
+    print(f"pipeline: {PIPE_WORLD} processes, wall {wall:.1f} s with their start", flush=True)
+    return out
+
+
+def phase_bench(device) -> dict:
+    """The port's bench (gpupathtracer_tpu_torch/bench.py) in process: the
+    CLI's benchmark verb without --full on the config 3 stand-in (the
+    headline, its fwd+bwd and the spec-spp frame), whose compact line must
+    parse with value > 0 and name the scene run, with its K1 launches
+    against the count its frames need; then _bench_kernel once (its 12 K1
+    launches), and K1 against its plain version on _bench_kernel's pack and
+    rays: the coherent and the incoherent rays exactly, and the incoherent
+    rays behind the origin-key sort (``sorted_hit_check``). The detail file
+    goes to a temporary directory."""
+    _, _, settings = load_scene_file(SCENE, device=device)
+    warmup, iters, spp, chunk = 1, 3, 4, 32
+    # (warm-up + timed) frames forward and fwd+bwd, then the spec-spp chunks.
+    expect = expect_launches(closest_hit=(warmup + iters) * spp * settings.bounces * 2
+                             + (chunk + settings.spp) * settings.bounces)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        detail_path, bench.DETAIL_PATH = bench.DETAIL_PATH, os.path.join(tmp, "BENCH_DETAIL_torch.json")
+        try:
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["benchmark", "--scene", SCENE, "--warmup", str(warmup), "--iters", str(iters)])
+            verb_s = time.perf_counter() - t0
+            launches = _launch_counts()
+            with open(bench.DETAIL_PATH) as f:
+                detail = json.load(f)
+        finally:
+            bench.DETAIL_PATH = detail_path
+    lines = buf.getvalue().strip().splitlines()
+    line = json.loads(lines[-1])
+    print(lines[-1], flush=True)
+    _reset_launches()
+    t0 = time.perf_counter()
+    kernel = bench._bench_kernel(iters=iters)
+    kernel_s = time.perf_counter() - t0
+    kernel_launches = _launch_counts()
+    print(json.dumps(kernel), flush=True)
+    # The checks launch K1 after the path's counts were read.
+    packed_k, (o_c, d_c), (o_i, d_i) = bench.kernel_inputs(device)
+    checks = {
+        "coherent": phase_kernel_check("bench kernel, coherent rays", o_c, d_c, packed_k,
+                                       plain_reps=PLAIN_REPS_UNREPORTED),
+        "incoherent": phase_kernel_check("bench kernel, incoherent rays", o_i, d_i, packed_k,
+                                         plain_reps=PLAIN_REPS_UNREPORTED),
+        "incoherent sorted": sorted_hit_check("bench kernel, incoherent rays", o_i, d_i, packed_k),
+    }
+    row = {"rc": rc, "verb_s": verb_s, "launches": launches, "expected_launches": expect,
+           "first_line_parses": json.loads(lines[0])["value"] == line["value"],
+           "fwd_bwd": detail.get("fwd_bwd"), "full_spp": detail.get("full_spp"), "device": detail.get("device"),
+           "kernel_s": kernel_s, "kernel_launches": kernel_launches,
+           "kernel_checks": {k: {f: r[f] for f in ("same_tri", "same_row", "max_abs_err", "t_equal") if f in r}
+                             for k, r in checks.items()}}
+    print(f"bench, the benchmark verb without --full on {os.path.basename(SCENE)} and _bench_kernel (bar: rc 0, "
+          f"value > 0, config names the scene, launches as expected, K1 on _bench_kernel's inputs as its plain "
+          f"version: exact unsorted and behind the sort): {json.dumps(row)}", flush=True)
+    ok = (rc == 0 and line["value"] > 0 and line["config"] == os.path.basename(SCENE) and launches == expect
+          and (line["fwd_bwd_rays_per_sec"] or 0) > 0 and row["first_line_parses"]
+          and kernel_launches == expect_launches(closest_hit=3 * (1 + iters)))
+    if not ok:
+        raise AssertionError(f"bench: {line} {row}")
+    return {"verb": row, "kernel": {"launches": kernel_launches, **kernel}}
+
+
+def sorted_hit_check(label: str, o, d, packed) -> dict:
+    """K1 behind ``make_sorted_intersect`` with the origin key, as
+    ``_bench_kernel`` calls it, against the same wrapper around the plain
+    version (bar: the same triangle and a bit-equal t on every ray), and
+    against the plain search without the sort (bar: the hit parity bar,
+    since the sort regroups the tiles and so may pick another triangle at
+    an equal t)."""
+    search = lambda plain: packed_intersect.make_sorted_intersect(
+        lambda o, d, alive=None: packed_intersect.intersect_packed(o, d, packed, alive=alive, plain=plain),
+        packed, key_mode="origin")
+    h_k, h_p = search(False)(o, d), search(True)(o, d)
+    h_u = packed_intersect.intersect_packed(o, d, packed, plain=True)
+    _sync(o.device)
+    both = h_k.hit & h_u.hit & (h_k.tri == h_u.tri)
+    err_u = (h_k.t[both] - h_u.t[both]).abs()
+    row = {
+        "rays": o.shape[0], "hit_share": h_p.hit.double().mean().item(),
+        "same_tri": (h_k.tri == h_p.tri).double().mean().item(), "t_equal": bool(torch.equal(h_k.t, h_p.t)),
+        "max_abs_err": (h_k.t - h_p.t)[h_p.hit].abs().max().item() if bool(h_p.hit.any()) else 0.0,
+        "same_tri_unsorted": (h_k.tri == h_u.tri).double().mean().item(),
+        "max_abs_err_unsorted": err_u.max().item() if err_u.numel() else 0.0,
+        "t_ok_unsorted": bool((err_u <= T_TOL + T_TOL * h_u.t[both].abs()).all()),
+    }
+    print(f"closest_hit {label}, behind the origin-key sort (bar: same_tri = 1 and t_equal against the sorted plain "
+          f"version; same_tri_unsorted >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t| against the unsorted plain "
+          f"search): {json.dumps(row)}", flush=True)
+    if not (row["same_tri"] == 1.0 and row["t_equal"] and row["same_tri_unsorted"] >= HIT_AGREE
+            and row["t_ok_unsorted"]):
+        raise AssertionError(f"closest_hit {label} behind the sort: {row}")
+    return row
 
 
 def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
@@ -1784,6 +2022,10 @@ def main() -> None:
     del scene
     elapsed("distributed")
     distributed = phase_distributed(device)
+    elapsed("pipeline")
+    pipelined = phase_pipeline(device)
+    elapsed("bench")
+    bench_rows = phase_bench(device)
     print(json.dumps({"scene_shard_checks": {"closest_hit": k1_shard_rows, "closest_hit_streamed": k3_shard_rows}}),
           flush=True)
 
@@ -1798,7 +2040,9 @@ def main() -> None:
              "silhouette demo": demos["silhouette"], "camera demo": demos["camera"],
              "cli invert silhouette": demos["cli silhouette"], "cli invert camera": demos["cli camera"],
              "threefry frame": threefry_row, "bvh config3": bvh3, "bvh config6 reduced": bvh6,
-             **{f"distributed {k}": v for k, v in distributed.items()}}
+             **{f"distributed {k}": v for k, v in distributed.items()},
+             **{f"pipeline {k} (sum of the stages)": v for k, v in pipelined.items()},
+             "bench verb": bench_rows["verb"], "bench kernel": bench_rows["kernel"]}
     for label, rows in (("naive", naive_modes), ("nee", nee_modes), ("streamed naive", streamed_modes),
                         ("streamed naive unsorted", streamed_modes_unsorted)):
         for mode in ("mask", "hybrid"):

@@ -1,6 +1,7 @@
-"""Command line of the PyTorch + CUDA port: render, view, invert.
+"""Command line of the PyTorch + CUDA port: render, benchmark, view, invert.
 
     python -m gpupathtracer_tpu_torch.cli [--device cuda|cpu] render SCENE --out x.ppm
+    python -m gpupathtracer_tpu_torch.cli benchmark [--scene SCENE] [--full]
     python -m gpupathtracer_tpu_torch.cli view SCENE [--live] --out DIR
     python -m gpupathtracer_tpu_torch.cli invert --mode albedo
 
@@ -8,8 +9,12 @@ Counterpart of ``gpupathtracer_tpu/cli.py``. ``--device`` comes before the
 verb and defaults to the card; without one the command raises instead of
 running on the CPU. ``render`` writes a PPM or a PNG by the output's suffix
 and takes the progressive path (``render/progressive.py``) with
-``--checkpoint`` or ``--chunk-spp``. ``view`` renders a turntable of PNG
-frames, or with ``--live`` runs the live preview (``render/live.py``).
+``--checkpoint`` or ``--chunk-spp``. ``benchmark`` runs the rays/s bench
+(``bench.py``): the headline and its fwd+bwd, with ``--full`` also the
+per-config suite and the kernel rows; it writes the result to
+``BENCH_DETAIL_torch.json`` and prints the compact line last. ``view``
+renders a turntable of PNG frames, or with ``--live`` runs the live preview
+(``render/live.py``).
 ``invert --mode albedo`` runs the config 5 trainer; ``--mode silhouette``
 and ``--mode camera`` run the edge-sampled demos (``grad/inverse.py``),
 which recover an occluder's scale and the camera's pose from the boundary
@@ -66,6 +71,14 @@ def cmd_render(args) -> int:
         f"rendered {settings.width}x{settings.height} spp={settings.spp} bounces={settings.bounces} "
         f"on {args.device} in {t1 - t0:.3f}s ({rays / (t1 - t0) / 1e6:.1f} Mrays/s incl. setup) -> {args.out}"
     )
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    from gpupathtracer_tpu_torch.bench import report, run_benchmark
+
+    report(run_benchmark(scene_path=args.scene, warmup=args.warmup, iters=args.iters, full_suite=args.full,
+                         device=args.device))
     return 0
 
 
@@ -150,6 +163,14 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--metrics", default=None, help="JSONL metrics stream path")
     pr.add_argument("--profile-dir", default=None, help="torch.profiler Chrome trace output dir")
     pr.set_defaults(fn=cmd_render)
+
+    pb = sub.add_parser("benchmark", help="run the rays/sec benchmark")
+    pb.add_argument("--scene", default=None, help="headline scene (default: config 3, or its stand-in)")
+    pb.add_argument("--warmup", type=int, default=1)
+    pb.add_argument("--iters", type=int, default=3)
+    pb.add_argument("--full", action="store_true",
+                    help="also run the per-config suite and the kernel microbenchmark (fwd+bwd always runs)")
+    pb.set_defaults(fn=cmd_benchmark)
 
     pv = sub.add_parser("view", help="viewer: turntable orbit, or --live preview")
     pv.add_argument("scene")

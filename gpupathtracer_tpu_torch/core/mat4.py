@@ -17,6 +17,10 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def identity() -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32)
+
+
 def translate(v) -> torch.Tensor:
     """glm::translate(mat4(1), v)."""
     v = _f32(v)
@@ -43,10 +47,22 @@ def _axis_rotation(angle_rad: torch.Tensor, axis: int) -> torch.Tensor:
     return m
 
 
+def rotate_x_deg(deg) -> torch.Tensor:
+    return _axis_rotation(torch.deg2rad(_f32(deg)), 0)
+
+
+def rotate_y_deg(deg) -> torch.Tensor:
+    return _axis_rotation(torch.deg2rad(_f32(deg)), 1)
+
+
+def rotate_z_deg(deg) -> torch.Tensor:
+    return _axis_rotation(torch.deg2rad(_f32(deg)), 2)
+
+
 def trs(position, rotation_deg, scale_v) -> torch.Tensor:
     """Model matrix ``T * Rx * Ry * Rz * S`` (Euler degrees, glm order)."""
-    rad = torch.deg2rad(_f32(rotation_deg))
-    r = _axis_rotation(rad[0], 0) @ _axis_rotation(rad[1], 1) @ _axis_rotation(rad[2], 2)
+    rotation_deg = _f32(rotation_deg)
+    r = rotate_x_deg(rotation_deg[0]) @ rotate_y_deg(rotation_deg[1]) @ rotate_z_deg(rotation_deg[2])
     return translate(position) @ r @ scale(scale_v)
 
 

@@ -1,4 +1,4 @@
-"""Process-group set-up, the collectives the renderer uses, and frame
+"""Process-group set-up, the collectives the renderers use, and frame
 assembly.
 
 Counterpart of ``gpupathtracer_tpu/parallel/multihost.py``. A single
@@ -76,11 +76,25 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     return buf.to(x.device)
 
 
+def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``x`` (``src`` is a rank of the group) on every rank
+    of the group, on ``x``'s device; every rank passes a tensor of the same
+    shape and dtype."""
+    group = group or dist.group.WORLD
+    if dist.get_world_size(group) == 1:
+        return x
+    buf = _staged(x, group).clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.to(x.device)
+
+
 def shift(xs: dict, group=None) -> dict:
     """Send each tensor of ``xs`` to the next rank of the group and receive
-    the previous rank's, in one batch of point-to-point operations. On the
-    tensors' devices."""
+    the previous rank's, in one batch of point-to-point operations (a
+    one-rank group keeps its own). On the tensors' devices."""
     n, me = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return dict(xs)
     nxt, prv = (dist.get_global_rank(group, (me + k) % n) for k in (1, -1))
     out, ops = {}, []
     for f, x in xs.items():

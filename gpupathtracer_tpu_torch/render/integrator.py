@@ -256,6 +256,23 @@ def init_path_state(origins, directions, keys) -> PathState:
     )
 
 
+def dead_path_state(r: int, keys: torch.Tensor, device) -> PathState:
+    """An inert state of ``r`` lanes on ``device``: no lane alive, so every
+    bounce applied to it changes nothing. What a pipeline stage holds
+    before its first microbatch arrives (``parallel/pipeline.py``)."""
+    zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)
+    return PathState(
+        o=zeros(r, 3),
+        d=torch.tensor([[0.0, 0.0, 1.0]], device=device).repeat(r, 1),
+        throughput=zeros(r, 3),
+        radiance=zeros(r, 3),
+        alive=zeros(r, dtype=torch.bool),
+        prev_nee=zeros(r, dtype=torch.bool),
+        prev_pdf=zeros(r),
+        keys=keys,
+    )
+
+
 def make_bounce_fn(
     scene: TriangleScene,
     options: IntegratorOptions,
@@ -485,6 +502,29 @@ def _permute_state(state: PathState, perm: torch.Tensor) -> PathState:
     return PathState(**{f.name: getattr(state, f.name).index_select(0, perm) for f in dataclasses.fields(state)})
 
 
+def make_path_bounces(scene: TriangleScene, options: IntegratorOptions, intersect_fn=None, packed=None,
+                      packed_secondary=None):
+    """The two bounce steps a path takes, ``(first, later)``:
+    ``first(state)`` applies bounce 0, uncompacted (every lane is alive and
+    camera-coherent there, so compaction is pure overhead), on ``packed``
+    or ``intersect_fn``, its shadow rays answered by a thresholded closest
+    hit; ``later(state, b)`` applies bounce ``b`` ≥ 1, on
+    ``packed_secondary`` with the any-hit search for its shadow rays when a
+    second pack is given, else as bounce 0 but compacted. ``trace_paths``
+    and the pipeline (``parallel/pipeline.py``) both take their bounces
+    from here, so both answer every ray with the same search.
+
+    ``packed_secondary`` replaces the intersector of the later bounces, so
+    it cannot be combined with a custom ``intersect_fn``."""
+    if packed_secondary is not None and intersect_fn is not None:
+        raise ValueError("packed_secondary would replace the custom intersect_fn of the later bounces")
+    bounce = make_bounce_fn(scene, options, intersect_fn=intersect_fn, packed=packed)
+    later = bounce
+    if packed_secondary is not None and options.bounces > 1:
+        later = make_bounce_fn(scene, options, packed=packed_secondary, occlusion_kernel=True)
+    return (lambda state: bounce(state, 0, compact_now=False)), later
+
+
 def trace_paths(
     scene: TriangleScene,
     origins: torch.Tensor,
@@ -511,24 +551,17 @@ def trace_paths(
     once after bounce 0, runs the later bounces in mask mode and permutes
     the radiance back.
     """
-    if packed_secondary is not None and intersect_fn is not None:
-        raise ValueError("packed_secondary would replace the custom intersect_fn of the later bounces")
     hybrid = options.compact and options.compact_mode == "hybrid" and options.bounces > 1
     if hybrid:
         options = dataclasses.replace(options, compact_mode="mask")
-    bounce = make_bounce_fn(scene, options, intersect_fn=intersect_fn, packed=packed)
-    scan_bounce = bounce
-    if packed_secondary is not None and options.bounces > 1:
-        scan_bounce = make_bounce_fn(scene, options, packed=packed_secondary, occlusion_kernel=True)
-    # Bounce 0: every lane is alive and camera-coherent, so compaction is
-    # pure overhead there.
-    state = bounce(init_path_state(origins, directions, keys), 0, compact_now=False)
+    first, later = make_path_bounces(scene, options, intersect_fn, packed, packed_secondary)
+    state = first(init_path_state(origins, directions, keys))
     inv = None
     if hybrid:
         perm, inv = partition_alive(state.alive)
         state = _permute_state(state, perm)
     for b in range(1, options.bounces):
-        state = scan_bounce(state, b)
+        state = later(state, b)
     return state.radiance if inv is None else state.radiance.index_select(0, inv)
 
 

@@ -233,19 +233,28 @@ def accumulate_radiance(
     split of the pixels or of the samples gives the same per-sample values.
     ``intersect_fn`` replaces the packed search (``trace_paths``)."""
     opts = _integrator_options(settings)
-    sampler = make_sampler(settings.rng)
     n = settings.spp if num_samples is None else num_samples
     film_sum = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32, device=pixel_idx.device)
     for s in range(sample_start, sample_start + n):
-        keys = sampler.path_keys(key_data, pixel_idx, s)
-        jitter_uv = None
-        if settings.jitter and settings.spp > 1:
-            jitter_uv = sampler.uniform(sampler.fold(keys, 0xA11A), 2)
-        o, d = generate_rays_for_pixels(camera, pixel_idx, jitter_uv)
+        o, d, keys = sample_rays(camera, pixel_idx, settings, key_data, s)
         film_sum = film_sum + trace_paths(
             scene, o, d, keys, opts, intersect_fn=intersect_fn, packed=packed, packed_secondary=packed_secondary
         )
     return film_sum
+
+
+def sample_rays(camera, pixel_idx, settings, key_data, s: int):
+    """``(origins, directions, keys)`` of global sample ``s`` of the given
+    pixels: the path keys of (seed, pixel id, sample id), and the camera
+    rays through the sub-pixel jitter those keys draw (spp > 1 with
+    ``settings.jitter``) or through the pixel centres."""
+    sampler = make_sampler(settings.rng)
+    keys = sampler.path_keys(key_data, pixel_idx, s)
+    jitter_uv = None
+    if settings.jitter and settings.spp > 1:
+        jitter_uv = sampler.uniform(sampler.fold(keys, 0xA11A), 2)
+    o, d = generate_rays_for_pixels(camera, pixel_idx, jitter_uv)
+    return o, d, keys
 
 
 # BVH cache, as the pack cache: keyed on the four tensors the builder reads.

@@ -353,3 +353,23 @@ def test_cli_render_takes_the_brute_intersector(tmp_path):
     scene, camera, settings = t_load(cfg, device="cpu")
     want = to_u8(render_frame(scene, camera, dataclasses.replace(settings, intersector="brute"), device="cpu"))
     np.testing.assert_array_equal(read_ppm(out), want)
+
+
+def test_cli_benchmark_prints_its_json(tmp_path, monkeypatch, capsys):
+    """The ``benchmark`` verb hands its flags and ``--device`` to
+    ``run_benchmark``, writes the result to the detail file and prints the
+    compact line last."""
+    from gpupathtracer_tpu_torch import bench
+
+    seen = {}
+    fake = {"metric": "rays_per_sec_chip_fwd", "value": 1.0e8, "unit": "rays/s", "vs_baseline": 1.13,
+            "config": "x.toml", "fwd_bwd": {"rays_per_sec": 4.0e7}}
+    monkeypatch.setattr(bench, "run_benchmark", lambda **kw: seen.update(kw) or dict(fake))
+    monkeypatch.setattr(bench, "DETAIL_PATH", str(tmp_path / "detail.json"))
+    assert cli.main(["--device", "cpu", "benchmark", "--scene", "x.toml", "--iters", "2", "--full"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert seen == {"scene_path": "x.toml", "warmup": 1, "iters": 2, "full_suite": True, "device": "cpu"}
+    assert (line["value"], line["config"], line["fwd_bwd_rays_per_sec"], line["detail"]) == (
+        1.0e8, "x.toml", 4.0e7, "detail.json")
+    with open(tmp_path / "detail.json") as f:
+        assert json.load(f) == fake

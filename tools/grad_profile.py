@@ -1,6 +1,7 @@
 """Profiles one forward+backward frame of each of chip_smoke.py's full-size
 paths on one card: the bench's loss, mean(image), differentiated in v0 and
-the material albedo (chip_smoke.bench_loss_grads), after one warm-up frame.
+the material albedo (gpupathtracer_tpu_torch.bench.bench_loss_grads), after
+one warm-up frame.
 
     python3 tools/grad_profile.py [OUT_DIR]
 
@@ -56,7 +57,7 @@ def profile_path(label, path, spp, out_dir):
     device = torch.device("cuda")
     scene, camera, settings = load_scene_file(path, device=device)
     settings = dataclasses.replace(settings, spp=spp)
-    leaf, leaves = cs._leaf_scene(scene)
+    leaf, leaves = cs.bench_leaves(scene)
     fwd_bwd(leaf, leaves, camera, settings, seed=1)  # builds the kernels, packs, warms up
     fwd_ms, bwd_ms = fwd_bwd(leaf, leaves, camera, settings, seed=2)
     trace = os.path.join(out_dir, f"fwd_bwd_{label.replace(' ', '_')}.json") if out_dir else None
