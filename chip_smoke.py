@@ -105,8 +105,8 @@ path):
     K1 launches, the median of 3 frame times and rays/s;
 25. live_view at 800x800 (chunks of 2 up to 4 samples, a camera command
     after the first chunk restarts accumulation), the CLI's turntable
-    (2 frames) and the CLI's config 5 trainer (3 steps), with their K1
-    launches;
+    (2 frames, with --gif: turntable.gif decodes to 2 frames) and the CLI's
+    config 5 trainer (3 steps), with their K1 launches;
 26. K2 on the uncompacted shadow rays of bounce 1 (max_t = 0 on the dead
     lanes), exactly equal to its plain version;
 27. the NEE frame in the three compaction modes, as 22;
@@ -182,9 +182,11 @@ and the last modules: the staged wavefront and the bench:
     stage (the skip rule: M a sample for each search of the stage's bounce),
     the frame seconds and the host seconds inside shift per rank;
 43. the bench (gpupathtracer_tpu_torch/bench.py): the CLI's benchmark verb
-    without --full on the config 3 stand-in (headline, fwd+bwd and the
-    spec-spp frame; the compact line must parse with value > 0 and name the
-    scene; K1 launches as its frames need), then _bench_kernel once;
+    without --full on the config 3 stand-in (the headline and the spec-spp
+    frame; its last line must be the whole result, with value > 0, the
+    scene named and no fwd_bwd row; no detail file; K1 launches as its
+    frames need), then the fwd+bwd row on the same scene with its own K1
+    launches, then _bench_kernel once;
 then the total wall time, a JSON line that summarises the four kernels, and
 a JSON result line last. Lines starting "elapsed:" mark where the time of
 the run goes.
@@ -1035,7 +1037,9 @@ def phase_live_and_view(device) -> dict:
     to 4, a 'w' command after the first chunk): accumulation restarts, so
     3 chunks render (24 K1 launches) and 4 samples remain, the camera moved
     by 0.2, live.png and status.json written. Then the CLI's turntable
-    (2 frames, spp 1) and the config 5 trainer through the CLI (3 steps)."""
+    (2 frames, spp 1, --gif: two PNGs and a turntable.gif of 2 frames) and
+    the config 5 trainer through the CLI (3 steps)."""
+    from PIL import Image  # --gif needs it
     scene, camera, settings = load_scene_file(SCENE, device=device)
     feed = iter([[], ["w"]])
     with tempfile.TemporaryDirectory() as tmp:
@@ -1048,8 +1052,10 @@ def phase_live_and_view(device) -> dict:
                 "status": json.load(open(os.path.join(tmp, "status.json"))),
                 "live_png_bytes": os.path.getsize(os.path.join(tmp, "live.png"))}
         _reset_launches()
-        view_rc = cli.main(["view", SCENE, "--frames", "2", "--spp", "1", "--out", os.path.join(tmp, "turn")])
+        view_rc = cli.main(["view", SCENE, "--frames", "2", "--spp", "1", "--gif", "--out", os.path.join(tmp, "turn")])
         view = {"rc": view_rc, "launches": _launch_counts(), "frames": sorted(os.listdir(os.path.join(tmp, "turn")))}
+        with Image.open(os.path.join(tmp, "turn", "turntable.gif")) as gif:
+            view["gif"] = {"frames": gif.n_frames, "size": list(gif.size), "duration": gif.info.get("duration")}
         _reset_launches()
         invert_rc = cli.main(["invert", "--steps", "3"])
         invert = {"rc": invert_rc, "launches": _launch_counts()}
@@ -1059,10 +1065,12 @@ def phase_live_and_view(device) -> dict:
     expect_invert = expect_launches(closest_hit=4 * spp5 * 2 * bounces5)
     row = {"live": live, "view": view, "invert": invert}
     print(f"live view and CLI view/invert, config3 800x800 (bar: live {expect_live}, spp 4, moved 0.2, status spp 4; "
-          f"view rc 0, {expect_view}; invert rc 0, {expect_invert}): {json.dumps(row)}", flush=True)
+          f"view rc 0, {expect_view}, 2 PNGs and a GIF of 2 frames; invert rc 0, {expect_invert}): "
+          f"{json.dumps(row)}", flush=True)
     ok = (live["launches"] == expect_live and spp == 4 and abs(live["moved_z"] - 0.2) < 1e-5
           and live["status"]["spp"] == 4 and view_rc == 0 and view["launches"] == expect_view
-          and len(view["frames"]) == 2 and invert_rc == 0 and invert["launches"] == expect_invert)
+          and len(view["frames"]) == 3 and view["gif"]["frames"] == 2 and invert_rc == 0
+          and invert["launches"] == expect_invert)
     if not ok:
         raise AssertionError(f"live view / CLI view / invert: {row}")
     return row
@@ -1729,17 +1737,19 @@ def phase_pipeline(device) -> dict:
 def phase_bench(device) -> dict:
     """The port's bench (gpupathtracer_tpu_torch/bench.py) in process: the
     CLI's benchmark verb without --full on the config 3 stand-in (the
-    headline, its fwd+bwd and the spec-spp frame), whose compact line must
-    parse with value > 0 and name the scene run, with its K1 launches
-    against the count its frames need; then _bench_kernel once (its 12 K1
-    launches), and K1 against its plain version on _bench_kernel's pack and
-    rays: the coherent and the incoherent rays exactly, and the incoherent
-    rays behind the origin-key sort (``sorted_hit_check``). The detail file
-    goes to a temporary directory."""
-    _, _, settings = load_scene_file(SCENE, device=device)
+    headline and the spec-spp frame), whose last line must be the whole
+    result with value > 0, the scene run named and no fwd_bwd row, with its
+    K1 launches against the count its frames need and no detail file
+    written; then the fwd+bwd row (``bench._bench_backward`` on the same
+    scene at the verb's spp) with its own launch bar; then _bench_kernel
+    once (its 12 K1 launches), and K1 against its plain version on
+    _bench_kernel's pack and rays: the coherent and the incoherent rays
+    exactly, and the incoherent rays behind the origin-key sort
+    (``sorted_hit_check``)."""
+    scene, camera, settings = load_scene_file(SCENE, device=device)
     warmup, iters, spp, chunk = 1, 3, 4, 32
-    # (warm-up + timed) frames forward and fwd+bwd, then the spec-spp chunks.
-    expect = expect_launches(closest_hit=(warmup + iters) * spp * settings.bounces * 2
+    # (warm-up + timed) forward frames, then the spec-spp chunks.
+    expect = expect_launches(closest_hit=(warmup + iters) * spp * settings.bounces
                              + (chunk + settings.spp) * settings.bounces)
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1751,13 +1761,19 @@ def phase_bench(device) -> dict:
                 rc = cli.main(["benchmark", "--scene", SCENE, "--warmup", str(warmup), "--iters", str(iters)])
             verb_s = time.perf_counter() - t0
             launches = _launch_counts()
-            with open(bench.DETAIL_PATH) as f:
-                detail = json.load(f)
+            detail_written = os.path.exists(bench.DETAIL_PATH)
         finally:
             bench.DETAIL_PATH = detail_path
     lines = buf.getvalue().strip().splitlines()
-    line = json.loads(lines[-1])
+    result = json.loads(lines[-1])
     print(lines[-1], flush=True)
+    # The fwd+bwd row, which only --full runs in the verb.
+    fwd_bwd_expect = expect_launches(closest_hit=(warmup + iters) * spp * settings.bounces)
+    _reset_launches()
+    t0 = time.perf_counter()
+    fwd_bwd = bench._bench_backward(scene, camera, dataclasses.replace(settings, spp=spp), iters, warmup, device)
+    fwd_bwd_s = time.perf_counter() - t0
+    fwd_bwd_launches = _launch_counts()
     _reset_launches()
     t0 = time.perf_counter()
     kernel = bench._bench_kernel(iters=iters)
@@ -1774,20 +1790,25 @@ def phase_bench(device) -> dict:
         "incoherent sorted": sorted_hit_check("bench kernel, incoherent rays", o_i, d_i, packed_k),
     }
     row = {"rc": rc, "verb_s": verb_s, "launches": launches, "expected_launches": expect,
-           "first_line_parses": json.loads(lines[0])["value"] == line["value"],
-           "fwd_bwd": detail.get("fwd_bwd"), "full_spp": detail.get("full_spp"), "device": detail.get("device"),
+           "first_line_parses": json.loads(lines[0])["value"] == result["value"],
+           "detail_written": detail_written, "value": result["value"], "full_spp": result.get("full_spp"),
+           "device": result.get("device"),
+           "fwd_bwd": {**fwd_bwd, "call_s": fwd_bwd_s, "launches": fwd_bwd_launches,
+                       "expected_launches": fwd_bwd_expect},
            "kernel_s": kernel_s, "kernel_launches": kernel_launches,
            "kernel_checks": {k: {f: r[f] for f in ("same_tri", "same_row", "max_abs_err", "t_equal") if f in r}
                              for k, r in checks.items()}}
-    print(f"bench, the benchmark verb without --full on {os.path.basename(SCENE)} and _bench_kernel (bar: rc 0, "
-          f"value > 0, config names the scene, launches as expected, K1 on _bench_kernel's inputs as its plain "
-          f"version: exact unsorted and behind the sort): {json.dumps(row)}", flush=True)
-    ok = (rc == 0 and line["value"] > 0 and line["config"] == os.path.basename(SCENE) and launches == expect
-          and (line["fwd_bwd_rays_per_sec"] or 0) > 0 and row["first_line_parses"]
+    print(f"bench, the benchmark verb without --full on {os.path.basename(SCENE)}, its fwd+bwd row and "
+          f"_bench_kernel (bar: rc 0, the last line the whole result with value > 0, config naming the scene and "
+          f"no fwd_bwd row, no detail file, launches as expected, fwd+bwd rays/s > 0, K1 on _bench_kernel's "
+          f"inputs as its plain version: exact unsorted and behind the sort): {json.dumps(row)}", flush=True)
+    ok = (rc == 0 and result["value"] > 0 and result["config"] == os.path.basename(SCENE) and launches == expect
+          and "fwd_bwd" not in result and not detail_written and row["first_line_parses"]
+          and fwd_bwd["rays_per_sec"] > 0 and fwd_bwd_launches == fwd_bwd_expect
           and kernel_launches == expect_launches(closest_hit=3 * (1 + iters)))
     if not ok:
-        raise AssertionError(f"bench: {line} {row}")
-    return {"verb": row, "kernel": {"launches": kernel_launches, **kernel}}
+        raise AssertionError(f"bench: {result} {row}")
+    return {"verb": row, "fwd_bwd": row["fwd_bwd"], "kernel": {"launches": kernel_launches, **kernel}}
 
 
 def sorted_hit_check(label: str, o, d, packed) -> dict:
@@ -2042,7 +2063,8 @@ def main() -> None:
              "threefry frame": threefry_row, "bvh config3": bvh3, "bvh config6 reduced": bvh6,
              **{f"distributed {k}": v for k, v in distributed.items()},
              **{f"pipeline {k} (sum of the stages)": v for k, v in pipelined.items()},
-             "bench verb": bench_rows["verb"], "bench kernel": bench_rows["kernel"]}
+             "bench verb": bench_rows["verb"], "bench fwd+bwd": bench_rows["fwd_bwd"],
+             "bench kernel": bench_rows["kernel"]}
     for label, rows in (("naive", naive_modes), ("nee", nee_modes), ("streamed naive", streamed_modes),
                         ("streamed naive unsorted", streamed_modes_unsorted)):
         for mode in ("mask", "hybrid"):

@@ -1,9 +1,12 @@
 """Rays/s harness of the port: ``python -m gpupathtracer_tpu_torch.bench``.
 
-Counterpart of ``gpupathtracer_tpu/bench.py``. Prints one compact JSON line
-last (``metric``, ``value``, ``unit``, ``vs_baseline``, ``config``,
-``fwd_bwd_rays_per_sec``, ``detail``) and writes the whole result to
-``BENCH_DETAIL_torch.json`` at the root of the checkout:
+Counterpart of ``gpupathtracer_tpu/bench.py``. ``main`` runs everything
+below, prints one compact JSON line last (``metric``, ``value``, ``unit``,
+``vs_baseline``, ``config``, ``fwd_bwd_rays_per_sec``, ``detail``) and
+writes the whole result to ``BENCH_DETAIL_torch.json`` at the root of the
+checkout. The CLI's ``benchmark`` verb runs the headline and the spec-spp
+frame (``--full``: everything) and prints the whole result as its last
+line, with no detail file, as the JAX package's verb does:
 
 - the headline: forward rays/s of config 3 (``config3_wahoo.toml`` where
   ``utils/config.py`` finds its mesh, else the stand-in
@@ -368,10 +371,11 @@ def compact(result: dict, detail: str | None) -> dict:
     }
 
 
-def report(result: dict) -> dict:
-    """Write ``result`` to ``DETAIL_PATH`` and print its compact line last;
-    an unwritable path nulls ``detail`` and warns on stderr. Returns the
-    compact line."""
+def main() -> None:
+    """Run the whole bench, write the result to ``DETAIL_PATH`` and print
+    its compact line last; an unwritable path nulls ``detail`` and warns on
+    stderr."""
+    result = run_benchmark()
     detail = os.path.basename(DETAIL_PATH)
     try:
         with open(DETAIL_PATH, "w") as f:
@@ -380,13 +384,7 @@ def report(result: dict) -> dict:
         print(f"warning: could not write {DETAIL_PATH}: {e}", file=sys.stderr)
         log_runtime_event({"event": "bench_detail_write_failed", "path": DETAIL_PATH, "error": str(e)})
         detail = None  # an existing detail file is not this run's
-    line = compact(result, detail)
-    print(json.dumps(line), flush=True)
-    return line
-
-
-def main() -> None:
-    report(run_benchmark())
+    print(json.dumps(compact(result, detail)), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,11 +10,13 @@ verb and defaults to the card; without one the command raises instead of
 running on the CPU. ``render`` writes a PPM or a PNG by the output's suffix
 and takes the progressive path (``render/progressive.py``) with
 ``--checkpoint`` or ``--chunk-spp``. ``benchmark`` runs the rays/s bench
-(``bench.py``): the headline and its fwd+bwd, with ``--full`` also the
-per-config suite and the kernel rows; it writes the result to
-``BENCH_DETAIL_torch.json`` and prints the compact line last. ``view``
-renders a turntable of PNG frames, or with ``--live`` runs the live preview
-(``render/live.py``).
+(``bench.py``): the headline and the spec-spp frame, with ``--full`` also
+its fwd+bwd, the per-config suite and the kernel rows, and prints the whole
+result as one JSON line, last (``python -m gpupathtracer_tpu_torch.bench``
+writes the detail file and prints the compact line instead). ``view``
+renders a turntable of PNG frames (``--gif`` also writes them as
+``turntable.gif``, which needs PIL), or with ``--live`` runs the live
+preview (``render/live.py``).
 ``invert --mode albedo`` runs the config 5 trainer; ``--mode silhouette``
 and ``--mode camera`` run the edge-sampled demos (``grad/inverse.py``),
 which recover an occluder's scale and the camera's pose from the boundary
@@ -75,16 +77,18 @@ def cmd_render(args) -> int:
 
 
 def cmd_benchmark(args) -> int:
-    from gpupathtracer_tpu_torch.bench import report, run_benchmark
+    from gpupathtracer_tpu_torch.bench import run_benchmark
 
-    report(run_benchmark(scene_path=args.scene, warmup=args.warmup, iters=args.iters, full_suite=args.full,
-                         device=args.device))
+    result = run_benchmark(scene_path=args.scene, warmup=args.warmup, iters=args.iters, backward=args.full,
+                           full_suite=args.full, device=args.device)
+    print(json.dumps(result))
     return 0
 
 
 def cmd_view(args) -> int:
-    """A turntable orbit written as PNG frames, or with ``--live`` the live
-    progressive preview driven by stdin commands
+    """A turntable orbit written as PNG frames (with ``--gif`` also as
+    ``turntable.gif``, 120 ms a frame, looping; PIL is imported only then),
+    or with ``--live`` the live progressive preview driven by stdin commands
     (w/s/a/d/q/e, left/right/up/down, ``mouse dx dy``, r, quit)."""
     scene, camera, settings = _scene_and_settings(args, spp=args.spp)
     if args.live:
@@ -113,6 +117,7 @@ def cmd_view(args) -> int:
     radius = math.hypot(x0, z0)
     base_angle = math.atan2(z0, x0)
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=camera.position.device)
+    frames = []
     t0 = time.perf_counter()
     for i in range(args.frames):
         ang = base_angle + 2.0 * math.pi * i / args.frames
@@ -122,8 +127,18 @@ def cmd_view(args) -> int:
             yaw=f32(math.degrees(ang) + 180.0),  # look back at the origin
         )
         frame_path = os.path.join(args.out, f"frame_{i:04d}.png")
-        write_png(frame_path, film.to_u8(render_frame(scene, cam, settings, device=args.device), gamma=args.gamma))
+        u8 = film.to_u8(render_frame(scene, cam, settings, device=args.device), gamma=args.gamma)
+        write_png(frame_path, u8)
+        frames.append(u8)
         print(f"frame {i + 1}/{args.frames} -> {frame_path}", flush=True)
+    if args.gif:
+        from PIL import Image
+
+        imgs = [Image.fromarray(f) for f in frames]
+        imgs[0].save(
+            os.path.join(args.out, "turntable.gif"),
+            save_all=True, append_images=imgs[1:], duration=120, loop=0,
+        )
     print(f"{args.frames} frames in {time.perf_counter() - t0:.1f}s -> {args.out}")
     return 0
 
@@ -169,7 +184,7 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--warmup", type=int, default=1)
     pb.add_argument("--iters", type=int, default=3)
     pb.add_argument("--full", action="store_true",
-                    help="also run the per-config suite and the kernel microbenchmark (fwd+bwd always runs)")
+                    help="also run fwd+bwd, the per-config suite and the kernel microbenchmark")
     pb.set_defaults(fn=cmd_benchmark)
 
     pv = sub.add_parser("view", help="viewer: turntable orbit, or --live preview")
@@ -178,6 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--frames", type=int, default=12)
     pv.add_argument("--spp", type=int, default=None)
     pv.add_argument("--gamma", type=float, default=2.2)
+    pv.add_argument("--gif", action="store_true", help="also write the frames as turntable.gif (needs PIL)")
     pv.add_argument("--live", action="store_true", help="progressive live preview")
     pv.add_argument("--http", type=int, default=None, help="serve the live page on this port")
     pv.add_argument("--chunk-spp", type=int, default=2, help="samples per refinement chunk")

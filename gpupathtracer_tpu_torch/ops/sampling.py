@@ -91,18 +91,22 @@ class PcgSampler:
         return _uniform_from_bits(pcg4d(keys)[..., :n])
 
 
+def pixel_sample_key(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:
+    """Threefry keys (R, 2) per (pixel, sample): the sample id, then each
+    pixel id, folded into the base key's two words ``key_data``. They depend
+    only on the logical ids, never on how the pixels are laid out."""
+    base = torch.tensor([int(k) & _M32 for k in key_data], dtype=torch.int64, device=pixel_idx.device)
+    return threefry.fold_in(threefry.fold_in(base, sample_idx), pixel_idx.to(torch.int64))
+
+
 class ThreefrySampler:
     """``jax.random``'s threefry engine behind the same interface, batched
     over lanes: key rows are the two words of a threefry key (int64, R × 2).
-    ``path_keys`` folds the sample id, then each pixel id, into the base key
-    (the JAX package's ``pixel_sample_key``); ``fold`` folds a stream
-    constant into every row; ``uniform`` is ``jax.random.uniform(key, (n,))``
-    of every row."""
+    ``path_keys`` is ``pixel_sample_key``; ``fold`` folds a stream constant
+    into every row; ``uniform`` is ``jax.random.uniform(key, (n,))`` of
+    every row."""
 
-    @staticmethod
-    def path_keys(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:
-        base = torch.tensor([int(k) & _M32 for k in key_data], dtype=torch.int64, device=pixel_idx.device)
-        return threefry.fold_in(threefry.fold_in(base, sample_idx), pixel_idx.to(torch.int64))
+    path_keys = staticmethod(pixel_sample_key)
 
     @staticmethod
     def fold(keys: torch.Tensor, c: int) -> torch.Tensor:

@@ -119,6 +119,13 @@ def check_supported(options: IntegratorOptions) -> None:
         raise ValueError(f"unknown compact_mode {options.compact_mode!r}")
 
 
+def resolved_intersector(options: IntegratorOptions) -> str:
+    """The intersector that runs: "auto" is the kernel route ("pallas"),
+    whose wrappers launch the CUDA kernels on the card's tensors and run
+    their plain versions on the CPU's; any other name stands."""
+    return "pallas" if options.intersector == "auto" else options.intersector
+
+
 def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=None):
     """Closest-hit function ``(o, d, alive=None) -> Hit`` over the packed
     scene (packed here at ``options.tri_block`` unless ``packed`` is
@@ -129,18 +136,17 @@ def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=N
     not alive. The bvh intersector has none of its own and raises
     ValueError, as the JAX package's ``make_intersect_fn`` does."""
     check_supported(options)
-    if options.intersector == "bvh":
+    which = resolved_intersector(options)
+    if which == "bvh":
         raise ValueError("intersector 'bvh' has no intersect function of its own: render_frame builds the BVH "
                          "and passes intersect_bvh in, and no other path takes it (as in the JAX package)")
-    if options.intersector in _UNPACKED_INTERSECTORS:
+    if which in _UNPACKED_INTERSECTORS:
         return lambda o, d, alive=None: intersect_brute(
             o, d, scene, tri_block=options.tri_block, ray_chunk=options.ray_chunk
         )
     if packed is None:
         packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
-    fn = partial(
-        packed_intersect.intersect_packed, packed=packed, plain=options.intersector in _PLAIN_INTERSECTORS
-    )
+    fn = partial(packed_intersect.intersect_packed, packed=packed, plain=which in _PLAIN_INTERSECTORS)
     if options.sort_rays and not options.compact:
         return packed_intersect.make_sorted_intersect(fn, packed, key_mode=options.sort_key)
     return fn

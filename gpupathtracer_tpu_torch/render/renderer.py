@@ -92,6 +92,13 @@ def _integrator_options(s: RenderSettings) -> IntegratorOptions:
 _FULL_MATERIAL_SET = (0, 1, 2, 3)
 
 
+def scene_material_set(scene: TriangleScene) -> tuple:
+    """The sorted material types (``BxdfType`` values) that the scene's live
+    triangles use; all triangles' where none is live."""
+    mat_id = scene.mat_id[scene.valid] if bool(scene.valid.any()) else scene.mat_id
+    return tuple(sorted(int(t) for t in torch.unique(scene.materials.type[torch.unique(mat_id)])))
+
+
 def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSettings:
     """Narrow a still-default ``material_set`` to the types the scene's live
     triangles use, turn ``textured`` on when a live material uses a texture
@@ -114,9 +121,7 @@ def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSet
         if bool((scene.materials.tex_kind[used] > 0).any()):
             settings = dataclasses.replace(settings, textured=True)
     if tuple(settings.material_set) == _FULL_MATERIAL_SET:
-        mat_id = scene.mat_id[scene.valid] if bool(scene.valid.any()) else scene.mat_id
-        used = torch.unique(scene.materials.type[torch.unique(mat_id)])
-        settings = dataclasses.replace(settings, material_set=tuple(sorted(int(t) for t in used)))
+        settings = dataclasses.replace(settings, material_set=scene_material_set(scene))
     return settings
 
 

@@ -291,6 +291,82 @@ def test_cli_view_turntable_and_live(tmp_path, monkeypatch, capsys):
     assert "live view done (2 spp at exit)" in capsys.readouterr().out
 
 
+def _fake_turntable(monkeypatch) -> dict:
+    """Replace ``render_frame`` in both packages' renderer modules with one
+    deterministic image per camera yaw (whole degrees, so that the two
+    packages' float32 yaws give the same image); returns the yaws seen,
+    by package."""
+    from gpupathtracer_tpu.render import renderer as j_renderer
+    from gpupathtracer_tpu_torch.render import renderer as t_renderer
+
+    yaws = {"jax": [], "torch": []}
+
+    def fake(pkg):
+        def render(scene, cam, settings, *args, **kw):
+            yaw = float(np.asarray(cam.yaw))
+            yaws[pkg].append(yaw)
+            shape = (settings.height, settings.width, 3)
+            img = np.random.default_rng(round(yaw) % 360).uniform(0.0, 1.2, shape).astype(np.float32)
+            return torch.from_numpy(img) if pkg == "torch" else img
+
+        return render
+
+    monkeypatch.setattr(j_renderer, "render_frame", fake("jax"))
+    monkeypatch.setattr(t_renderer, "render_frame", fake("torch"))
+    return yaws
+
+
+def test_cli_view_gif_matches_jax(tmp_path, monkeypatch):
+    """``view --gif`` on the same frames: equal PNG frames and a
+    byte-identical ``turntable.gif`` (2 frames, 120 ms each, looping)."""
+    image = pytest.importorskip("PIL.Image")
+    from gpupathtracer_tpu import cli as j_cli
+
+    yaws = _fake_turntable(monkeypatch)
+    cfg = small_config(tmp_path, size=8, spp=1)
+    j_out, t_out = tmp_path / "jax", tmp_path / "torch"
+    assert j_cli.main(["view", cfg, "--frames", "2", "--gif", "--out", str(j_out)]) == 0
+    assert _cpu("view", cfg, "--frames", "2", "--gif", "--out", str(t_out)) == 0
+    assert len(yaws["torch"]) == len(yaws["jax"]) == 2
+    np.testing.assert_allclose(yaws["torch"], yaws["jax"], atol=1e-3)
+    assert sorted(os.listdir(t_out)) == sorted(os.listdir(j_out)) == [
+        "frame_0000.png", "frame_0001.png", "turntable.gif"]
+    for name in ("frame_0000.png", "frame_0001.png"):
+        with image.open(t_out / name) as got, image.open(j_out / name) as want:
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert (t_out / "turntable.gif").read_bytes() == (j_out / "turntable.gif").read_bytes()
+    with image.open(t_out / "turntable.gif") as gif:
+        assert (gif.n_frames, gif.info["duration"], gif.info["loop"]) == (2, 120, 0)
+
+
+def test_cli_view_gif_of_real_frames(tmp_path):
+    image = pytest.importorskip("PIL.Image")
+    cfg = small_config(tmp_path, size=8, spp=1)
+    out = tmp_path / "turn"
+    assert _cpu("view", cfg, "--frames", "2", "--spp", "1", "--gif", "--out", str(out)) == 0
+    with image.open(out / "turntable.gif") as gif:
+        assert (gif.n_frames, gif.size) == (2, (8, 8))
+
+
+def test_cli_view_gif_without_pil_raises_after_the_frames(tmp_path, monkeypatch):
+    """Without PIL, ``view --gif`` raises ImportError once the PNG frames
+    are written, in both packages. The JAX package's ``write_png`` needs PIL
+    itself, so its verb writes its frames with the port's writer, which
+    does not, to reach its GIF branch."""
+    from gpupathtracer_tpu import cli as j_cli
+    from gpupathtracer_tpu_torch.utils.image import write_png
+
+    _fake_turntable(monkeypatch)
+    monkeypatch.setattr(j_image, "write_png", write_png)
+    cfg = small_config(tmp_path, size=8, spp=1)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for name, main in (("jax", j_cli.main), ("torch", lambda argv: _cpu(*argv))):
+        out = tmp_path / name
+        with pytest.raises(ImportError):
+            main(["view", cfg, "--frames", "2", "--gif", "--out", str(out)])
+        assert sorted(os.listdir(out)) == ["frame_0000.png", "frame_0001.png"], name
+
+
 def test_cli_invert_albedo(tmp_path, capsys):
     assert _cpu("invert", "--steps", "2", "--size", "8", "--spp", "1", "--subdivisions", "1",
                 "--out", str(tmp_path)) == 0
@@ -355,21 +431,64 @@ def test_cli_render_takes_the_brute_intersector(tmp_path):
     np.testing.assert_array_equal(read_ppm(out), want)
 
 
-def test_cli_benchmark_prints_its_json(tmp_path, monkeypatch, capsys):
-    """The ``benchmark`` verb hands its flags and ``--device`` to
-    ``run_benchmark``, writes the result to the detail file and prints the
-    compact line last."""
+def _fake_run(seen: dict, pkg: str, result: dict):
+    """A ``run_benchmark`` that records its keywords under ``seen[pkg]``
+    and returns a copy of ``result``."""
+
+    def run(**kw):
+        seen[pkg] = kw
+        return dict(result)
+
+    return run
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["default", "full"])
+def test_cli_benchmark_prints_its_json(tmp_path, monkeypatch, capsys, full):
+    """The ``benchmark`` verb hands ``run_benchmark`` the keywords that the
+    JAX package's verb hands its own (``backward`` and ``full_suite`` both
+    from ``--full``), and ``--device`` besides, and prints the whole result
+    as its last line, as JAX's does; neither writes a detail file."""
+    from gpupathtracer_tpu import bench as j_bench
+    from gpupathtracer_tpu import cli as j_cli
     from gpupathtracer_tpu_torch import bench
 
     seen = {}
     fake = {"metric": "rays_per_sec_chip_fwd", "value": 1.0e8, "unit": "rays/s", "vs_baseline": 1.13,
-            "config": "x.toml", "fwd_bwd": {"rays_per_sec": 4.0e7}}
-    monkeypatch.setattr(bench, "run_benchmark", lambda **kw: seen.update(kw) or dict(fake))
-    monkeypatch.setattr(bench, "DETAIL_PATH", str(tmp_path / "detail.json"))
-    assert cli.main(["--device", "cpu", "benchmark", "--scene", "x.toml", "--iters", "2", "--full"]) == 0
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert seen == {"scene_path": "x.toml", "warmup": 1, "iters": 2, "full_suite": True, "device": "cpu"}
-    assert (line["value"], line["config"], line["fwd_bwd_rays_per_sec"], line["detail"]) == (
-        1.0e8, "x.toml", 4.0e7, "detail.json")
-    with open(tmp_path / "detail.json") as f:
+            "config": "x.toml", "fwd_bwd": {"rays_per_sec": 4.0e7}, "full_spp": {"rays_per_sec": 9.0e7}}
+    for pkg, module in (("jax", j_bench), ("torch", bench)):
+        monkeypatch.setattr(module, "run_benchmark", _fake_run(seen, pkg, fake))
+        monkeypatch.setattr(module, "DETAIL_PATH", str(tmp_path / f"{pkg}_detail.json"))
+    flags = ["benchmark", "--scene", "x.toml", "--iters", "2"] + (["--full"] if full else [])
+    assert j_cli.main(flags) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert cli.main(["--device", "cpu", *flags]) == 0
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert seen["jax"] == {"scene_path": "x.toml", "warmup": 1, "iters": 2, "backward": full, "full_suite": full}
+    assert seen["torch"] == {**seen["jax"], "device": "cpu"}
+    assert got == want and json.loads(got) == fake
+    assert os.listdir(tmp_path) == []
+
+
+def test_bench_main_keeps_its_detail_file_and_compact_line(tmp_path, monkeypatch, capsys):
+    """``python -m gpupathtracer_tpu_torch.bench`` runs ``run_benchmark``
+    with its defaults (fwd+bwd and the suite), as JAX's ``bench.main`` does,
+    writes the whole result to the detail file and prints the compact line
+    last."""
+    from gpupathtracer_tpu import bench as j_bench
+    from gpupathtracer_tpu_torch import bench
+
+    seen = {}
+    fake = {"metric": "rays_per_sec_chip_fwd", "value": 1.0e8, "unit": "rays/s", "vs_baseline": 1.13,
+            "config": "x.toml", "fwd_bwd": {"rays_per_sec": 4.0e7}, "configs": {"x.toml": {}}}
+    for pkg, module in (("jax", j_bench), ("torch", bench)):
+        monkeypatch.setattr(module, "run_benchmark", _fake_run(seen, pkg, fake))
+        monkeypatch.setattr(module, "DETAIL_PATH", str(tmp_path / f"{pkg}_detail.json"))
+    j_bench.main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    bench.main()
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert seen == {"jax": {}, "torch": {}}
+    assert got == {**want, "detail": "torch_detail.json"} and want["detail"] == "jax_detail.json"
+    assert (got["value"], got["fwd_bwd_rays_per_sec"]) == (1.0e8, 4.0e7)
+    with open(tmp_path / "torch_detail.json") as f:
         assert json.load(f) == fake

@@ -15,6 +15,7 @@ from gpupathtracer_tpu.models import scene as j_scene
 from gpupathtracer_tpu.models.camera import Camera as JCamera
 from gpupathtracer_tpu.models.camera import generate_rays_for_pixels as j_rays
 from gpupathtracer_tpu.render.renderer import narrow_settings as j_narrow
+from gpupathtracer_tpu.render.renderer import scene_material_set as j_material_set
 from gpupathtracer_tpu.utils.config import load_scene_file as j_load
 from gpupathtracer_tpu_torch import interop
 from gpupathtracer_tpu_torch.models import obj as t_obj
@@ -22,6 +23,7 @@ from gpupathtracer_tpu_torch.models import scene as t_scene
 from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels as t_rays
 from gpupathtracer_tpu_torch.models.materials import MaterialTable
 from gpupathtracer_tpu_torch.render.renderer import narrow_settings as t_narrow
+from gpupathtracer_tpu_torch.render.renderer import scene_material_set as t_material_set
 from gpupathtracer_tpu_torch.utils.config import load_scene_file as t_load
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
@@ -71,6 +73,19 @@ def test_config_loads_equal_jax(config):
     jn, tn = j_narrow(js, jst), t_narrow(ts, tst)
     assert (tn.sort_rays, tn.sort_key) == (jn.sort_rays, jn.sort_key)
     assert (tn.sort_rays, tn.sort_key) == ((True, "origin") if config == "config6_icosphere.toml" else (False, "dir"))
+
+
+@pytest.mark.parametrize("config", ["config3_icosphere.toml", "config5_invert_target.toml", "config8_icosphere.toml"])
+def test_scene_material_set_matches_jax(config):
+    """The material types of the live triangles; with no live triangle,
+    those of all triangles."""
+    path = os.path.join(SCENES, config)
+    js, _, _ = j_load(path)
+    ts, _, _ = t_load(path, device="cpu")
+    assert t_material_set(ts) == j_material_set(js)
+    dead_js = js.replace(valid=jnp.zeros_like(js.valid))
+    dead_ts = dataclasses.replace(ts, valid=torch.zeros_like(ts.valid))
+    assert t_material_set(dead_ts) == j_material_set(dead_js)
 
 
 def _random_mesh(pkg, rng, n):

@@ -141,6 +141,15 @@ def test_threefry_sampler_bit_equal(seed):
                                               np.asarray(js.ThreefrySampler.uniform(jf, n)))
 
 
+@pytest.mark.parametrize("seed", [0, 1234, 2**31 - 1])
+def test_pixel_sample_key_bit_equal(seed):
+    pixels = np.random.default_rng(seed % 1000).integers(0, 2**24, size=64).astype(np.uint32)
+    for sample in (0, 1, 255):
+        want = js.pixel_sample_key(jax.random.PRNGKey(seed), jnp.asarray(pixels), sample)
+        got = ts.pixel_sample_key(ts.prng_key_data(seed), torch.as_tensor(pixels.astype(np.int64)), sample)
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
 @pytest.mark.parametrize(
     "change",
     [
