@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build: nvcc builds the four kernel sources of csrc/ from this checkout,
    all started together, with ptxas's registers and shared memory per
    kernel, and each kernel's launch shape at its ray tile (128 rays for K1
-   and K2, 64 for K3 and K4) with its resident CTAs and warps per SM;
+   and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
+   every precision mode's instantiation (and K3's traversal-mode kernel);
    (once per resident pack of the naive and NEE paths, on the card: w is
    zero outside the 25 live slots that every kernel reads, and finite)
 3. the closest-hit kernel K1 against its plain PyTorch version at the naive
@@ -186,10 +187,38 @@ and the last modules: the staged wavefront and the bench:
     frame; its last line must be the whole result, with value > 0, the
     scene named and no fwd_bwd row; no detail file; K1 launches as its
     frames need), then the fwd+bwd row on the same scene with its own K1
-    launches, then _bench_kernel once;
-then the total wall time, a JSON line that summarises the four kernels, and
-a JSON result line last. Lines starting "elapsed:" mark where the time of
-the run goes.
+    launches, then _bench_kernel once (with its "mixed" rows);
+and the kernels' remaining modes:
+44. the precision modes "high", "mixed" and "default" of every kernel:
+    right after each kernel's check at "highest" (phases 3, 6 and 9, and
+    the K4 check of 11), on the same main-path inputs, the kernel under each
+    mode against its plain version at that mode (exact: the same packed
+    rows and bit-equal t, or every flag equal; the plain version timed once)
+    and against its own "highest" result by the JAX package's near-parity
+    bar (more than 99.5% of rays on the same triangle or flag; t to 1e-2
+    under "high", bit-equal under "mixed"; "default" reported only, as the
+    JAX package keeps it for diagnostics), with the median of 5 ms, the
+    bound at the mode's own operation count (its bf16 products at the
+    tensor cores' bf16 rate, its f32 adds at the f32 rate), and the
+    instantiation's
+    registers and CTAs per SM (phase 2 prints every instantiation's); after
+    phase 43, for each mode the config 3 stand-in's naive frame (800x800,
+    spp 4, 4 bounces), the config 8 stand-in's NEE frame and the config 6
+    stand-in's streamed NEE frame with kernel_precision set: launches,
+    frame time, and the image against the "highest" frame by the image bar
+    ("default" reported); then the bench's precision ladder rows
+    (fwd_exact_precision, fwd_high_precision);
+45. K3's traversal modes, right after phase 9's checks on its rays (the
+    config 6 stand-in's camera and bounce-1 rays): the 7 cases of the JAX
+    package's tests/test_stream_modes.py (budget, subtiles, fresh) through
+    intersect_packed, each bit-identical to the single-phase search, with
+    its K3 launches and its time against the single-phase time; one case at
+    "mixed"; and K3 with a budget of 1 cluster and the done flags, exactly
+    equal to its plain version, every live lane it reports done holding its
+    single-phase triangle and some left undone;
+then the total wall time, a JSON line that summarises every kernel under
+every mode, and a JSON result line last. Lines starting "elapsed:" mark
+where the time of the run goes.
 
 The naive path renders scenes/config3_icosphere.toml, the NEE path
 scenes/config8_icosphere.toml and the streamed path
@@ -210,6 +239,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -288,14 +318,37 @@ KERNELS = {
 
 # The least time the card could take (H100 SXM data sheet, dense, at the
 # 700 W limit): f32 outside the tensor cores, the precision the parity bar
-# needs, and device memory.
+# needs; bf16 on the tensor cores, the card's rate for a product of bf16
+# values summed in f32; and device memory.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # Per (lane, triangle column) of a visited block: one multiply and one add
 # for each of the 25 (scalar, feature row) slots that a packed column can
 # hold nonzero. The other 55 are structural zeros, and the bound counts what
 # these inputs need, as for a sparse product, not the dense 5 x 16 product.
 FLOP_PER_PAIR = 2 * len(LIVE_SLOTS)
+# The bf16 precision modes (packed_intersect.PRECISIONS) and their FLOP per
+# pair as (f32, bf16), counted as FLOP_PER_PAIR is: a multiply and an add
+# per FMA of each bf16 product chain (one for "default"; three for a split
+# slot: the 25 live slots for "high", the 18 edge slots for "mixed"),
+# priced at the bf16 rate; the two f32 adds that fold a split scalar's
+# chains (5 scalars for "high", 3 for "mixed") and "mixed"'s f32 D|num
+# slots, at the f32 rate. The kernels run the products as f32 FMAs on the
+# CUDA cores, so they sit far above such a bound.
+PRECISION_MODES = ("high", "mixed", "default")
+FLOP_PER_PAIR_AT = {
+    "highest": (FLOP_PER_PAIR, 0),
+    "high": (2 * 5, 2 * 3 * len(LIVE_SLOTS)),
+    "mixed": (2 * 3 + 2 * (len(LIVE_SLOTS) - 18), 2 * 3 * 18),
+    "default": (0, FLOP_PER_PAIR),
+}
+# The JAX package's near-parity bar of a bf16 mode against "highest"
+# (tests/test_pallas_kernel.py): more than 99.5% of rays on the same
+# triangle, t to rtol = atol = 1e-2 ("high") or bit-equal ("mixed"). Its
+# "default" is for diagnostics only and has no bar: reported, not held.
+NEAR_AGREE = 0.995
+NEAR_T_TOL = 1e-2
 
 # Parity bars of the reference's own on-chip tests (tests_tpu/test_onchip.py).
 HIT_AGREE = 0.9995  # share of rays with the same winning triangle
@@ -365,12 +418,28 @@ def phase_build() -> None:
     print(f"build: nvcc, {len(reports)} sources in parallel, {dt:.2f} s: " + "; ".join(parts), flush=True)
     for name in _build.OCCUPANCY:
         ray_tile = STREAM_RAY_TILE if name.endswith("_streamed") else DEFAULT_RAY_TILE
-        occ = packed_intersect.launch_occupancy(name, ray_tile)
-        # K1 and K3 are templates on rays a thread: their entries' names carry ILi<rpt>E.
-        used = [u for e, u in ptxas_usage(reports[name]).items()
-                if "ILi" not in e or f"ILi{occ['rays_per_thread']}E" in e]
-        occ["ptxas"] = "; ".join(used)
-        print(f"occupancy {name}: {json.dumps(occ)}", flush=True)
+        for precision in packed_intersect.PRECISIONS:
+            for modes in (False, True) if name == "closest_hit_streamed" else (False,):
+                occ = packed_intersect.launch_occupancy(name, ray_tile, precision, modes)
+                # The entries are templates on rays a thread (K1, K3), the
+                # precision and K3's modes: <rpt, p>, <p> or <rpt, p, modes>
+                # in their mangled names.
+                p = packed_intersect.PRECISIONS.index(precision)
+                args = f"ILi{occ['rays_per_thread']}ELi{p}E" if name.startswith("closest_hit") else f"ILi{p}E"
+                if name == "closest_hit_streamed":
+                    args += f"Lb{int(modes)}E"
+                entry = f"{name}_kernel{args}E"
+                occ["modes"] = modes
+                occ["ptxas"] = "; ".join(u for e, u in ptxas_usage(reports[name]).items() if entry in e)
+                if not occ["ptxas"]:
+                    raise AssertionError(f"no ptxas report of {entry} in the build of {name}")
+                OCCUPANCY_ROWS[(name, precision, modes)] = occ
+                print(f"occupancy {name}: {json.dumps(occ)}", flush=True)
+
+
+# Each kernel instantiation's occupancy row (phase_build), by (library,
+# precision, modes).
+OCCUPANCY_ROWS = {}
 
 
 def phase_live_zeros(label: str, packed) -> None:
@@ -389,12 +458,15 @@ def phase_live_zeros(label: str, packed) -> None:
         raise AssertionError(f"the {route} pack {label} breaks the live-slot contract: {row}")
 
 
-def bound(flop: float, nbytes: float) -> dict:
-    """The least time for ``flop`` f32 operations moving ``nbytes``, and
-    which of the two bounds it."""
-    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flop: float, nbytes: float, bf16_flop: float = 0) -> dict:
+    """The least time for ``flop`` f32 and ``bf16_flop`` bf16 operations
+    moving ``nbytes``, and which of the two bounds it. The tensor cores and
+    the f32 units run side by side, so the operations take the longer of
+    the two types' times."""
+    t_ops = max(flop / PEAK_F32_FLOPS, bf16_flop / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return {
-        "flop": flop, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "flop": flop, "bf16_flop": bf16_flop, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
 
@@ -445,9 +517,9 @@ def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str,
     captured = []
     plain = getattr(packed_intersect, plain_name)
 
-    def capture(*args):
+    def capture(*args, **kwargs):
         captured.append(args)
-        return plain(*args)
+        return plain(*args, **kwargs)
 
     # The search is looked up when it is called.
     setattr(packed_intersect, plain_name, capture)
@@ -461,15 +533,20 @@ def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str,
 
 
 def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5, exact: bool = False,
-              rows_exact: bool = False, plain_reps: int | None = None) -> dict:
+              rows_exact: bool = False, plain_reps: int | None = None,
+              flop_per_pair: tuple[int, int] = FLOP_PER_PAIR_AT["highest"]) -> dict:
     """A closest-hit kernel against its plain version on the same inputs;
     ``exact`` also requires the same packed row and a bit-equal t on every
     lane, ``rows_exact`` the same packed row only. The plain version is
-    timed over ``plain_reps`` runs (``reps`` unless given)."""
+    timed over ``plain_reps`` runs (``reps`` unless given; 0: the one run
+    that counts its work). The bound counts ``flop_per_pair`` (f32, bf16)."""
     device = args[0].device
     bt_k, bi_k = kernel(*args)
+    _sync(device)
+    t0 = time.perf_counter()
     bt_r, bi_r, work = plain(*args, count_work=True)
     _sync(device)
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
     tri_map = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
     tri_k, tri_r = tri_map(bi_k), tri_map(bi_r)
     agree = (tri_k == tri_r).double().mean().item()
@@ -480,8 +557,9 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
     same_row = (bi_k == bi_r).double().mean().item()
     t_equal = bool(torch.equal(bt_k, bt_r))
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
-    plain_ms = median_ms(lambda: plain(*args), device, plain_reps or reps)
-    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block, _nbytes(*args, bt_k, bi_k))
+    plain_ms = plain_once_ms if plain_reps == 0 else median_ms(lambda: plain(*args), device, plain_reps or reps)
+    pairs = work["lane_blocks"] * packed.tri_block
+    b = bound(flop_per_pair[0] * pairs, _nbytes(*args, bt_k, bi_k), flop_per_pair[1] * pairs)
     ray_tile = args[-1]
     row = {
         "rays": args[-4].shape[0], "tri_block": packed.tri_block,
@@ -543,21 +621,27 @@ def phase_split(label: str, o, d, packed, k3_row: dict) -> dict:
 
 
 def occlusion_check(name: str, label: str, kernel, plain, args, reps: int = 5, exact: bool = False,
-                    plain_reps: int | None = None) -> dict:
+                    plain_reps: int | None = None,
+                    flop_per_pair: tuple[int, int] = FLOP_PER_PAIR_AT["highest"]) -> dict:
     """An any-hit kernel against its plain version on the same inputs;
     ``exact`` requires every flag equal. The plain version is timed over
-    ``plain_reps`` runs (``reps`` unless given)."""
+    ``plain_reps`` runs (``reps`` unless given; 0: the one run that counts
+    its work). The bound counts ``flop_per_pair`` (f32, bf16)."""
     feats, maxt, w = args[-4], args[-3], args[-2]
     device = feats.device
     occ_k = kernel(*args)
+    _sync(device)
+    t0 = time.perf_counter()
     occ_r, work = plain(*args, count_work=True)
     _sync(device)
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
     agree = (occ_k == occ_r).double().mean().item()
     dead_occluded = int((occ_k[maxt == 0] != 0).sum())
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
-    plain_ms = median_ms(lambda: plain(*args), device, plain_reps or reps)
+    plain_ms = plain_once_ms if plain_reps == 0 else median_ms(lambda: plain(*args), device, plain_reps or reps)
     tb = w.shape[2] // NSCALARS
-    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * tb, _nbytes(*args, occ_k))
+    pairs = work["lane_blocks"] * tb
+    b = bound(flop_per_pair[0] * pairs, _nbytes(*args, occ_k), flop_per_pair[1] * pairs)
     row = {
         "rays": feats.shape[0], "live_rays": int((maxt > 0).sum()), "tri_block": tb, "ray_tile": args[-1],
         "occluded_share": (occ_r > 0).double().mean().item(), "same_flag": agree,
@@ -1742,7 +1826,8 @@ def phase_bench(device) -> dict:
     K1 launches against the count its frames need and no detail file
     written; then the fwd+bwd row (``bench._bench_backward`` on the same
     scene at the verb's spp) with its own launch bar; then _bench_kernel
-    once (its 12 K1 launches), and K1 against its plain version on
+    once (its 24 K1 launches: three ray sets at "highest" and at "mixed",
+    each a warm-up and 3 timed calls), and K1 against its plain version on
     _bench_kernel's pack and rays: the coherent and the incoherent rays
     exactly, and the incoherent rays behind the origin-key sort
     (``sorted_hit_check``)."""
@@ -1805,7 +1890,7 @@ def phase_bench(device) -> dict:
     ok = (rc == 0 and result["value"] > 0 and result["config"] == os.path.basename(SCENE) and launches == expect
           and "fwd_bwd" not in result and not detail_written and row["first_line_parses"]
           and fwd_bwd["rays_per_sec"] > 0 and fwd_bwd_launches == fwd_bwd_expect
-          and kernel_launches == expect_launches(closest_hit=3 * (1 + iters)))
+          and kernel_launches == expect_launches(closest_hit=6 * (1 + iters)))
     if not ok:
         raise AssertionError(f"bench: {result} {row}")
     return {"verb": row, "fwd_bwd": row["fwd_bwd"], "kernel": {"launches": kernel_launches, **kernel}}
@@ -1843,11 +1928,203 @@ def sorted_hit_check(label: str, o, d, packed) -> dict:
     return row
 
 
-def kernel_summary(name: str, rows, launches: int, launches_by_path: dict) -> dict:
+def precision_checks(name: str, label: str, kernel, plain, args, packed=None) -> dict:
+    """Phase 44 on one kernel's main-path inputs ``args``: the kernel under
+    each bf16 mode against its plain version at that mode (exact: the same
+    packed rows and bit-equal t, or every flag equal; the plain version
+    timed once), and against the kernel's own "highest" result by the JAX
+    package's near-parity bar (``NEAR_AGREE``; "default" reported only),
+    with the instantiation's registers and CTAs per SM. ``packed`` for a
+    closest hit (K1, K3), None for an any hit (K2, K4)."""
+    base = kernel(*args)
+    lib = os.path.basename(KERNELS[name]["source"]).removesuffix(".cu")
+    rows = {}
+    for mode in PRECISION_MODES:
+        k, p = partial(kernel, precision=mode), partial(plain, precision=mode)
+        flop = FLOP_PER_PAIR_AT[mode]
+        if packed is not None:
+            row = hit_check(name, f"{label} at {mode}", k, p, args, packed, exact=True, plain_reps=0, flop_per_pair=flop)
+            bt0, bi0 = base
+            bt, bi = k(*args)
+            tri = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
+            agree = tri(bi) == tri(bi0)
+            same = agree & (bi0 >= 0)
+            dt = (bt[same] - bt0[same]).abs()
+            near = {"same_tri_vs_highest": agree.double().mean().item(),
+                    "max_abs_dt_vs_highest": dt.max().item() if dt.numel() else 0.0,
+                    "t_equal_vs_highest": bool(torch.equal(bt[same], bt0[same])),
+                    "t_ok_vs_highest": bool((dt <= NEAR_T_TOL + NEAR_T_TOL * bt0[same].abs()).all())}
+            held = near["same_tri_vs_highest"] > NEAR_AGREE and (
+                near["t_equal_vs_highest"] if mode == "mixed" else near["t_ok_vs_highest"])
+        else:
+            row = occlusion_check(name, f"{label} at {mode}", k, p, args, exact=True, plain_reps=0, flop_per_pair=flop)
+            near = {"same_flag_vs_highest": (k(*args) == base).double().mean().item()}
+            held = near["same_flag_vs_highest"] > NEAR_AGREE
+        _sync(args[0].device)
+        occ = OCCUPANCY_ROWS[(lib, mode, False)]
+        row.update(near, precision=mode, ptxas=occ["ptxas"], ctas_per_sm=occ["ctas_per_sm"], threads=occ["threads"])
+        bar = ("none (diagnostics only, as in the JAX package)" if mode == "default" else
+               f"same triangle or flag > {NEAR_AGREE}" + ("" if packed is None else
+                                                          ", t bit-equal" if mode == "mixed" else f", |dt| <= {NEAR_T_TOL}"))
+        print(f"precision {name} {label} at {mode} against highest (bar: {bar}): "
+              f"{json.dumps({**near, 'ms': row['ms'], 'ptxas': occ['ptxas'], 'ctas_per_sm': occ['ctas_per_sm']})}",
+              flush=True)
+        if mode != "default" and not held:
+            raise AssertionError(f"{name} {label} at {mode} misses the near-parity bar against highest: {near}")
+        rows[mode] = row
+    return rows
+
+
+def phase_precision_frames(device) -> dict:
+    """Phase 44's paths: for each bf16 mode, the config 3 stand-in's naive
+    frame (800x800, spp 4, 4 bounces; K1), the config 8 stand-in's NEE frame
+    (512x512, spp 4, 3 bounces; K1, K2) and the config 6 stand-in's streamed
+    NEE frame (800x800, spp 1, 3 bounces; K3, K4) with kernel_precision
+    set: launches (counts set to 0 just before each frame), the median of 3
+    frame times, and the image against the "highest" frame of the same
+    seed, held to the image bar ("default" reported only). Then the bench's
+    precision ladder rows on the config 3 stand-in."""
+    cases = [
+        ("config3 naive", SCENE, {"spp": 4}, lambda st: expect_launches(closest_hit=st.spp * st.bounces)),
+        ("config8 nee", NEE_SCENE, {"spp": 4},
+         lambda st: expect_launches(closest_hit=st.spp * (st.bounces + 1), occluded=st.spp * (st.bounces - 1))),
+        ("config6 streamed nee", STREAM_SCENE, {"spp": 1, "bounces": 3, "estimator": "nee"},
+         lambda st: expect_launches(closest_hit_streamed=st.spp * (st.bounces + 1),
+                                    occluded_streamed=st.spp * (st.bounces - 1))),
+    ]
+    out = {mode: {} for mode in PRECISION_MODES}
+    for label, path, change, expect in cases:
+        scene, camera, settings = load_scene_file(path, device=device)
+        settings = dataclasses.replace(settings, **change)
+        ref = render_frame(scene, camera, settings)
+        highest_s = phase_full_frame(f"{label}, kernel_precision highest", scene, camera, settings,
+                                     expect(settings))["frame_s"]
+        for mode in PRECISION_MODES:
+            st = dataclasses.replace(settings, kernel_precision=mode)
+            row = phase_full_frame(f"{label}, kernel_precision {mode}", scene, camera, st, expect(st))
+            row.update(image_diff(render_frame(scene, camera, st), ref), highest_frame_s=highest_s,
+                       over_highest=row["frame_s"] / highest_s)
+            print(f"precision frame {label} at {mode} against highest (bar: "
+                  f"{'none' if mode == 'default' else f'mean|diff| < {IMG_MEAN}, off share < {IMG_OFF_SHARE}'}): "
+                  f"{json.dumps({k: row[k] for k in ('mean_abs_diff', 'off_share', 'pixels_differ', 'frame_s', 'over_highest')})}",
+                  flush=True)
+            if mode != "default" and not meets_image_bar(row):
+                raise AssertionError(f"{label} at {mode} misses the image bar against highest: {row}")
+            out[mode][label] = row
+        del scene, ref
+    scene, camera, settings = load_scene_file(SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    ladder = {}
+    for key, precision in bench.PRECISION_LADDER:
+        _reset_launches()
+        ladder[key] = bench._bench_frame(scene, camera, dataclasses.replace(settings, kernel_precision=precision),
+                                         iters=3, device=device)
+        ladder[key]["launches"] = _launch_counts()
+    print(f"bench precision ladder on {os.path.basename(SCENE)} (bar: rays/s > 0, K1 launches of 4 frames): "
+          f"{json.dumps(ladder)}", flush=True)
+    want = expect_launches(closest_hit=4 * settings.spp * settings.bounces)
+    if any(r["rays_per_sec"] <= 0 or r["launches"] != want for r in ladder.values()):
+        raise AssertionError(f"bench precision ladder: {ladder}")
+    return {"frames": out, "ladder": ladder}
+
+
+# (budget, subtiles, fresh): the JAX package's cases (tests/test_stream_modes.py).
+STREAM_MODE_CASES = ((1, 1, False), (2, 1, False), (0, 2, False), (0, 4, False), (2, 4, False), (0, 1, True),
+                     (2, 1, True))
+
+
+@contextlib.contextmanager
+def stream_modes(budget: int = 0, subtiles: int = 1, fresh: bool = False):
+    """The streamed closest hit's traversal-mode constants set for a block."""
+    names = ("STREAM_PHASE1_BUDGET", "STREAM_SUBTILES", "STREAM_FRESH_WORST")
+    saved = [getattr(packed_intersect, n) for n in names]
+    for n, v in zip(names, (budget, subtiles, fresh)):
+        setattr(packed_intersect, n, v)
+    try:
+        yield
+    finally:
+        for n, v in zip(names, saved):
+            setattr(packed_intersect, n, v)
+
+
+def phase_stream_modes(rays) -> dict:
+    """Phase 45, K3's traversal modes on the config 6 stand-in's camera and
+    bounce-1 rays (``rays``: (label, o, d, packed)): each case of
+    ``STREAM_MODE_CASES`` through intersect_packed gives t, tri and hit
+    bit-identical to the single-phase search, with its K3 launches (counts
+    set to 0 just before, 2 with a budget) and its median time of 5 against
+    the single-phase one's; one case at "mixed" against single-phase at
+    "mixed"; then the budgeted search (budget 1) on the bounce-1 rays:
+    kernel against plain version exactly (rows, t and done flags), and
+    every live lane it reports done holds its single-phase triangle, with
+    some lanes left undone."""
+    out = {"cases": [], "launches": 0}
+    for label, o, d, packed in rays:
+        device = o.device
+        search = lambda precision="highest": packed_intersect.intersect_packed(o, d, packed, precision=precision)
+        ref = search()
+        single_ms = median_ms(search, device)
+        for budget, subtiles, fresh in STREAM_MODE_CASES:
+            with stream_modes(budget, subtiles, fresh):
+                _reset_launches()
+                h = search()
+                _sync(device)
+                launches = _launch_counts()
+                ms = median_ms(search, device)
+            want = expect_launches(closest_hit_streamed=2 if budget else 1)
+            row = {"rays": label, "budget": budget, "subtiles": subtiles, "fresh": fresh,
+                   "identical": all(torch.equal(getattr(h, f), getattr(ref, f)) for f in ("t", "tri", "hit")),
+                   "launches": launches, "ms": ms, "single_phase_ms": single_ms, "over_single": ms / single_ms}
+            print(f"stream modes {label} (bar: t, tri, hit bit-identical to single-phase; launches {want}): "
+                  f"{json.dumps(row)}", flush=True)
+            if not row["identical"] or launches != want:
+                raise AssertionError(f"stream modes {label}: {row}")
+            out["cases"].append(row)
+            out["launches"] += launches["closest_hit_streamed"]
+        with stream_modes(2, 4, False):
+            h = search("mixed")
+        ref_mixed = search("mixed")
+        _sync(device)
+        if not all(torch.equal(getattr(h, f), getattr(ref_mixed, f)) for f in ("t", "tri", "hit")):
+            raise AssertionError(f"stream modes {label}: budget 2, subtiles 4 at mixed differs from single-phase")
+        print(f"stream modes {label}: budget 2, subtiles 4 at mixed bit-identical to single-phase at mixed", flush=True)
+    label, o, d, packed = rays[-1]
+    args = prepare_rays_streamed(o, d, packed) + (STREAM_RAY_TILE,)
+    kernel = partial(closest_hit_streamed, budget=1, with_done=True)
+    plain = partial(closest_hit_streamed_reference, budget=1, with_done=True)
+    bt, bi, done = kernel(*args)
+    _sync(o.device)
+    t0 = time.perf_counter()
+    bt_r, bi_r, done_r, work = plain(*args, count_work=True)
+    _sync(o.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = packed_intersect.intersect_packed(o, d, packed)
+    r = o.shape[0]
+    live = args[4] > 0
+    tri = torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)[:r]
+    done_live = ((done > 0) & live)[:r]
+    b = bound(FLOP_PER_PAIR * work["lane_blocks"] * packed.tri_block, _nbytes(*args, bt, bi, done))
+    row = {"rays": r, "budget": 1, "exact": bool(torch.equal(bt, bt_r) and torch.equal(bi, bi_r)
+                                                 and torch.equal(done, done_r)),
+           "max_abs_err": (bt - bt_r)[bi_r >= 0].abs().max().item() if bool((bi_r >= 0).any()) else 0.0,
+           "done_live": int(done_live.sum()), "undone_live": int(((done == 0) & live).sum()),
+           "done_sound": bool(torch.equal(tri[done_live], ref.tri[done_live])),
+           "ms": median_ms(lambda: kernel(*args), o.device), "plain_ms": plain_ms,
+           "visited_blocks": work["blocks"], "lane_blocks": work["lane_blocks"], **b}
+    print(f"stream modes {label}, budget 1 with done flags (bar: kernel = plain exactly, done lanes hold their "
+          f"single-phase triangle, some live lanes undone): {json.dumps(row)}", flush=True)
+    if not (row["exact"] and row["done_sound"] and row["undone_live"] > 0):
+        raise AssertionError(f"stream modes, budget 1: {row}")
+    out["done_check"] = row
+    return out
+
+
+def kernel_summary(name: str, rows, launches: int, launches_by_path: dict, label: str | None = None) -> dict:
     """The summary entry of one kernel over its checks at main-path shapes."""
-    b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows))
+    b = bound(sum(r["flop"] for r in rows), sum(r["bytes"] for r in rows), sum(r["bf16_flop"] for r in rows))
     return {
-        "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
+        "name": label or name, "route": "cuda", "source": KERNELS[name]["source"],
+        "replaces": KERNELS[name]["replaces"],
         "launches": launches, "launches_by_path": launches_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -1879,6 +2156,11 @@ def main() -> None:
         phase_kernel_check("camera rays", o, d, packed),
         phase_kernel_check("bounce-1 rays", o2, d2, packed2),
     ]
+    mode_rows = {"closest_hit": [
+        precision_checks("closest_hit", label, closest_hit, closest_hit_reference,
+                         prepare_rays(oo, dd, p) + (p.w, DEFAULT_RAY_TILE), p)
+        for label, oo, dd, p in (("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2))
+    ]}
     # What a rank of a 1x2 scene axis searches: the same rays against scene
     # shard 1 of 2, packed at the one width the sharded frames use.
     shard3 = pack_scene(scene_shard(scene, 2, 1), tri_block=settings.tri_block)
@@ -1908,10 +2190,10 @@ def main() -> None:
     packed2 = pack_scene(scene, tri_block=settings.tri_block_secondary)
     for p in (packed, packed2):
         phase_live_zeros(f"config8 tb {p.tri_block}", p)
-    k2_row = occlusion_check(
-        "occluded", "bounce-1 shadow rays", occluded, occluded_reference,
-        nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference"), exact=True,
-    )
+    k2_args = nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference")
+    k2_row = occlusion_check("occluded", "bounce-1 shadow rays", occluded, occluded_reference, k2_args, exact=True)
+    mode_rows["occluded"] = [precision_checks("occluded", "bounce-1 shadow rays", occluded, occluded_reference, k2_args)]
+    del k2_args
     for estimator in ("nee", "mis"):
         phase_image_check(scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2)
     nee_expect = lambda st: expect_launches(
@@ -1944,6 +2226,13 @@ def main() -> None:
         phase_streamed_check("camera rays", o, d, packed),
         phase_streamed_check("bounce-1 rays", o2, d2, packed2),
     ]
+    mode_rows["closest_hit_streamed"] = [
+        precision_checks("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference,
+                         prepare_rays_streamed(oo, dd, p) + (STREAM_RAY_TILE,), p)
+        for label, oo, dd, p in (("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2))
+    ]
+    elapsed("K3's traversal modes")
+    k3_modes = phase_stream_modes([("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2)])
     shard6 = pack_scene(scene_shard(scene, 2, 1), tri_block=settings.tri_block)
     phase_live_zeros("config6 scene shard 1 of 2", shard6)
     k3_shard_rows = [
@@ -1963,10 +2252,12 @@ def main() -> None:
         scene, camera, settings, packed, packed2, k3_rows[1],
     )
     nee_settings = dataclasses.replace(settings, estimator="nee")
-    k4_row = occlusion_check(
-        "occluded_streamed", "bounce-1 shadow rays", occluded_streamed, occluded_streamed_reference,
-        nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference"),
-    )
+    k4_args = nee_shadow_inputs(scene, camera, nee_settings, packed, packed2, "occluded_streamed_reference")
+    k4_row = occlusion_check("occluded_streamed", "bounce-1 shadow rays", occluded_streamed,
+                             occluded_streamed_reference, k4_args)
+    mode_rows["occluded_streamed"] = [precision_checks("occluded_streamed", "bounce-1 shadow rays", occluded_streamed,
+                                                       occluded_streamed_reference, k4_args)]
+    del k4_args
     k4_mask_row = occlusion_check(
         "occluded_streamed", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)",
         occluded_streamed, occluded_streamed_reference,
@@ -2047,6 +2338,8 @@ def main() -> None:
     pipelined = phase_pipeline(device)
     elapsed("bench")
     bench_rows = phase_bench(device)
+    elapsed("precision paths")
+    precision = phase_precision_frames(device)
     print(json.dumps({"scene_shard_checks": {"closest_hit": k1_shard_rows, "closest_hit_streamed": k3_shard_rows}}),
           flush=True)
 
@@ -2078,6 +2371,15 @@ def main() -> None:
         kernel_summary("occluded_streamed", [k4_row], streamed_nee["launches"]["occluded_streamed"],
                        by_path("occluded_streamed")),
     ]
+    for mode in PRECISION_MODES:
+        frames = precision["frames"][mode]
+        for name in KERNELS:
+            by = {f"{path} at {mode}": r["launches"][name] for path, r in frames.items()}
+            summary.append(kernel_summary(name, [r[mode] for r in mode_rows[name]], sum(by.values()), by,
+                                          label=f"{name} ({mode})"))
+    summary.append(kernel_summary(
+        "closest_hit_streamed", [k3_modes["done_check"]], k3_modes["launches"],
+        {"K3 traversal mode cases": k3_modes["launches"]}, label="closest_hit_streamed (budget, subtiles, fresh)"))
     mask_rows = {"closest_hit": k1_mask_row, "occluded": k2_mask_row, "closest_hit_streamed": k3_mask_row,
                  "occluded_streamed": k4_mask_row}
     print(json.dumps({"mask_mode_checks": {k: {f: r[f] for f in ("ms", "max_abs_err", "bound_ms")}

@@ -12,13 +12,16 @@ line, with no detail file, as the JAX package's verb does:
   ``utils/config.py`` finds its mesh, else the stand-in
   ``scenes/config3_icosphere.toml``, named in ``config``), and the
   forward+backward rays/s of the bench loss, mean(image) in ``v0`` and the
-  material albedo;
+  material albedo, followed by the JAX package's precision ladder: the
+  forward rows ``fwd_exact_precision`` (``kernel_precision="highest"``) and
+  ``fwd_high_precision`` ("high");
 - ``configs``: forward and forward+backward rays/s for every config of the
   JAX package's suite and the three stand-ins ``config{3,6,8}_icosphere``;
   a config whose mesh is absent gets an ``{"error": ...}`` entry;
 - ``kernel``: K1 on 640,000 coherent camera rays, 640,000 incoherent rays,
   and the incoherent rays behind the origin-key sort, as ray-triangle tests
-  a second (``kernel_inputs`` makes the pack and the rays);
+  a second (``kernel_inputs`` makes the pack and the rays), each at
+  "highest" and, as the JAX package's ``mixed_*`` keys, at "mixed";
 - ``full_spp``: one frame at the config's own spp, summed over 32-sample
   chunks of ``render_samples``.
 
@@ -93,6 +96,10 @@ CONFIG_SUITE = [
     ("config6_icosphere.toml", 2),
     ("config8_icosphere.toml", 4),
 ]
+
+# The precision ladder that follows the fwd+bwd row, as the JAX package's:
+# (result key, kernel_precision) of each forward row.
+PRECISION_LADDER = (("fwd_exact_precision", "highest"), ("fwd_high_precision", "high"))
 
 # Configs whose own spp gets one full run (besides the headline's).
 SPEC_SPP_SUITE = ["config2_cornell.toml", "config4_occlusion.toml"]
@@ -197,7 +204,8 @@ def kernel_inputs(device="cuda"):
 
 def _bench_kernel(iters: int = 3, device="cuda") -> dict:
     """K1 on ``kernel_inputs``: the coherent rays, the incoherent rays, and
-    the incoherent rays behind the origin-key sort. Tests/s count every
+    the incoherent rays behind the origin-key sort, at "highest" and (the
+    ``mixed_*`` keys, as the JAX package's) at "mixed". Tests/s count every
     (ray, packed row) pair, as if no block were culled.
     ``dense_tflops_incoherent`` is the FLOP of that dense product over
     the incoherent call's time: the kernel skips the culled blocks and the
@@ -205,14 +213,19 @@ def _bench_kernel(iters: int = 3, device="cuda") -> dict:
     any peak."""
     packed, (o_c, d_c), (o_i, d_i) = kernel_inputs(device)
     search = partial(packed_intersect.intersect_packed, packed=packed)
-    sorted_search = packed_intersect.make_sorted_intersect(search, packed, key_mode="origin")
+    mixed = partial(search, precision="mixed")
 
     def timed(fn, o, d):
         return _timed(lambda i: float(fn(o + i * 1e-6, d).t[::4096].sum()), iters)[0]
 
+    def sorted_ms(precision):
+        fn = packed_intersect.make_sorted_intersect(search, packed, key_mode="origin", precision=precision)
+        return timed(fn, o_i, d_i) * 1e3
+
     dt_c = timed(search, o_c, d_c)
     dt_i = timed(search, o_i, d_i)
-    dt_s = timed(sorted_search, o_i, d_i)
+    dt_cm = timed(mixed, o_c, d_c)
+    dt_im = timed(mixed, o_i, d_i)
     n_rows = packed.w.shape[0] * packed.tri_block
     tests = o_c.shape[0] * n_rows
     return {
@@ -221,7 +234,12 @@ def _bench_kernel(iters: int = 3, device="cuda") -> dict:
         "incoherent_tests_per_s": tests / dt_i,
         "coherent_ms": dt_c * 1e3,
         "incoherent_ms": dt_i * 1e3,
-        "incoherent_sorted_ms": dt_s * 1e3,
+        "mixed_coherent_ms": dt_cm * 1e3,
+        "mixed_incoherent_ms": dt_im * 1e3,
+        "mixed_coherent_tests_per_s": tests / dt_cm,
+        "mixed_incoherent_tests_per_s": tests / dt_im,
+        "incoherent_sorted_ms": sorted_ms("highest"),
+        "mixed_incoherent_sorted_ms": sorted_ms("mixed"),
         "dense_tflops_incoherent": 2.0 * tests * K * NSCALARS / dt_i / 1e12,
     }
 
@@ -308,6 +326,11 @@ def run_benchmark(
     if backward:
         result["fwd_bwd"] = skipped() if over_budget() else _bench_backward(
             scene, camera, settings, iters, warmup, device)
+        # The JAX package's precision ladder on the same frame ("auto" is
+        # "highest" here; on a TPU the JAX package's headline is "mixed").
+        for key, precision in PRECISION_LADDER:
+            st = dataclasses.replace(settings, kernel_precision=precision)
+            result[key] = skipped() if over_budget() else _bench_frame(scene, camera, st, iters, warmup, device)
 
     if full_suite:
         configs = {}

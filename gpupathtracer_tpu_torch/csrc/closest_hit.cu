@@ -14,8 +14,11 @@
 //   w      float (nb, 16, 5*tb) triangle columns [s0 | s1 | s2 | D | num]
 //                               from pack_scene (only the live slots are read)
 // Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
+// For the bf16 precision modes, w is operand a and w_lo operand b of
+// stream_stage.cuh (the wrapper's `_kernel_operands`); HIGHEST reads w only.
 //
-// Semantics, as the TPU kernel: lanes start at BIG (live) or -inf (dead)
+// Semantics, as the TPU kernel, at each of its precisions (the decision
+// products of stream_stage.cuh's live_dots): lanes start at BIG (live) or -inf (dead)
 // with best_i -1, and the tile's worst at +inf. The loop takes schedule
 // positions j while j < nb and enter[j] < worst. Accept iff max(s0, s1, s2)
 // <= 0 and D <= -1e-6 and num < 1e-6 * D, then t = num / D (IEEE division),
@@ -57,15 +60,15 @@ namespace {
 
 using namespace stream;
 
-template <int RPT>
+template <int RPT, int P>
 __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     closest_hit_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                        const float* __restrict__ feats, const int* __restrict__ alive,
-                       const float* __restrict__ w, float* __restrict__ best_t_out, int* __restrict__ best_i_out,
-                       int nb, int tb, int ray_tile, int groups) {
+                       const float* __restrict__ w, const float* __restrict__ w_lo, float* __restrict__ best_t_out,
+                       int* __restrict__ best_i_out, int nb, int tb, int ray_tile, int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
-  float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
+  float* fold_t = reinterpret_cast<float*>(smem + STAGES * stage_float4<P>());  // (groups, ray_tile)
   int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);        // (groups, ray_tile)
   __shared__ float warp_max[32];
 
@@ -76,27 +79,27 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   // Group 0 holds the running best of its rays; every group its least
   // (t, row) in the current block.
   int lane[RPT];  // ray within the tile
-  float f[RPT][NF];
+  RayFeatures<P> f[RPT];
   float best_t[RPT], gt[RPT];
   int best_i[RPT], gi[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     lane[r] = threadIdx.x - g * tpg + r * tpg;
     const int ray = tile * ray_tile + lane[r];
-    load_live_features(feats, ray, f[r]);
+    f[r].load(feats, ray);
     best_t[r] = alive[ray] > 0 ? BIG : -INFINITY;
     best_i[r] = -1;
     gt[r] = BIG;
     gi[r] = 0;
   }
 
-  stream_schedule(
-      ring, w, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
+  stream_schedule<P>(
+      ring, w, w_lo, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
       [&](const float4* stage, int blk, int c0, int cw4) {
         const int row0 = blk * tb + c0;
         for (int q = g; q < cw4; q += groups) {
           float acc[RPT][NS][4];
-          live_dots<RPT>(f, stage, q, acc);
+          live_dots<RPT, P>(f, stage, q, acc);
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
 #pragma unroll
@@ -155,8 +158,9 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   }
 }
 
+template <int P>
 size_t smem_bytes(int ray_tile, int groups) {
-  return RING_BYTES + (size_t)groups * ray_tile * (sizeof(float) + sizeof(int));
+  return ring_bytes<P>() + (size_t)groups * ray_tile * (sizeof(float) + sizeof(int));
 }
 
 template <int RPT>
@@ -169,41 +173,50 @@ int threads_of(int ray_tile, int groups) {
 extern "C" {
 
 // Launches the kernel on `stream`, one CTA per ray tile of `ray_tile` rays
-// as `groups` column groups of ray_tile / rays_per_thread threads, and
-// returns cudaGetLastError() (0 = launched). rays_per_thread is 1 or 2 and
-// must leave each group a whole number of warps, with at most 1024 (1 ray a
+// as `groups` column groups of ray_tile / rays_per_thread threads, at
+// `precision` (0 highest, 1 high, 2 mixed, 3 default), and returns
+// cudaGetLastError() (0 = launched). rays_per_thread is 1 or 2 and must
+// leave each group a whole number of warps, with at most 1024 (1 ray a
 // thread) or 512 (2) threads in all; anything else returns
 // cudaErrorInvalidValue. The caller checks shapes, types, alignment
-// (tb % 4 == 0, w on a 16-byte boundary) and ray_tile.
+// (tb % 4 == 0, w and w_lo on a 16-byte boundary) and ray_tile.
 int closest_hit_launch(const void* order, const void* enter, const void* feats, const void* alive, const void* w,
-                       void* best_t, void* best_i, int rt, int nb, int tb, int ray_tile, int groups,
-                       int rays_per_thread, void* stream) {
+                       const void* w_lo, void* best_t, void* best_i, int rt, int nb, int tb, int ray_tile, int groups,
+                       int rays_per_thread, int precision, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel, int threads) {
-    return launch_ring(kernel, rt, threads, smem_bytes(ray_tile, groups), s, static_cast<const int*>(order),
-                       static_cast<const float*>(enter), static_cast<const float*>(feats),
-                       static_cast<const int*>(alive), static_cast<const float*>(w), static_cast<float*>(best_t),
-                       static_cast<int*>(best_i), nb, tb, ray_tile, groups);
-  };
-  if (rays_per_thread == 1 && threads_of<1>(ray_tile, groups)) {
-    return args(closest_hit_kernel<1>, threads_of<1>(ray_tile, groups));
-  }
-  if (rays_per_thread == 2 && threads_of<2>(ray_tile, groups)) {
-    return args(closest_hit_kernel<2>, threads_of<2>(ray_tile, groups));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  return with_precision(precision, invalid, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    auto args = [&](auto kernel, int threads) {
+      return launch_ring(kernel, rt, threads, smem_bytes<P>(ray_tile, groups), s, static_cast<const int*>(order),
+                         static_cast<const float*>(enter), static_cast<const float*>(feats),
+                         static_cast<const int*>(alive), static_cast<const float*>(w),
+                         static_cast<const float*>(w_lo), static_cast<float*>(best_t), static_cast<int*>(best_i), nb,
+                         tb, ray_tile, groups);
+    };
+    if (rays_per_thread == 1 && threads_of<1>(ray_tile, groups)) {
+      return args(closest_hit_kernel<1, P>, threads_of<1>(ray_tile, groups));
+    }
+    if (rays_per_thread == 2 && threads_of<2>(ray_tile, groups)) {
+      return args(closest_hit_kernel<2, P>, threads_of<2>(ray_tile, groups));
+    }
+    return invalid;
+  });
 }
 
 // CTAs resident per SM at the launch shape of these arguments (as
 // closest_hit_launch takes them), or -1 if it is not one.
-int closest_hit_occupancy(int ray_tile, int groups, int rays_per_thread) {
-  if (rays_per_thread == 1) {
-    return ring_occupancy(closest_hit_kernel<1>, threads_of<1>(ray_tile, groups), smem_bytes(ray_tile, groups));
-  }
-  if (rays_per_thread == 2) {
-    return ring_occupancy(closest_hit_kernel<2>, threads_of<2>(ray_tile, groups), smem_bytes(ray_tile, groups));
-  }
-  return -1;
+int closest_hit_occupancy(int ray_tile, int groups, int rays_per_thread, int precision) {
+  return with_precision(precision, -1, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (rays_per_thread == 1) {
+      return ring_occupancy(closest_hit_kernel<1, P>, threads_of<1>(ray_tile, groups), smem_bytes<P>(ray_tile, groups));
+    }
+    if (rays_per_thread == 2) {
+      return ring_occupancy(closest_hit_kernel<2, P>, threads_of<2>(ray_tile, groups), smem_bytes<P>(ray_tile, groups));
+    }
+    return -1;
+  });
 }
 
 const char* closest_hit_error_string(int err) {

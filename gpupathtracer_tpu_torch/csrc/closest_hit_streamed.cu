@@ -3,12 +3,14 @@
 //
 // Replaces the TPU kernel `_kernel_streamed` in
 // gpupathtracer_tpu/ops/pallas_intersect.py (launched by `_launch_streamed`,
-// wrapped by `intersect_pallas`), in its default single-phase mode: no
-// cluster budget, one lane group, the cluster-start worst. The TPU kernel's
-// seeded `init_t`/`init_i` inputs and its `done` output exist only for its
-// default-off two-phase regroup; this kernel seeds BIG / -inf itself and
-// has no `done`. It computes what the TPU kernel computes; it is not carried
-// over block by block.
+// wrapped by `intersect_pallas`), with all of its modes: its precisions,
+// and its seeded `init_t`/`init_i` inputs, cluster `budget`, per-lane
+// `done` output, sub-tile gating (`subtiles`) and fresh-worst gating
+// (`fresh`), which the two-phase straggler regroup of `intersect_packed`
+// uses. One kernel, closest_hit_streamed_kernel<RPT, P, MODES>: MODES =
+// false is the default single-phase mode that the renders run, MODES = true
+// the other modes (below). It computes what the TPU kernel computes; it is
+// not carried over block by block.
 //
 // Inputs (row-major, contiguous, device pointers):
 //   order     int32 (rt, nc)        tile i's front-to-back cluster schedule
@@ -20,9 +22,12 @@
 //   w         float (nc*bpc, 16, 5*tb) triangle columns [s0 | s1 | s2 | D | num]
 //                                   from pack_scene (only the live slots are read);
 //                                   cluster c is blocks c*bpc .. c*bpc+bpc-1
+//   w_lo      operand b of the bf16 precision modes (stream_stage.cuh); HIGHEST
+//             reads w only
 // Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
 //
-// Semantics, as the TPU kernel: lanes start at BIG (live) or -inf (dead)
+// Semantics of the single-phase mode, as the TPU kernel, at each of its
+// precisions: lanes start at BIG (live) or -inf (dead)
 // with best_i -1, and `worst` starts as the tile's max of those (so an
 // all-dead tile visits nothing). The loop takes schedule positions j while
 // j < nc and enter[j] < worst. For cluster c = order[j], blocks b = 0..bpc-1
@@ -60,6 +65,30 @@
 // 50 MB L2), and even read from HBM they take well under the arithmetic's
 // time. One ray a thread (twice the warps, but twice the shared loads per
 // FMA) and other group counts were slower.
+//
+// The modes (MODES = true). Inputs as above, and init_t float, init_i int32
+// (rt*TR), both null for BIG and -1; output done int32 (rt*TR). Semantics,
+// as the TPU kernel: live lanes start at init_t, dead lanes at -inf, best_i
+// at init_i; the first worst is the tile's max of that (not +inf). The loop
+// takes positions j < min(budget, nc) (budget 0: nc) while enter[j] <
+// worst. In cluster c = order[j], block b = 0..bpc-1 is computed for a lane
+// iff enter_blk[c*bpc + b] is below the lane's gate: the cluster-start
+// worst; with fresh, the tile's running max; with subtiles > 1, the running
+// max of the lane's group of ray_tile / subtiles lanes. Each computed block
+// folds into the running best with strict < (per block, not per cluster:
+// the next gate reads it). After the cluster, worst = the tile's max.
+// done = (j_end >= nc) | (best_t <= enter[min(j_end, nc - 1)]), j_end the
+// position the loop stopped at. Design: the ring stages what the
+// single-phase mode stages (every block below the cluster-start worst) and
+// the gates select from it only the arithmetic: a gate is a running max,
+// never above the cluster-start worst, so the computed blocks are a subset
+// of the staged ones. Each thread gates its rays on their own sub-tile, so
+// a thread holding rays of two sub-tiles may compute one and skip the
+// other. After each block group 0 posts the running best of every lane to
+// shared memory, and each thread reads its rays' sub-tile (or the tile)
+// from there for the next gate: one more barrier a block. Entry bounds are
+// lower bounds and updates strict <, so a skipped block could not have
+// changed a lane, and every mode gives the single-phase hits.
 
 #include "stream_stage.cuh"
 
@@ -69,17 +98,24 @@ namespace {
 
 using namespace stream;
 
-template <int RPT>
+// One kernel for every mode: MODES = false is the single-phase mode (it
+// reads no seed, no budget and no gate, and writes no done), MODES = true
+// the others. `if constexpr` leaves the single-phase instantiation none of
+// the modes' code, so it keeps its registers and occupancy.
+template <int RPT, int P, bool MODES>
 __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     closest_hit_streamed_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                                 const float* __restrict__ enter_blk, const float* __restrict__ feats,
-                                const int* __restrict__ alive, const float* __restrict__ w,
-                                float* __restrict__ best_t_out, int* __restrict__ best_i_out, int nc, int bpc,
-                                int tb, int ray_tile, int groups) {
+                                const int* __restrict__ alive, const float* __restrict__ init_t,
+                                const int* __restrict__ init_i, const float* __restrict__ w,
+                                const float* __restrict__ w_lo, float* __restrict__ best_t_out,
+                                int* __restrict__ best_i_out, int* __restrict__ done_out, int nc, int bpc, int tb,
+                                int ray_tile, int groups, int budget, int subtiles, int fresh) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
-  float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
-  int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);        // (groups, ray_tile)
+  float* fold_t = reinterpret_cast<float*>(smem + STAGES * stage_float4<P>());  // (groups, ray_tile)
+  int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);             // (groups, ray_tile)
+  float* lane_t = reinterpret_cast<float*>(fold_i + groups * ray_tile);         // MODES: (ray_tile,) running best
   __shared__ float warp_max[32];
   __shared__ float tile_worst;
 
@@ -90,7 +126,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
 
   // Every group holds the running best of its rays; the groups agree.
   int lane[RPT];  // ray within the tile
-  float f[RPT][NF];
+  RayFeatures<P> f[RPT];
   float best_t[RPT];
   int best_i[RPT];
   float tile_max = -INFINITY;
@@ -98,58 +134,37 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   for (int r = 0; r < RPT; ++r) {
     lane[r] = threadIdx.x - g * tpg + r * tpg;
     const int ray = tile * ray_tile + lane[r];
-    load_live_features(feats, ray, f[r]);
-    best_t[r] = alive[ray] > 0 ? BIG : -INFINITY;
-    best_i[r] = -1;
+    f[r].load(feats, ray);
+    if constexpr (MODES) {
+      best_t[r] = alive[ray] > 0 ? (init_t ? init_t[ray] : BIG) : -INFINITY;
+      best_i[r] = init_i ? init_i[ray] : -1;
+      if (g == 0) lane_t[lane[r]] = best_t[r];
+    } else {
+      best_t[r] = alive[ray] > 0 ? BIG : -INFINITY;
+      best_i[r] = -1;
+    }
     tile_max = fmaxf(tile_max, best_t[r]);
   }
+  // Its barriers also publish lane_t.
   float worst = decision::cta_max(tile_max, warp_max, &tile_worst);
 
   const int* tile_order = order + (size_t)tile * nc;
   const float* tile_enter = enter + (size_t)tile * nc;
   const float* tile_enter_blk = enter_blk + (size_t)tile * nb;
+  const int cap = MODES && budget > 0 ? min(budget, nc) : nc;
 
-  for (int j = 0; j < nc; ++j) {
-    // Uniform across the CTA: every thread reads the same entries and worst.
-    if (!(tile_enter[j] < worst)) break;
-    const int c = tile_order[j];
-    if (c < 0 || c >= nc) break;  // culled sentinel; unreachable while enter is +inf there
-
-    float gt[RPT];  // this group's least (t, row) in the cluster
-    int gi[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      gt[r] = BIG;
-      gi[r] = 0;
-    }
-    stream_cluster(ring, w + (size_t)c * bpc * K * NS * tb, tile_enter_blk + (size_t)c * bpc, bpc, tb, worst,
-                   [&](const float4* stage, int b, int c0, int cw4) {
-                     const int row0 = (c * bpc + b) * tb + c0;
-                     for (int q = g; q < cw4; q += groups) {
-                       float acc[RPT][NS][4];
-                       live_dots<RPT>(f, stage, q, acc);
-#pragma unroll
-                       for (int r = 0; r < RPT; ++r) {
-#pragma unroll
-                         for (int x = 0; x < 4; ++x) {  // ascending columns
-                           const float t = hit_t(acc[r][0][x], acc[r][1][x], acc[r][2][x], acc[r][3][x], acc[r][4][x]);
-                           if (t < gt[r]) {  // strict <: the lower row wins ties
-                             gt[r] = t;
-                             gi[r] = row0 + 4 * q + x;
-                           }
-                         }
-                       }
-                     }
-                   });
-
-    // Fold the groups by (t, row), then into the running best.
+  bool on[RPT];   // MODES: the current block is computed for ray r
+  float gt[RPT];  // this group's least (t, row) in the cluster (MODES: in the block)
+  int gi[RPT];
+  // Fold the groups by (t, row), then into the running best (MODES: of the
+  // rays that computed the block, and post it to lane_t for the next gates).
+  auto fold = [&]() {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       fold_t[g * ray_tile + lane[r]] = gt[r];
       fold_i[g * ray_tile + lane[r]] = gi[r];
     }
     __syncthreads();
-    tile_max = -INFINITY;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       float ct = BIG;
@@ -162,12 +177,87 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
           ci = i;
         }
       }
-      if (ct < best_t[r]) {  // strict <: earlier clusters win ties
+      if ((!MODES || on[r]) && ct < best_t[r]) {  // strict <: earlier clusters and blocks win ties
         best_t[r] = ct;
         if (ct < BIG) best_i[r] = ci;
       }
-      tile_max = fmaxf(tile_max, best_t[r]);
+      if constexpr (MODES) {
+        if (g == 0) lane_t[lane[r]] = best_t[r];
+      }
     }
+  };
+
+  int j = 0;
+  for (; j < cap; ++j) {
+    // Uniform across the CTA: every thread reads the same entries and worst.
+    if (!(tile_enter[j] < worst)) break;
+    const int c = tile_order[j];
+    if (c < 0 || c >= nc) break;  // culled sentinel; unreachable while enter is +inf there
+    const float* eb = tile_enter_blk + (size_t)c * bpc;
+
+    if constexpr (!MODES) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        gt[r] = BIG;
+        gi[r] = 0;
+      }
+    }
+    const size_t cluster = (size_t)c * bpc * K * NS * tb;
+    stream_cluster<P>(ring, w + cluster, w_lo + cluster, eb, bpc, tb, worst,
+                      [&](const float4* stage, int b, int c0, int cw4) {
+                        bool any = true;
+                        if constexpr (MODES) {
+                          if (c0 == 0) {  // the block's gates, from lane_t as the last block left it
+#pragma unroll
+                            for (int r = 0; r < RPT; ++r) {
+                              float gate = worst;
+                              if (subtiles > 1 || fresh) {
+                                const int gs = ray_tile / subtiles;  // lanes of a sub-tile
+                                const int lo = subtiles > 1 ? lane[r] / gs * gs : 0;
+                                const int n = subtiles > 1 ? gs : ray_tile;
+                                gate = -INFINITY;
+                                for (int i = 0; i < n; ++i) gate = fmaxf(gate, lane_t[lo + i]);
+                              }
+                              on[r] = eb[b] < gate;
+                              gt[r] = BIG;
+                              gi[r] = 0;
+                            }
+                          }
+                          any = false;
+#pragma unroll
+                          for (int r = 0; r < RPT; ++r) any |= on[r];
+                        }
+                        const int row0 = (c * bpc + b) * tb + c0;
+                        for (int q = g; any && q < cw4; q += groups) {
+                          float acc[RPT][NS][4];
+                          live_dots<RPT, P>(f, stage, q, acc);
+#pragma unroll
+                          for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+                            for (int x = 0; x < 4; ++x) {  // ascending columns
+                              const float t =
+                                  hit_t(acc[r][0][x], acc[r][1][x], acc[r][2][x], acc[r][3][x], acc[r][4][x]);
+                              if ((!MODES || on[r]) && t < gt[r]) {  // strict <: the lower row wins ties
+                                gt[r] = t;
+                                gi[r] = row0 + 4 * q + x;
+                              }
+                            }
+                          }
+                        }
+                        if constexpr (MODES) {
+                          // The block's last chunk: fold it and post it. The fold's reads
+                          // sit between its barrier and this one, the next block's writes
+                          // after the ring's next barrier.
+                          if (c0 + CHUNK < tb) return;
+                          fold();
+                          __syncthreads();
+                        }
+                      });
+    if constexpr (!MODES) fold();
+
+    tile_max = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) tile_max = fmaxf(tile_max, best_t[r]);
     // Its barriers also keep the next cluster's fold writes and copies
     // behind every read of this one.
     worst = decision::cta_max(tile_max, warp_max, &tile_worst);
@@ -178,12 +268,17 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
       const int ray = tile * ray_tile + lane[r];
       best_t_out[ray] = best_t[r];
       best_i_out[ray] = best_i[r];
+      if constexpr (MODES) {
+        if (done_out) done_out[ray] = (j >= nc || best_t[r] <= tile_enter[min(j, nc - 1)]) ? 1 : 0;
+      }
     }
   }
 }
 
-size_t smem_bytes(int ray_tile, int groups) {
-  return RING_BYTES + (size_t)groups * ray_tile * (sizeof(float) + sizeof(int));
+template <int P>
+size_t smem_bytes(int ray_tile, int groups, bool modes) {
+  return ring_bytes<P>() + (size_t)groups * ray_tile * (sizeof(float) + sizeof(int)) +
+         (modes ? (size_t)ray_tile * sizeof(float) : 0);
 }
 
 template <int RPT>
@@ -191,51 +286,71 @@ int threads_of(int ray_tile, int groups) {
   return ring_threads<RPT>(ray_tile, groups, RPT == 1 ? 1024 : 512);
 }
 
+// f(kernel, threads) for the kernel of rays_per_thread (1 or 2) at
+// precision P, in the modes or the single-phase one; `invalid` for a shape
+// it does not take.
+template <int P, bool MODES, typename F>
+int with_kernel(int ray_tile, int groups, int rays_per_thread, int invalid, F&& f) {
+  if (rays_per_thread == 1 && threads_of<1>(ray_tile, groups))
+    return f(closest_hit_streamed_kernel<1, P, MODES>, threads_of<1>(ray_tile, groups));
+  if (rays_per_thread == 2 && threads_of<2>(ray_tile, groups))
+    return f(closest_hit_streamed_kernel<2, P, MODES>, threads_of<2>(ray_tile, groups));
+  return invalid;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`, one CTA per ray tile of `ray_tile` rays
-// as `groups` column groups of ray_tile / rays_per_thread threads, and
-// returns cudaGetLastError() (0 = launched). rays_per_thread is 1 or 2 and
+// Launches a kernel on `stream`, one CTA per ray tile of `ray_tile` rays as
+// `groups` column groups of ray_tile / rays_per_thread threads, at
+// `precision` (0 highest, 1 high, 2 mixed, 3 default): with modes = 0 the
+// single-phase mode (init_t, init_i and done are not read), else the
+// other modes with budget (0 = none), subtiles (dividing ray_tile) and
+// fresh (0 or 1); init_t and init_i may be null (BIG and -1), done too.
+// Returns cudaGetLastError() (0 = launched). rays_per_thread is 1 or 2 and
 // must leave each group a whole number of warps, with at most 1024 (1 ray a
 // thread) or 512 (2) threads in all; anything else returns
 // cudaErrorInvalidValue. The caller checks shapes, types, alignment
-// (tb % 4 == 0, w on a 16-byte boundary) and ray_tile.
+// (tb % 4 == 0, w and w_lo on a 16-byte boundary) and ray_tile.
 int closest_hit_streamed_launch(const void* order, const void* enter, const void* enter_blk,
-                                const void* feats, const void* alive, const void* w,
-                                void* best_t, void* best_i,
+                                const void* feats, const void* alive, const void* init_t, const void* init_i,
+                                const void* w, const void* w_lo, void* best_t, void* best_i, void* done,
                                 int rt, int nc, int bpc, int tb, int ray_tile, int groups,
-                                int rays_per_thread, void* stream) {
+                                int rays_per_thread, int precision, int modes, int budget, int subtiles, int fresh,
+                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel, int threads, size_t bytes) {
-    return launch_ring(kernel, rt, threads, bytes, s, static_cast<const int*>(order),
-                       static_cast<const float*>(enter), static_cast<const float*>(enter_blk),
-                       static_cast<const float*>(feats), static_cast<const int*>(alive),
-                       static_cast<const float*>(w), static_cast<float*>(best_t), static_cast<int*>(best_i),
-                       nc, bpc, tb, ray_tile, groups);
-  };
-  if (rays_per_thread == 1 && threads_of<1>(ray_tile, groups)) {
-    return args(closest_hit_streamed_kernel<1>, threads_of<1>(ray_tile, groups), smem_bytes(ray_tile, groups));
-  }
-  if (rays_per_thread == 2 && threads_of<2>(ray_tile, groups)) {
-    return args(closest_hit_streamed_kernel<2>, threads_of<2>(ray_tile, groups), smem_bytes(ray_tile, groups));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (modes && (subtiles < 1 || ray_tile % subtiles || budget < 0)) return invalid;
+  return with_precision(precision, invalid, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    const size_t bytes = smem_bytes<P>(ray_tile, groups, modes != 0);
+    auto launch = [&](auto kernel, int threads) {
+      return launch_ring(kernel, rt, threads, bytes, s, static_cast<const int*>(order),
+                         static_cast<const float*>(enter), static_cast<const float*>(enter_blk),
+                         static_cast<const float*>(feats), static_cast<const int*>(alive),
+                         static_cast<const float*>(init_t), static_cast<const int*>(init_i),
+                         static_cast<const float*>(w), static_cast<const float*>(w_lo), static_cast<float*>(best_t),
+                         static_cast<int*>(best_i), static_cast<int*>(done), nc, bpc, tb, ray_tile, groups, budget,
+                         subtiles, fresh);
+    };
+    return modes ? with_kernel<P, true>(ray_tile, groups, rays_per_thread, invalid, launch)
+                 : with_kernel<P, false>(ray_tile, groups, rays_per_thread, invalid, launch);
+  });
 }
 
 // CTAs resident per SM at the launch shape of these arguments (as
-// closest_hit_streamed_launch takes them), or -1 if it is not one.
-int closest_hit_streamed_occupancy(int ray_tile, int groups, int rays_per_thread) {
-  if (rays_per_thread == 1) {
-    return ring_occupancy(closest_hit_streamed_kernel<1>, threads_of<1>(ray_tile, groups),
-                          smem_bytes(ray_tile, groups));
-  }
-  if (rays_per_thread == 2) {
-    return ring_occupancy(closest_hit_streamed_kernel<2>, threads_of<2>(ray_tile, groups),
-                          smem_bytes(ray_tile, groups));
-  }
-  return -1;
+// closest_hit_streamed_launch takes them; modes 0 or 1), or -1 if it is
+// not one.
+int closest_hit_streamed_occupancy(int ray_tile, int groups, int rays_per_thread, int precision, int modes) {
+  return with_precision(precision, -1, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    auto occupancy = [&](auto kernel, int threads) {
+      return ring_occupancy(kernel, threads, smem_bytes<P>(ray_tile, groups, modes != 0));
+    };
+    return modes ? with_kernel<P, true>(ray_tile, groups, rays_per_thread, -1, occupancy)
+                 : with_kernel<P, false>(ray_tile, groups, rays_per_thread, -1, occupancy);
+  });
 }
 
 const char* closest_hit_streamed_error_string(int err) {

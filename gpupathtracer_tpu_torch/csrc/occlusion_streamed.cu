@@ -11,8 +11,10 @@
 // live slots are read), and
 //   maxt  float (rt*TR)   per-ray cutoff; 0 = the lane needs no test
 // Output: occ int32 (rt*TR), 1 where some accepted hit has t < maxt.
+// For the bf16 precision modes, w is operand a and w_lo operand b of
+// stream_stage.cuh; HIGHEST reads w only.
 //
-// Semantics, as the TPU kernel: flags start at 0 and the tile's bound at
+// Semantics, as the TPU kernel, at each of its precisions: flags start at 0 and the tile's bound at
 // +inf, so unlike occlusion.cu the first scheduled cluster is visited even
 // when every cutoff is tiny (the flags do not change; the work does, and the
 // plain version follows it). The loop takes schedule positions j while
@@ -56,14 +58,16 @@ namespace {
 
 using namespace stream;
 
+template <int P>
 __global__ void __launch_bounds__(1024)
     occlusion_streamed_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                               const float* __restrict__ enter_blk, const float* __restrict__ feats,
                               const float* __restrict__ maxt, const float* __restrict__ w,
-                              int* __restrict__ occ_out, int nc, int bpc, int tb, int ray_tile, int groups) {
+                              const float* __restrict__ w_lo, int* __restrict__ occ_out, int nc, int bpc, int tb,
+                              int ray_tile, int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
-  int* occ_shared = reinterpret_cast<int*>(smem + STAGES * STAGE_FLOAT4);  // (ray_tile,)
+  int* occ_shared = reinterpret_cast<int*>(smem + STAGES * stage_float4<P>());  // (ray_tile,)
   __shared__ float warp_max[32];
   __shared__ float tile_bound;
 
@@ -73,8 +77,8 @@ __global__ void __launch_bounds__(1024)
   const int ray = tile * ray_tile + lane;
   const int nb = nc * bpc;
 
-  float f[1][NF];
-  load_live_features(feats, ray, f[0]);
+  RayFeatures<P> f[1];
+  f[0].load(feats, ray);
   const float mt = maxt[ray];
   cuda::atomic_ref<int, cuda::thread_scope_block> flag(occ_shared[lane]);
   if (g == 0) flag.store(0, cuda::std::memory_order_relaxed);
@@ -91,13 +95,14 @@ __global__ void __launch_bounds__(1024)
     if (!(tile_enter[j] < bound)) break;
     const int c = tile_order[j];
     if (c < 0 || c >= nc) break;  // culled sentinel; unreachable while enter is +inf there
-    stream_cluster(ring, w + (size_t)c * bpc * K * NS * tb, tile_enter_blk + (size_t)c * bpc, bpc, tb, bound,
+    const size_t cluster = (size_t)c * bpc * K * NS * tb;
+    stream_cluster<P>(ring, w + cluster, w_lo + cluster, tile_enter_blk + (size_t)c * bpc, bpc, tb, bound,
                    [&](const float4* stage, int, int, int cw4) {
                      occ |= flag.load(cuda::std::memory_order_relaxed);  // the other groups' finds so far
                      if (occ || !(mt > 0.0f)) return;
                      for (int q = g; q < cw4; q += groups) {
                        float acc[1][NS][4];
-                       live_dots<1>(f, stage, q, acc);
+                       live_dots<1, P>(f, stage, q, acc);
 #pragma unroll
                        for (int x = 0; x < 4; ++x) {
                          if (blocks_ray(acc[0][0][x], acc[0][1][x], acc[0][2][x], acc[0][3][x], acc[0][4][x], mt)) {
@@ -119,7 +124,8 @@ __global__ void __launch_bounds__(1024)
   if (g == 0) occ_out[ray] = occ;
 }
 
-size_t smem_bytes(int ray_tile) { return RING_BYTES + (size_t)ray_tile * sizeof(int); }
+template <int P>
+size_t smem_bytes(int ray_tile) { return ring_bytes<P>() + (size_t)ray_tile * sizeof(int); }
 
 int threads_of(int ray_tile, int groups) { return ring_threads<1>(ray_tile, groups, 1024); }
 
@@ -128,27 +134,37 @@ int threads_of(int ray_tile, int groups) { return ring_threads<1>(ray_tile, grou
 extern "C" {
 
 // Launches the kernel on `stream`, one CTA per ray tile of `ray_tile` rays
-// as `groups` column groups of ray_tile threads (one ray a thread), and
-// returns cudaGetLastError() (0 = launched; cudaErrorInvalidValue for a
-// shape the kernel does not take: more than 1024 threads, or a ray_tile
-// that is not a multiple of 32). The caller checks shapes, types,
-// alignment (tb % 4 == 0, w on a 16-byte boundary) and ray_tile.
+// as `groups` column groups of ray_tile threads (one ray a thread), at
+// `precision` (0 highest, 1 high, 2 mixed, 3 default), and returns
+// cudaGetLastError() (0 = launched; cudaErrorInvalidValue for a shape the
+// kernel does not take: more than 1024 threads, or a ray_tile that is not
+// a multiple of 32, or another precision). The caller checks shapes,
+// types, alignment (tb % 4 == 0, w and w_lo on a 16-byte boundary) and
+// ray_tile.
 int occlusion_streamed_launch(const void* order, const void* enter, const void* enter_blk,
-                              const void* feats, const void* maxt, const void* w, void* occ,
-                              int rt, int nc, int bpc, int tb, int ray_tile, int groups, void* stream) {
+                              const void* feats, const void* maxt, const void* w, const void* w_lo, void* occ,
+                              int rt, int nc, int bpc, int tb, int ray_tile, int groups, int precision, void* stream) {
   const int threads = threads_of(ray_tile, groups);
-  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_ring(occlusion_streamed_kernel, rt, threads, smem_bytes(ray_tile), static_cast<cudaStream_t>(stream),
-                     static_cast<const int*>(order), static_cast<const float*>(enter),
-                     static_cast<const float*>(enter_blk), static_cast<const float*>(feats),
-                     static_cast<const float*>(maxt), static_cast<const float*>(w), static_cast<int*>(occ), nc,
-                     bpc, tb, ray_tile, groups);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (threads == 0) return invalid;
+  return with_precision(precision, invalid, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return launch_ring(occlusion_streamed_kernel<P>, rt, threads, smem_bytes<P>(ray_tile),
+                       static_cast<cudaStream_t>(stream), static_cast<const int*>(order),
+                       static_cast<const float*>(enter), static_cast<const float*>(enter_blk),
+                       static_cast<const float*>(feats), static_cast<const float*>(maxt),
+                       static_cast<const float*>(w), static_cast<const float*>(w_lo), static_cast<int*>(occ), nc, bpc,
+                       tb, ray_tile, groups);
+  });
 }
 
 // CTAs resident per SM at the launch shape of these arguments (as
 // occlusion_streamed_launch takes them), or -1 if it is not one.
-int occlusion_streamed_occupancy(int ray_tile, int groups) {
-  return ring_occupancy(occlusion_streamed_kernel, threads_of(ray_tile, groups), smem_bytes(ray_tile));
+int occlusion_streamed_occupancy(int ray_tile, int groups, int precision) {
+  return with_precision(precision, -1, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return ring_occupancy(occlusion_streamed_kernel<P>, threads_of(ray_tile, groups), smem_bytes<P>(ray_tile));
+  });
 }
 
 const char* occlusion_streamed_error_string(int err) {

@@ -23,8 +23,25 @@
 // flip the sign of a zero one, and a signed zero decides nothing: edge <= 0
 // holds for both, dd <= -EPS and num < EPS * dd fail for both.
 //
+// The precision modes (ops/packed_intersect.py PRECISIONS, the JAX
+// package's `_decision_dot`). Each kernel is a template on the mode, and
+// the HIGHEST instantiation is the f32 code above. The bf16 modes take
+// their triangle operands from the wrapper, split once per pack
+// (`_kernel_operands`): operand a is bf16(w) (for MIXED, with the D|num
+// columns of w itself), operand b is bf16(w - bf16(w)). A thread splits its
+// rays' features the same way in registers (round to nearest even, as
+// torch and XLA round). DEFAULT sums fh * a over a scalar's live rows;
+// HIGH sums the three chains fh * a, fh * b and fl * a and returns
+// hh + (hl + lh), the JAX package's grouping; MIXED does so for the edge
+// slots of s0, s1 and s2 (the first NEDGE of the table) and sums f * a,
+// exactly as HIGHEST, for D and num. Every product of two bf16 values is
+// exact in f32, so each chain is an f32 sum in ascending k, as the f32
+// chains are, and the plain versions' matmuls of the same splits give the
+// same sums.
+//
 // The ring. STAGES stages of NLIVE x CHUNK floats ([slot][column], 12.8 KB
-// each) in dynamic shared memory, filled with cp.async.cg: 16 bytes a
+// each; for HIGH and MIXED, the operand-b rows of the split slots follow)
+// in dynamic shared memory, filled with cp.async.cg: 16 bytes a
 // thread, one warp per 512-byte row segment, every warp of the CTA copying,
 // completion by commit/wait groups and then one CTA barrier per chunk. This
 // rather than the bulk copy (cp.async.bulk with an mbarrier): every thread
@@ -52,6 +69,8 @@
 
 #include "decision.cuh"
 
+#include <cuda_bf16.h>
+#include <type_traits>
 #include <utility>
 
 namespace stream {
@@ -68,6 +87,33 @@ constexpr int STAGES = 3;          // depth of the ring
 constexpr int CHUNK4 = CHUNK / 4;  // float4 columns of a full chunk (one per warp lane)
 constexpr int STAGE_FLOAT4 = NLIVE * CHUNK4;
 constexpr int RING_BYTES = STAGES * STAGE_FLOAT4 * 16;  // 38,400
+
+// The decision product's precision, in the order of PRECISIONS.
+enum Precision : int { HIGHEST = 0, HIGH = 1, MIXED = 2, DEFAULT = 3 };
+constexpr int NEDGE = 18;  // live slots of s0, s1 and s2: the first 18 of the table
+
+// Whether live slot i sums the three split chains.
+template <int P>
+__host__ __device__ constexpr bool split_slot(int i) {
+  return P == HIGH || (P == MIXED && i < NEDGE);
+}
+
+// Operand-b rows staged after the NLIVE operand-a rows of a stage.
+template <int P>
+__host__ __device__ constexpr int b_rows() {
+  return P == HIGH ? NLIVE : P == MIXED ? NEDGE : 0;
+}
+
+template <int P>
+__host__ __device__ constexpr int stage_float4() {
+  return (NLIVE + b_rows<P>()) * CHUNK4;
+}
+
+template <int P>
+__host__ __device__ constexpr int ring_bytes() {
+  return STAGES * stage_float4<P>() * 16;
+}
+static_assert(ring_bytes<HIGHEST>() == RING_BYTES, "the f32 ring keeps its size");
 
 struct Slot {
   int s;  // decision scalar: 0, 1, 2 = s0, s1, s2; 3 = D; 4 = num
@@ -111,6 +157,28 @@ __device__ __forceinline__ void load_live_features(const float* __restrict__ fea
   for (int k = 0; k < NF; ++k) f[k] = feats[(size_t)ray * K + k];
 }
 
+__device__ __forceinline__ float bf16_rn(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// A ray's live features as precision P multiplies them: f exact, and for
+// the bf16 modes fh = bf16(f) and fl = bf16(f - fh) (f - fh is exact).
+template <int P>
+struct RayFeatures {
+  float f[NF];
+  float fh[NF];
+  float fl[NF];
+
+  __device__ __forceinline__ void load(const float* __restrict__ feats, int ray) {
+    load_live_features(feats, ray, f);
+    if constexpr (P != HIGHEST) {
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        fh[k] = bf16_rn(f[k]);
+        fl[k] = bf16_rn(f[k] - fh[k]);
+      }
+    }
+  }
+};
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
@@ -124,50 +192,79 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts the copies of columns [c0, c0 + cw) of the live rows of the block
-// at `wb` into `stage`: warp v copies slots v, v + nwarps, ..., lane q the
-// float4 column q.
-__device__ __forceinline__ void fetch_chunk(float4* __restrict__ stage, const float* __restrict__ wb, int tb, int c0) {
+// at `wa` (operand a) and, for the split slots of P, at `wb` (operand b)
+// into `stage`: warp v copies rows v, v + nwarps, ..., lane q the float4
+// column q.
+template <int P>
+__device__ __forceinline__ void fetch_chunk(float4* __restrict__ stage, const float* __restrict__ wa,
+                                            const float* __restrict__ wb, int tb, int c0) {
   const int cw4 = min(CHUNK, tb - c0) / 4;
   const int lane = threadIdx.x & 31;
   if (lane >= cw4) return;
   const int nwarps = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < NLIVE; i += nwarps) {
-    cp_async16(stage + i * CHUNK4 + lane, wb + (size_t)slot_row(i) * tb + c0 + 4 * lane);
+  for (int i = threadIdx.x >> 5; i < NLIVE + b_rows<P>(); i += nwarps) {
+    const float* src = i < NLIVE ? wa + (size_t)slot_row(i) * tb : wb + (size_t)slot_row(i - NLIVE) * tb;
+    cp_async16(stage + i * CHUNK4 + lane, src + c0 + 4 * lane);
   }
 }
 
-// acc[r][s][c] += f[r][k] * stage[slot I][4q + c] for live slot I = (s, k).
-template <int RPT, int I>
-__device__ __forceinline__ void fma_slot(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
-                                         float (&acc)[RPT][NS][4]) {
+// acc[r][s][c] += x[r][k] * stage[slot I][4q + c] for live slot I = (s, k),
+// with x = f (HIGHEST, and MIXED's D|num) or fh (DEFAULT). A split slot
+// adds to the three chains `part` of its scalar instead (hh, hl, lh), which
+// the scalar's first slot starts at 0 and its last folds into acc.
+template <int RPT, int P, int I>
+__device__ __forceinline__ void fma_slot(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
+                                         float (&acc)[RPT][NS][4], float (&part)[RPT][3][4]) {
   constexpr Slot sl = live_slot(I);
   const float4 v = stage[I * CHUNK4 + q];  // a broadcast: one address for the whole warp
+  if constexpr (split_slot<P>(I)) {
+    constexpr bool first = I == 0 || live_slot(I - 1).s != sl.s;
+    constexpr bool last = I + 1 == NLIVE || live_slot(I + 1).s != sl.s;
+    const float4 u = stage[(NLIVE + I) * CHUNK4 + q];
+    const float va[4] = {v.x, v.y, v.z, v.w};
+    const float vb[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    acc[r][sl.s][0] = fmaf(f[r][sl.k], v.x, acc[r][sl.s][0]);
-    acc[r][sl.s][1] = fmaf(f[r][sl.k], v.y, acc[r][sl.s][1]);
-    acc[r][sl.s][2] = fmaf(f[r][sl.k], v.z, acc[r][sl.s][2]);
-    acc[r][sl.s][3] = fmaf(f[r][sl.k], v.w, acc[r][sl.s][3]);
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if constexpr (first) part[r][0][c] = part[r][1][c] = part[r][2][c] = 0.0f;
+        part[r][0][c] = fmaf(x[r].fh[sl.k], va[c], part[r][0][c]);
+        part[r][1][c] = fmaf(x[r].fh[sl.k], vb[c], part[r][1][c]);
+        part[r][2][c] = fmaf(x[r].fl[sl.k], va[c], part[r][2][c]);
+        if constexpr (last) acc[r][sl.s][c] = part[r][0][c] + (part[r][1][c] + part[r][2][c]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float xk = P == DEFAULT ? x[r].fh[sl.k] : x[r].f[sl.k];
+      acc[r][sl.s][0] = fmaf(xk, v.x, acc[r][sl.s][0]);
+      acc[r][sl.s][1] = fmaf(xk, v.y, acc[r][sl.s][1]);
+      acc[r][sl.s][2] = fmaf(xk, v.z, acc[r][sl.s][2]);
+      acc[r][sl.s][3] = fmaf(xk, v.w, acc[r][sl.s][3]);
+    }
   }
 }
 
-template <int RPT, int... I>
-__device__ __forceinline__ void fma_slots(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
-                                          float (&acc)[RPT][NS][4], std::integer_sequence<int, I...>) {
-  (fma_slot<RPT, I>(f, stage, q, acc), ...);  // in table order
+template <int RPT, int P, int... I>
+__device__ __forceinline__ void fma_slots(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
+                                          float (&acc)[RPT][NS][4], float (&part)[RPT][3][4],
+                                          std::integer_sequence<int, I...>) {
+  (fma_slot<RPT, P, I>(x, stage, q, acc, part), ...);  // in table order
 }
 
-// acc[r][s][c] = scalar s of ray r and staged columns 4q + c: the sparse
-// decision dot products, the slots unrolled at compile time.
-template <int RPT>
-__device__ __forceinline__ void live_dots(const float (&f)[RPT][NF], const float4* __restrict__ stage, int q,
+// acc[r][s][c] = scalar s of ray r and staged columns 4q + c at precision
+// P: the sparse decision dot products, the slots unrolled at compile time.
+template <int RPT, int P>
+__device__ __forceinline__ void live_dots(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
                                           float (&acc)[RPT][NS][4]) {
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) acc[r][s][0] = acc[r][s][1] = acc[r][s][2] = acc[r][s][3] = 0.0f;
   }
-  fma_slots<RPT>(f, stage, q, acc, std::make_integer_sequence<int, NLIVE>{});
+  float part[RPT][3][4];
+  fma_slots<RPT, P>(x, stage, q, acc, part, std::make_integer_sequence<int, NLIVE>{});
 }
 
 // The closest-hit test of one pair: accept iff max(s0, s1, s2) <= 0 and
@@ -199,10 +296,11 @@ __device__ __forceinline__ int next_block(const float* __restrict__ eb, int b, i
 // `wc` is the cluster's first block in w. Every thread of the CTA calls it
 // with the same arguments; it holds one CTA barrier per chunk, and the
 // caller must hold one between two calls (the stages are refilled at once).
-template <typename Compute>
+template <int P, typename Compute>
 __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const float* __restrict__ wc,
-                                               const float* __restrict__ eb, int bpc, int tb, float lim,
-                                               Compute&& compute) {
+                                               const float* __restrict__ wbc, const float* __restrict__ eb, int bpc,
+                                               int tb, float lim, Compute&& compute) {
+  constexpr int SF4 = stage_float4<P>();
   const size_t block_floats = (size_t)K * NS * tb;
   int pb = next_block(eb, 0, bpc, lim), pc = 0;  // the next chunk to fetch
   int cb = pb, cc = 0;                           // the next chunk to compute
@@ -215,7 +313,7 @@ __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const 
   };
   auto fetch = [&](int stage) {
     if (pb < bpc) {
-      fetch_chunk(ring + stage * STAGE_FLOAT4, wc + pb * block_floats, tb, pc);
+      fetch_chunk<P>(ring + stage * SF4, wc + pb * block_floats, wbc + pb * block_floats, tb, pc);
       advance(pb, pc);
     }
     cp_async_commit();  // one group per chunk slot, empty past the end
@@ -227,7 +325,7 @@ __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const 
     cp_async_wait<STAGES - 2>();  // this thread's copies of chunk `slot` have landed
     __syncthreads();              // everyone's have; the stage refilled next was read by all
     fetch(slot == 0 ? STAGES - 1 : slot - 1);
-    compute(ring + slot * STAGE_FLOAT4, cb, cc, min(CHUNK, tb - cc) / 4);
+    compute(ring + slot * SF4, cb, cc, min(CHUNK, tb - cc) / 4);
     advance(cb, cc);
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
@@ -271,15 +369,17 @@ __device__ __forceinline__ bool takes(const int* __restrict__ order, const float
 // return every copy has landed. Every thread of the CTA calls it with the
 // same arguments, and every thread calls block_end, which may hold
 // barriers; the walk holds one CTA barrier per chunk besides.
-template <typename Compute, typename BlockEnd>
+template <int P, typename Compute, typename BlockEnd>
 __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
-                                                const int* __restrict__ order, const float* __restrict__ enter,
-                                                int nb, int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
+                                                const float* __restrict__ wb, const int* __restrict__ order,
+                                                const float* __restrict__ enter, int nb, int tb, float lim,
+                                                Compute&& compute, BlockEnd&& block_end) {
+  constexpr int SF4 = stage_float4<P>();
   const size_t block_floats = (size_t)K * NS * tb;
   int pj = 0, pc = 0;  // the next chunk to fetch
   auto fetch = [&](int stage) {
     if (takes(order, enter, pj, nb, lim)) {
-      fetch_chunk(ring + stage * STAGE_FLOAT4, w + order[pj] * block_floats, tb, pc);
+      fetch_chunk<P>(ring + stage * SF4, w + order[pj] * block_floats, wb + order[pj] * block_floats, tb, pc);
       pc += CHUNK;
       if (pc >= tb) {
         pc = 0;
@@ -298,7 +398,7 @@ __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const
     __syncthreads();              // everyone's have; the stage refilled next was read by all
     fetch(slot == 0 ? STAGES - 1 : slot - 1);
     const int blk = order[cj];
-    compute(ring + slot * STAGE_FLOAT4, blk, cc, min(CHUNK, tb - cc) / 4);
+    compute(ring + slot * SF4, blk, cc, min(CHUNK, tb - cc) / 4);
     cc += CHUNK;
     if (cc >= tb) {
       cc = 0;
@@ -308,6 +408,19 @@ __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
   cp_async_wait<0>();  // the speculative copies past the stop
+}
+
+// Returns f(std::integral_constant<int, P>{}) for the precision P named by
+// the runtime `precision`, or `invalid` if it names none.
+template <typename F>
+inline int with_precision(int precision, int invalid, F&& f) {
+  switch (precision) {
+    case HIGHEST: return f(std::integral_constant<int, HIGHEST>{});
+    case HIGH: return f(std::integral_constant<int, HIGH>{});
+    case MIXED: return f(std::integral_constant<int, MIXED>{});
+    case DEFAULT: return f(std::integral_constant<int, DEFAULT>{});
+  }
+  return invalid;
 }
 
 // The launch shape: one CTA per ray tile of `groups` column groups, each

@@ -29,6 +29,15 @@ only the ``LIVE_SLOTS`` of ``w`` (``ops/plucker.py``), so every wrapper takes
 only the ``w`` of a pack marked ``live_slots_only``, on every device:
 ``pack_scene`` marks its packs, and ``mark_live_slots`` marks a pack built
 elsewhere (one carried from the JAX package) once it has checked the zeros.
+
+Every search takes the decision product's ``precision``, one of the JAX
+package's modes (``PRECISIONS``; "auto" resolves to "highest"). The
+streamed closest hit also has the JAX package's traversal modes, all off by
+default (``STREAM_PHASE1_BUDGET``, ``STREAM_SUBTILES``,
+``STREAM_FRESH_WORST``): seeded lanes, a cap on the clusters a tile visits
+with a per-lane ``done`` flag, and the straggler regroup in
+``intersect_packed`` that resumes the undone lanes in fresh tiles. They
+change the work, never the hits.
 """
 
 from __future__ import annotations
@@ -53,6 +62,66 @@ INF = float("inf")
 RESIDENT_BUDGET_BYTES = 16 * 1024 * 1024
 CLUSTER_TARGET_BYTES = 1024 * 1024
 STREAM_RAY_TILE = 64
+
+# The streamed closest hit's traversal modes, the JAX package's, all off by
+# default and read at call time. STREAM_PHASE1_BUDGET > 0 caps the clusters
+# a tile visits; the lanes that cap leaves undone are regrouped densely and
+# resumed from their partial hits (intersect_packed). STREAM_SUBTILES > 1
+# gates each block on the running worst of each group of ray_tile /
+# STREAM_SUBTILES lanes; STREAM_FRESH_WORST gates each block of a cluster on
+# the tile's running worst instead of the cluster-start one. Entry bounds
+# are lower bounds and updates strict <, so every mode gives the same hits.
+STREAM_PHASE1_BUDGET = 0
+STREAM_SUBTILES = 1
+STREAM_FRESH_WORST = False
+
+# The decision product's precision, the JAX package's modes
+# (``_decision_dot``), in the order of csrc/stream_stage.cuh's Precision:
+# "highest" f32; "high" three bf16 products of hi/lo splits,
+# d(fh, wh) + (d(fh, wl) + d(fl, wh)) summed in f32; "mixed" "high" for the
+# edge columns s0|s1|s2 and f32 for D|num; "default" one bf16 product.
+PRECISIONS = ("highest", "high", "mixed", "default")
+
+
+def resolve_precision(precision: str) -> str:
+    """A mode of ``PRECISIONS``: "auto" resolves to "highest" (the JAX
+    package resolves it to "mixed" only on a TPU); anything else not in
+    ``PRECISIONS`` raises ValueError."""
+    if precision == "auto":
+        return "highest"
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}: 'auto' or one of {', '.join(map(repr, PRECISIONS))}")
+    return precision
+
+
+def split_bf16(x: torch.Tensor):
+    """``(hi, lo)`` of float32 ``x`` as float32 tensors of bf16 values:
+    hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest even, as
+    the JAX package's ``_dot_high`` splits its operands (x - hi is exact in
+    float32). A product of two bf16 values is exact in float32."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _kernel_operands(w: torch.Tensor, precision: str):
+    """The two triangle operands the kernels stage for ``precision``, both
+    shaped as ``w``: ``w`` itself for "highest"; bf16(w) for "default";
+    (hi, lo) of ``split_bf16`` for "high"; for "mixed", hi with the D|num
+    columns of ``w`` and lo. Cached on ``w`` per precision, keyed on its
+    version counter, as the live-slot mark is."""
+    if precision == "highest":
+        return w, w
+    cache = getattr(w, "_kernel_operands", None)
+    if cache is None:
+        cache = w._kernel_operands = {}
+    entry = cache.get(precision)
+    if entry is None or entry[0] != w._version:
+        hi, lo = split_bf16(w)
+        if precision == "mixed":
+            tb = w.shape[2] // NSCALARS
+            hi = torch.cat([hi[..., : 3 * tb], w[..., 3 * tb :]], dim=-1)
+        entry = cache[precision] = (w._version, hi, hi if precision == "default" else lo)
+    return entry[1], entry[2]
 
 # Launch shape of the four kernels (csrc/stream_stage.cuh), per kernel
 # library: the threads a CTA aims at, and the rays a thread takes where the
@@ -81,24 +150,29 @@ def launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
     return per_group * groups, groups, rpt
 
 
-def _shape_ints(library: str, ray_tile: int) -> tuple[int, ...]:
+def _shape_ints(library: str, ray_tile: int, precision: str = "highest") -> tuple[int, ...]:
     """The launch shape for ``ray_tile`` as the library's launch and
-    occupancy functions take it: ray_tile, groups and, for the closest hits
-    K1 and K3, rays_per_thread (K2 and K4 take one ray a thread)."""
+    occupancy functions take it: ray_tile, groups, for the closest hits K1
+    and K3 rays_per_thread (K2 and K4 take one ray a thread), and the
+    precision's index in ``PRECISIONS``."""
     _, groups, rpt = launch_shape(library, ray_tile)
-    return (ray_tile, groups, rpt) if library.startswith("closest_hit") else (ray_tile, groups)
+    shape = (ray_tile, groups, rpt) if library.startswith("closest_hit") else (ray_tile, groups)
+    return shape + (PRECISIONS.index(precision),)
 
 
-def launch_occupancy(library: str, ray_tile: int) -> dict:
-    """The launch shape of a kernel and its resident CTAs and warps per SM
+def launch_occupancy(library: str, ray_tile: int, precision: str = "highest", modes: bool = False) -> dict:
+    """The launch shape of a kernel's instantiation for ``precision`` (and,
+    for K3, its traversal modes) and its resident CTAs and warps per SM
     there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from the built
     library; needs the CUDA toolkit and a card)."""
     threads, groups, rpt = launch_shape(library, ray_tile)
-    ctas = getattr(_build.library(library), f"{library}_occupancy")(*_shape_ints(library, ray_tile))
+    ints = _shape_ints(library, ray_tile, precision) + ((int(modes),) if library == "closest_hit_streamed" else ())
+    ctas = getattr(_build.library(library), f"{library}_occupancy")(*ints)
     if ctas < 0:
-        raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups x {rpt} rays a thread")
+        raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups x {rpt} rays a thread "
+                           f"at precision {precision!r}")
     return {"ray_tile": ray_tile, "threads": threads, "groups": groups, "rays_per_thread": rpt,
-            "ctas_per_sm": ctas, "warps_per_sm": ctas * threads // 32}
+            "precision": precision, "ctas_per_sm": ctas, "warps_per_sm": ctas * threads // 32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,11 +435,27 @@ def _pad_blocks(packed: PackedScene, bpc: int) -> PackedScene:
         return packed
     return dataclasses.replace(
         packed,
-        w=torch.cat([packed.w, packed.w.new_zeros((pad,) + tuple(packed.w.shape[1:]))]),
+        w=_padded_w(packed.w, pad),
         box_lo=torch.cat([packed.box_lo, packed.box_lo.new_zeros((pad, 3))]),
         box_hi=torch.cat([packed.box_hi, packed.box_hi.new_full((pad, 3), -1.0)]),
         block_live=torch.cat([packed.block_live, packed.block_live.new_zeros((pad,))]),
     )
+
+
+def _padded_w(w: torch.Tensor, pad: int) -> torch.Tensor:
+    """``w`` with ``pad`` zero blocks after its last, cached on ``w`` keyed
+    on ``pad`` and its version counter (as the live-slot mark is), so that
+    every streamed search of a pack reuses one padded copy and the
+    precision operands that ``_kernel_operands`` caches on it. A ``w`` that
+    requires grad is padded anew each time."""
+    key = (pad, w._version)
+    cached = getattr(w, "_padded", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    padded = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
+    if not w.requires_grad:
+        w._padded = (key, padded)
+    return padded
 
 
 def cluster_schedule(mask: torch.Tensor, enter: torch.Tensor, bpc: int):
@@ -441,27 +531,34 @@ def _kernel_device(feats, name: str) -> torch.device | None:
     return dev
 
 
-def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_ints, ray_tile: int) -> None:
+def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_ints, ray_tile: int,
+            precision: str, mode_ints=()) -> None:
     """Launch ``<library>_launch`` on the current stream of ``dev`` with the
-    tensors' device pointers, the ints of the schedule (rt, nb for the
-    resident searches; rt, nc, bpc for the streamed ones), tb and the launch
-    shape for ``ray_tile``; raise if CUDA refused it."""
-    if w.data_ptr() % 16:  # the kernels copy w in 16-byte pieces
+    tensors' device pointers (None passes a null pointer), the ints of the
+    schedule (rt, nb for the resident searches; rt, nc, bpc for the
+    streamed ones), tb, the launch shape for ``ray_tile``, the precision and
+    ``mode_ints`` (K3's traversal modes); raise if CUDA refused it."""
+    # The kernels copy w and w_lo in 16-byte pieces; _kernel_operands makes
+    # w_lo (and w's bf16 operand) a fresh allocation, so checking w does.
+    if w.data_ptr() % 16:
         raise ValueError("w must start on a 16-byte boundary for the kernels")
-    ints = tuple(schedule_ints) + (w.shape[2] // NSCALARS,) + _shape_ints(library, ray_tile)
+    ints = (tuple(schedule_ints) + (w.shape[2] // NSCALARS,) + _shape_ints(library, ray_tile, precision)
+            + tuple(mode_ints))
     lib = _build.library(library)
     with torch.cuda.device(dev):
         err = getattr(lib, f"{library}_launch")(
-            *(t.data_ptr() for t in tensors), *ints, torch.cuda.current_stream(dev).cuda_stream
+            *(None if t is None else t.data_ptr() for t in tensors), *ints,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         msg = getattr(lib, f"{library}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE):
+def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest"):
     """Closest hit of every ray tile along its schedule: ``(best_t, best_i)``,
-    (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1).
+    (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1),
+    with the decision product at ``precision`` (``PRECISIONS``).
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/closest_hit.cu``, at ``launch_shape``) and raises if it cannot;
@@ -471,15 +568,16 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE)
     ``mark_live_slots``); any other raises, on every device.
     ``closest_hit.launches`` counts kernel launches.
     """
+    precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, alive, w, ray_tile)
     dev = _kernel_device(feats, "closest_hit")
     if dev is None:
-        return closest_hit_reference(order, enter, feats, alive, w, ray_tile)
+        return closest_hit_reference(order, enter, feats, alive, w, ray_tile, precision=precision)
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, w, best_t, best_i), w,
-        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile,
+        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i),
+        w, (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
     )
     closest_hit.launches += 1
     return best_t, best_i
@@ -497,17 +595,29 @@ def _check_f32_matmul(feats, name: str) -> None:
         raise RuntimeError(f"{name} needs f32 matmuls: TF32 is enabled")
 
 
-def _decision_scalars(ft, w, blk, tb: int):
-    """(s0, s1, s2, D, num), each (tiles, ray_tile, tb): one f32 matmul of
-    each tile's features with its scheduled block."""
-    s = torch.bmm(ft, w[blk]).view(ft.shape[0], ft.shape[1], NSCALARS, tb)
-    return s.unbind(2)
+def _decision_scalars(ft, w, blk, tb: int, precision: str = "highest"):
+    """(s0, s1, s2, D, num), each (tiles, ray_tile, tb): each tile's features
+    times its scheduled block at ``precision``, as the JAX package's
+    ``_decision_dot``: f32 matmuls, of the bf16 splits (``split_bf16``) for
+    the bf16 modes. Every matmul is the full (ray_tile, 5·tb) product, so
+    that each sum runs as the "highest" one does."""
+    wb = w[blk]
+    if precision == "highest":
+        s = torch.bmm(ft, wb)
+    else:
+        (fh, fl), (wh, wl) = split_bf16(ft), split_bf16(wb)
+        s = torch.bmm(fh, wh)
+        if precision != "default":
+            s = s + (torch.bmm(fh, wl) + torch.bmm(fl, wh))
+        if precision == "mixed":
+            s = torch.cat([s[..., : 3 * tb], torch.bmm(ft, wb)[..., 3 * tb :]], dim=-1)
+    return s.view(ft.shape[0], ft.shape[1], NSCALARS, tb).unbind(2)
 
 
-def _block_min(ft, w, blk, tb: int):
+def _block_min(ft, w, blk, tb: int, precision: str = "highest"):
     """Per lane of each (tile, block) pair, the least accepted t (BIG if
     none) and its packed row; ties go to the lower column."""
-    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb)
+    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb, precision)
     edge = torch.maximum(torch.maximum(s0, s1), s2)
     ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd)
     t = torch.where(ok, num / dd, BIG)
@@ -515,26 +625,29 @@ def _block_min(ft, w, blk, tb: int):
     return blk_min, (blk_arg + blk[:, None] * tb).to(torch.int32)
 
 
-def _blocked(ft, mt, w, blk, tb: int):
+def _blocked(ft, mt, w, blk, tb: int, precision: str = "highest"):
     """Per lane of each (tile, block) pair: some accepted hit with t in
     (EPSILON, mt). t = num / D lies there iff num < EPSILON·D and
     num > mt·D, both strict (D <= -EPSILON < 0 flips them)."""
-    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb)
+    s0, s1, s2, dd, num = _decision_scalars(ft, w, blk, tb, precision)
     edge = torch.maximum(torch.maximum(s0, s1), s2)
     ok = (edge <= 0.0) & (dd <= -EPSILON) & (num < EPSILON * dd) & (num > mt[:, :, None] * dd)
     return ok.any(dim=-1)
 
 
 def closest_hit_reference(
-    order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False
+    order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False,
+    precision: str = "highest",
 ):
     """Plain PyTorch version of ``closest_hit``: the same schedule, early exit,
-    acceptance and tie-breaks, with one f32 matmul per (tile, block).
+    acceptance and tie-breaks, with one matmul per (tile, block) at
+    ``precision`` (three for "high" and "mixed").
 
     ``count_work=True`` also returns ``{"blocks": visited (tile, block)
     pairs, "lane_blocks": the sum over them of the tile's live lanes}``,
     the work these inputs need."""
     _check_f32_matmul(feats, "closest_hit_reference")
+    precision = resolve_precision(precision)
     nb, _, five_tb = w.shape
     tb = five_tb // NSCALARS
     rt = feats.shape[0] // ray_tile
@@ -556,7 +669,7 @@ def closest_hit_reference(
             lane_blocks += int(live[tiles].sum())
         for c0 in range(0, tiles.numel(), per_call):
             ti = tiles[c0 : c0 + per_call]
-            blk_min, arg = _block_min(ft[ti], w, order[ti, j].long(), tb)
+            blk_min, arg = _block_min(ft[ti], w, order[ti, j].long(), tb, precision)
             bt = best_t[ti]
             upd = blk_min < bt  # strict <: earlier blocks win ties
             best_t[ti] = torch.where(upd, blk_min, bt)
@@ -566,53 +679,100 @@ def closest_hit_reference(
     return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
 
 
-def closest_hit_streamed(order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE):
+def _check_stream_modes(feats, ray_tile: int, init_t, init_i, budget, subtiles: int) -> None:
+    """Raise on traversal modes the streamed closest hit does not take."""
+    if (init_t is None) != (init_i is None):
+        raise ValueError("init_t and init_i seed the lanes together: give both or neither")
+    if init_t is not None:
+        for name, x, dtype in (("init_t", init_t, torch.float32), ("init_i", init_i, torch.int32)):
+            if x.dtype != dtype or tuple(x.shape) != (feats.shape[0],) or not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous {dtype} ({feats.shape[0]},), got {x.dtype} {tuple(x.shape)}")
+            if x.device != feats.device:
+                raise ValueError(f"{name} is on {x.device}, feats on {feats.device}")
+    if budget is not None and budget < 1:
+        raise ValueError(f"budget must be None or at least 1, got {budget}")
+    if subtiles < 1 or ray_tile % subtiles:
+        raise ValueError(f"subtiles must divide ray_tile {ray_tile}, got {subtiles}")
+
+
+def closest_hit_streamed(
+    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, precision: str = "highest",
+    init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1, fresh: bool = False,
+    with_done: bool = False,
+):
     """Closest hit of every ray tile along its cluster schedule (the streamed
     route): ``(best_t, best_i)`` as ``closest_hit`` gives them. ``order`` and
     ``enter`` are (rt, nc), ``enter_blk`` (rt, nb) and ``w`` (nb, K, 5·tb)
     with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
 
+    The traversal modes of the JAX package's ``_kernel_streamed``: live
+    lanes start from ``init_t``/``init_i`` (both or neither; BIG and -1 by
+    default), dead lanes from -inf and ``init_i``; a tile visits at most
+    ``budget`` clusters; ``subtiles`` > 1 gates each block on the running
+    worst of each group of ray_tile / subtiles lanes, ``fresh`` on the
+    tile's running worst. ``with_done=True`` also returns ``done``, int32
+    (R_pad,): 1 where the lane's result is final (the schedule ran out, or
+    its best_t is at most the entry bound of the next unvisited cluster).
+
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit_streamed.cu``, at ``launch_shape``) and raises if
-    it cannot; on CPU tensors it runs ``closest_hit_streamed_reference``.
-    The kernel reads only the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the
-    w of a ``live_slots_only`` pack (``pack_scene``'s, padded by
-    ``_pad_blocks`` or moved by ``to``); any other raises, on every device.
+    (``csrc/closest_hit_streamed.cu``, at ``launch_shape``; the mode
+    instantiation when any mode is asked for) and raises if it cannot; on
+    CPU tensors it runs ``closest_hit_streamed_reference``. The kernel reads
+    only the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
+    ``live_slots_only`` pack (``pack_scene``'s, padded by ``_pad_blocks``
+    or moved by ``to``); any other raises, on every device.
     ``closest_hit_streamed.launches`` counts kernel launches.
     """
+    precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
+    _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
+    modes = dict(init_t=init_t, init_i=init_i, budget=budget, subtiles=subtiles, fresh=fresh, with_done=with_done)
     dev = _kernel_device(feats, "closest_hit_streamed")
     if dev is None:
-        return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile)
+        return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile,
+                                              precision=precision, **modes)
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
+    any_mode = init_t is not None or budget is not None or subtiles > 1 or fresh or with_done
+    done = torch.empty(feats.shape[0], dtype=torch.int32, device=dev) if any_mode else None
     _launch(
         "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, w, best_t, best_i), w,
-        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile,
+        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision), best_t, best_i, done),
+        w, (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
+        (int(any_mode), budget or 0, subtiles, int(fresh)),
     )
     closest_hit_streamed.launches += 1
-    return best_t, best_i
+    return (best_t, best_i, done) if with_done else (best_t, best_i)
 
 
 closest_hit_streamed.launches = 0
 
 
 def closest_hit_streamed_reference(
-    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False
+    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False,
+    precision: str = "highest", init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1,
+    fresh: bool = False, with_done: bool = False,
 ):
     """Plain PyTorch version of ``closest_hit_streamed``, as the TPU kernel
-    ``_kernel_streamed`` runs in its default single-phase mode: lanes start
-    at BIG (live) or -inf (dead), and the tile's worst lane is their max.
-    Clusters go in schedule order while their entry bound is below the
-    worst; inside a cluster a block is computed iff its own entry bound is
-    below the worst *at the cluster's start*, blocks ascending, with
-    ``closest_hit``'s acceptance and tie rules. After each cluster the worst
-    is the tile's max best_t again.
+    ``_kernel_streamed`` runs: live lanes start at ``init_t`` (BIG by
+    default), dead lanes at -inf, best_i at ``init_i`` (-1), and the tile's
+    worst lane is their max. Clusters go in schedule order while fewer than
+    ``budget`` were visited and their entry bound is below the worst; inside
+    a cluster the blocks ascend, and block b is computed for a lane iff its
+    own entry bound is below the lane's gate: the worst at the cluster's
+    start; with ``fresh``, the tile's running worst; with ``subtiles`` > 1,
+    the running worst of the lane's group of ray_tile / subtiles lanes.
+    ``closest_hit``'s acceptance and tie rules; after each cluster the worst
+    is the tile's max best_t again. ``done`` (``with_done``) is 1 where the
+    schedule ran out (the loop stopped at j >= nc) or best_t is at most the
+    entry bound of the cluster the loop stopped at.
 
     ``count_work=True`` also returns ``{"blocks": computed (tile, block)
-    pairs, "lane_blocks": the sum over them of the tile's live lanes}``."""
+    pairs, "lane_blocks": the sum over them of the live lanes they were
+    computed for}``, after ``done``."""
     _check_f32_matmul(feats, "closest_hit_streamed_reference")
+    precision = resolve_precision(precision)
+    _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
     nb, _, five_tb = w.shape
     tb = five_tb // NSCALARS
     nc = order.shape[1]
@@ -621,46 +781,78 @@ def closest_hit_streamed_reference(
     dev = feats.device
     ft = feats.reshape(rt, ray_tile, K)
     live = alive.reshape(rt, ray_tile) > 0
-    best_t = torch.where(live, BIG, -INF).to(torch.float32)
-    best_i = torch.full((rt, ray_tile), -1, dtype=torch.int32, device=dev)
+    seed_t = BIG if init_t is None else init_t.reshape(rt, ray_tile)
+    best_t = torch.where(live, seed_t, -INF).to(torch.float32)
+    best_i = (torch.full((rt, ray_tile), -1, dtype=torch.int32, device=dev) if init_i is None
+              else init_i.reshape(rt, ray_tile).clone())
     worst = best_t.amax(dim=1)
+    cap = nc if budget is None else min(budget, nc)
+    j_end = torch.full((rt,), cap, dtype=torch.int64, device=dev)
     running = torch.ones((rt,), dtype=torch.bool, device=dev)
     per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    gated = fresh or subtiles > 1
     blocks = lane_blocks = 0
-    for j in range(nc):
-        running &= enter[:, j] < worst
+    for j in range(cap):
+        go = running & (enter[:, j] < worst)
+        j_end[running & ~go] = j
+        running = go
         tiles = torch.nonzero(running).flatten()
         if tiles.numel() == 0:
             break
-        # Every block of a cluster is tested against the cluster-start worst,
-        # so the cluster's blocks are evaluated together and folded in block
-        # order: min over blocks with the first block winning ties is the
-        # chain of strict-< updates block by block.
         blk = order[tiles, j].long()[:, None] * bpc + torch.arange(bpc, device=dev)  # (n, bpc)
-        pt, pb = torch.nonzero(enter_blk[tiles[:, None], blk] < worst[tiles][:, None], as_tuple=True)
-        if count_work:
-            blocks += pt.numel()
-            lane_blocks += int(live[tiles[pt]].sum())
-        m = torch.full((tiles.numel(), bpc, ray_tile), BIG, dtype=torch.float32, device=dev)
-        a = torch.zeros((tiles.numel(), bpc, ray_tile), dtype=torch.int32, device=dev)
-        for c0 in range(0, pt.numel(), per_call):
-            qt, qb = pt[c0 : c0 + per_call], pb[c0 : c0 + per_call]
-            m[qt, qb], a[qt, qb] = _block_min(ft[tiles[qt]], w, blk[qt, qb], tb)
-        cmin, cb = m.min(dim=1)  # first block wins ties
-        carg = torch.gather(a, 1, cb[:, None]).squeeze(1)
-        bt = best_t[tiles]
-        upd = cmin < bt  # strict <: earlier clusters win ties
-        best_t[tiles] = torch.where(upd, cmin, bt)
-        best_i[tiles] = torch.where(upd & (cmin < BIG), carg, best_i[tiles])
+        if gated:
+            for b in range(bpc):
+                bt = best_t[tiles]
+                gate = (bt.view(-1, subtiles, ray_tile // subtiles).amax(dim=-1) if subtiles > 1
+                        else bt.amax(dim=1, keepdim=True))
+                on = (enter_blk[tiles, blk[:, b]][:, None] < gate).repeat_interleave(ray_tile // gate.shape[1], dim=1)
+                sel = torch.nonzero(on.any(dim=1)).flatten()
+                if count_work:
+                    blocks += sel.numel()
+                    lane_blocks += int((live[tiles] & on).sum())
+                for c0 in range(0, sel.numel(), per_call):
+                    qs = sel[c0 : c0 + per_call]
+                    ti = tiles[qs]
+                    m, a = _block_min(ft[ti], w, blk[qs, b], tb, precision)
+                    upd = on[qs] & (m < best_t[ti])  # strict <: earlier blocks win ties
+                    best_t[ti] = torch.where(upd, m, best_t[ti])
+                    best_i[ti] = torch.where(upd & (m < BIG), a, best_i[ti])
+        else:
+            # Every block of a cluster is tested against the cluster-start
+            # worst, so the cluster's blocks are evaluated together and folded
+            # in block order: min over blocks with the first block winning
+            # ties is the chain of strict-< updates block by block.
+            pt, pb = torch.nonzero(enter_blk[tiles[:, None], blk] < worst[tiles][:, None], as_tuple=True)
+            if count_work:
+                blocks += pt.numel()
+                lane_blocks += int(live[tiles[pt]].sum())
+            m = torch.full((tiles.numel(), bpc, ray_tile), BIG, dtype=torch.float32, device=dev)
+            a = torch.zeros((tiles.numel(), bpc, ray_tile), dtype=torch.int32, device=dev)
+            for c0 in range(0, pt.numel(), per_call):
+                qt, qb = pt[c0 : c0 + per_call], pb[c0 : c0 + per_call]
+                m[qt, qb], a[qt, qb] = _block_min(ft[tiles[qt]], w, blk[qt, qb], tb, precision)
+            cmin, cb = m.min(dim=1)  # first block wins ties
+            carg = torch.gather(a, 1, cb[:, None]).squeeze(1)
+            # A cluster with no computed block leaves every lane as it was.
+            computed = torch.zeros((tiles.numel(),), dtype=torch.bool, device=dev)
+            computed[pt] = True
+            bt = best_t[tiles]
+            upd = computed[:, None] & (cmin < bt)  # strict <: earlier clusters win ties
+            best_t[tiles] = torch.where(upd, cmin, bt)
+            best_i[tiles] = torch.where(upd & (cmin < BIG), carg, best_i[tiles])
         worst[tiles] = best_t[tiles].amax(dim=1)
     out = (best_t.reshape(-1), best_i.reshape(-1))
+    if with_done:
+        next_enter = torch.gather(enter, 1, j_end.clamp(max=nc - 1)[:, None])
+        out += (((j_end[:, None] >= nc) | (best_t <= next_enter)).to(torch.int32).reshape(-1),)
     return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
 
 
-def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE):
+def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest"):
     """Any-hit search of every ray tile along its schedule: an int32 flag
     (R_pad,), 1 where some accepted hit has t < ``maxt`` (lanes with
-    ``maxt = 0`` are never tested and report 0).
+    ``maxt = 0`` are never tested and report 0), with the decision product
+    at ``precision``.
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/occlusion.cu``, at ``launch_shape``) and raises if it cannot; on
@@ -668,14 +860,15 @@ def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE):
     ``LIVE_SLOTS`` of ``w``, as ``closest_hit``. ``occluded.launches`` counts
     kernel launches.
     """
+    precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt")
     dev = _kernel_device(feats, "occluded")
     if dev is None:
-        return occluded_reference(order, enter, feats, maxt, w, ray_tile)
+        return occluded_reference(order, enter, feats, maxt, w, ray_tile, precision=precision)
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "occluded", "occlusion", dev, (order, enter, feats, maxt, w, occ), w,
-        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile,
+        "occluded", "occlusion", dev, (order, enter, feats, maxt, *_kernel_operands(w, precision), occ), w,
+        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
     )
     occluded.launches += 1
     return occ
@@ -685,17 +878,19 @@ occluded.launches = 0
 
 
 def occluded_reference(
-    order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False
+    order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False,
+    precision: str = "highest",
 ):
     """Plain PyTorch version of ``occluded``: the same schedule and per-tile
     bound (the largest cutoff among unoccluded lanes; every lane occluded
-    gives -inf), and the same division-free acceptance, with one f32 matmul
-    per (tile, block).
+    gives -inf), and the same division-free acceptance, with one matmul per
+    (tile, block) at ``precision`` (three for "high" and "mixed").
 
     ``count_work=True`` also returns ``{"blocks": visited (tile, block)
     pairs, "lane_blocks": the sum over them of the tile's lanes that still
     need testing (unoccluded, maxt > 0)}``."""
     _check_f32_matmul(feats, "occluded_reference")
+    precision = resolve_precision(precision)
     nb, _, five_tb = w.shape
     tb = five_tb // NSCALARS
     rt = feats.shape[0] // ray_tile
@@ -716,15 +911,17 @@ def occluded_reference(
             lane_blocks += int((~occ[tiles] & (mt[tiles] > 0)).sum())
         for c0 in range(0, tiles.numel(), per_call):
             ti = tiles[c0 : c0 + per_call]
-            occ[ti] |= _blocked(ft[ti], mt[ti], w, order[ti, j].long(), tb)
+            occ[ti] |= _blocked(ft[ti], mt[ti], w, order[ti, j].long(), tb, precision)
     out = occ.reshape(-1).to(torch.int32)
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
 
 
-def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE):
+def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE,
+                      precision: str = "highest"):
     """Any-hit search of every ray tile along its cluster schedule (the
     streamed route): int32 flags as ``occluded`` gives them, with the
-    schedule inputs of ``closest_hit_streamed``.
+    schedule inputs of ``closest_hit_streamed`` and the decision product at
+    ``precision``.
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/occlusion_streamed.cu``, at ``launch_shape``) and raises
@@ -733,14 +930,16 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     ``closest_hit_streamed``. ``occluded_streamed.launches`` counts kernel
     launches.
     """
+    precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt", enter_blk=enter_blk)
     dev = _kernel_device(feats, "occluded_streamed")
     if dev is None:
-        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile)
+        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile, precision=precision)
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "occluded_streamed", "occlusion_streamed", dev, (order, enter, enter_blk, feats, maxt, w, occ), w,
-        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile,
+        "occluded_streamed", "occlusion_streamed", dev,
+        (order, enter, enter_blk, feats, maxt, *_kernel_operands(w, precision), occ), w,
+        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
     )
     occluded_streamed.launches += 1
     return occ
@@ -750,7 +949,8 @@ occluded_streamed.launches = 0
 
 
 def occluded_streamed_reference(
-    order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False
+    order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False,
+    precision: str = "highest",
 ):
     """Plain PyTorch version of ``occluded_streamed``, as the TPU kernel
     ``_kernel_occlusion_streamed`` runs: flags start at 0 and the tile's
@@ -758,13 +958,14 @@ def occluded_streamed_reference(
     go in schedule order while their entry bound is below the bound; inside
     a cluster a block is tested iff its own entry bound is below the bound
     at the cluster's start, blocks ascending, with ``occluded``'s
-    acceptance. After each cluster the bound is the largest cutoff among
-    unoccluded lanes (-inf once all are occluded).
+    acceptance at ``precision``. After each cluster the bound is the largest
+    cutoff among unoccluded lanes (-inf once all are occluded).
 
     ``count_work=True`` also returns ``{"blocks": tested (tile, block)
     pairs, "lane_blocks": the sum over them of the tile's lanes that still
     need testing (unoccluded, maxt > 0)}``."""
     _check_f32_matmul(feats, "occluded_streamed_reference")
+    precision = resolve_precision(precision)
     nb, _, five_tb = w.shape
     tb = five_tb // NSCALARS
     nc = order.shape[1]
@@ -795,7 +996,7 @@ def occluded_streamed_reference(
                 lane_blocks += int((~occ[ti] & (mt[ti] > 0)).sum())
             for c0 in range(0, ti.numel(), per_call):
                 tc = ti[c0 : c0 + per_call]
-                occ[tc] |= _blocked(ft[tc], mt[tc], w, blk[c0 : c0 + per_call], tb)
+                occ[tc] |= _blocked(ft[tc], mt[tc], w, blk[c0 : c0 + per_call], tb, precision)
         bound[tiles] = torch.where(occ[tiles], -INF, mt[tiles]).amax(dim=1)
     out = occ.reshape(-1).to(torch.int32)
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
@@ -843,15 +1044,42 @@ def prepare_rays(o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_
     return order, enter_sorted, feats, alive_i
 
 
-def prepare_rays_streamed(o, d, packed: PackedScene, alive=None, ray_tile: int = STREAM_RAY_TILE):
-    """The closest-hit inputs of the streamed route: ``(order, enter,
-    enter_blk, feats, alive_i, w)``, with the pack's blocks padded to whole
-    clusters (``w`` is the padded pack's)."""
+def _prepare_streamed(o, d, packed: PackedScene, alive, ray_tile: int):
+    """``(padded pack, bpc, o, d, inputs)`` of the streamed closest hit, with
+    ``o``, ``d`` padded and ``inputs`` as ``prepare_rays_streamed`` gives
+    them."""
     padded, bpc = _stream_pack(packed)
     o, d, feats, alive_i, cull = _alive_lanes(o, d, alive, ray_tile)
     mask, enter = tile_block_mask(o, d, padded, ray_tile, alive=cull)
     order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
-    return order, enter_sorted, enter_blk, feats, alive_i, padded.w
+    return padded, bpc, o, d, (order, enter_sorted, enter_blk, feats, alive_i, padded.w)
+
+
+def prepare_rays_streamed(o, d, packed: PackedScene, alive=None, ray_tile: int = STREAM_RAY_TILE):
+    """The closest-hit inputs of the streamed route: ``(order, enter,
+    enter_blk, feats, alive_i, w)``, with the pack's blocks padded to whole
+    clusters (``w`` is the padded pack's)."""
+    return _prepare_streamed(o, d, packed, alive, ray_tile)[-1]
+
+
+def _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile: int, **modes):
+    """Phase 2 of the two-phase streamed search, as the JAX package's
+    ``intersect_pallas`` runs it: the live lanes that phase 1 left undone
+    are packed densely into fresh tiles (a stable partition, which keeps
+    the caller's coherence order), scheduled anew and resumed from their
+    partial hits with no cluster cap; tiles of finished lanes cull
+    everything. Returns the merged ``(best_t, best_i)``."""
+    from gpupathtracer_tpu_torch.ops.compaction import partition_alive
+
+    padded, bpc, o, d, (_, _, _, feats, alive_i, w) = prepared
+    undone = (alive_i > 0) & (done == 0)
+    perm, inv = partition_alive(undone)
+    und_p = undone[perm]
+    mask, enter = tile_block_mask(o[perm], d[perm], padded, ray_tile, alive=und_p)
+    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
+    bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, ray_tile,
+                      init_t=torch.where(und_p, best_t[perm], -INF), init_i=best_i[perm], **modes)
+    return torch.where(undone, bt2[inv], best_t), torch.where(undone, bi2[inv], best_i)
 
 
 def _hits(best_t, best_i, packed: PackedScene, r: int) -> Hit:
@@ -863,29 +1091,43 @@ def _hits(best_t, best_i, packed: PackedScene, r: int) -> Hit:
 
 
 def intersect_packed(
-    o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False
+    o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False,
+    precision: str = "highest",
 ) -> Hit:
     """Closest hit of rays (R, 3) against the packed scene; ``d`` must be
     unit directions. ``tri`` holds scene rows (``tri_map`` applied).
 
     The pack's size picks the route (``is_resident``); the streamed route
     tiles rays by ``STREAM_RAY_TILE`` unless ``ray_tile`` is not the
-    default. ``alive`` (R,) bool: dead lanes are left out of the tile
-    frustums and report no hit. ``plain=True`` runs the plain versions on
-    any device.
+    default, and runs the traversal modes of ``STREAM_PHASE1_BUDGET``,
+    ``STREAM_SUBTILES`` (where it divides the tile) and
+    ``STREAM_FRESH_WORST``: with a budget, the lanes phase 1 leaves undone
+    are regrouped and resumed (``_regroup_stragglers``). ``alive`` (R,)
+    bool: dead lanes are left out of the tile frustums and report no hit.
+    ``plain=True`` runs the plain versions on any device. ``precision``:
+    the decision product (``resolve_precision``).
 
     The search is discrete: it runs on detached rays and the ``Hit`` never
     carries autograd history (``resolve_hits`` re-derives the attributes).
     """
     o, d = o.detach(), d.detach()
+    precision = resolve_precision(precision)
     if is_resident(packed):
         search = closest_hit_reference if plain else closest_hit
         order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
-        best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile)
+        best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile, precision=precision)
     else:
         search = closest_hit_streamed_reference if plain else closest_hit_streamed
         ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-        best_t, best_i = search(*prepare_rays_streamed(o, d, packed, alive, ray_tile), ray_tile)
+        modes = {"precision": precision, "fresh": STREAM_FRESH_WORST,
+                 "subtiles": STREAM_SUBTILES if ray_tile % max(STREAM_SUBTILES, 1) == 0 else 1}
+        prepared = _prepare_streamed(o, d, packed, alive, ray_tile)
+        if STREAM_PHASE1_BUDGET > 0:
+            best_t, best_i, done = search(*prepared[-1], ray_tile, budget=STREAM_PHASE1_BUDGET, with_done=True,
+                                          **modes)
+            best_t, best_i = _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile, **modes)
+        else:
+            best_t, best_i = search(*prepared[-1], ray_tile, **modes)
     return _hits(best_t, best_i, packed, o.shape[0])
 
 
@@ -917,34 +1159,39 @@ def prepare_shadow_rays_streamed(o, d, max_t, packed: PackedScene, ray_tile: int
 
 
 def intersect_packed_occluded(
-    o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False
+    o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE, plain: bool = False,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Occlusion of rays (R, 3) with unit directions: (R,) bool, True where
     some accepted hit has t in (EPSILON, ``max_t``). ``max_t = 0`` marks
-    lanes that need no test; they report False. The route, the ray tile
-    and ``plain`` as in ``intersect_packed``; the rays and cutoffs are
-    detached."""
+    lanes that need no test; they report False. The route, the ray tile,
+    ``plain`` and ``precision`` as in ``intersect_packed``; the rays and
+    cutoffs are detached."""
     o, d, max_t = o.detach(), d.detach(), max_t.detach()
+    precision = resolve_precision(precision)
     if is_resident(packed):
         search = occluded_reference if plain else occluded
-        occ = search(*prepare_shadow_rays(o, d, max_t, packed, ray_tile), packed.w, ray_tile)
+        occ = search(*prepare_shadow_rays(o, d, max_t, packed, ray_tile), packed.w, ray_tile, precision=precision)
     else:
         search = occluded_streamed_reference if plain else occluded_streamed
         ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-        occ = search(*prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile), ray_tile)
+        occ = search(*prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile), ray_tile, precision=precision)
     return occ[: o.shape[0]] > 0
 
 
-def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir"):
+def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir", precision: str | None = None):
     """Wrap a closest-hit function ``(o, d, alive=None) -> Hit`` with a sort
     of its rays for tile coherence, as the JAX package's
     ``make_sorted_intersect``: the key is (direction octant, direction
     Morton, origin Morton) for ``"dir"`` and (octant, origin Morton,
     direction Morton) for ``"origin"``, the origin box is the pack's, and
-    results are scattered back to the caller's order. The rays are detached
-    on entry, as the search needs no gradient."""
+    results are scattered back to the caller's order. A ``precision`` is
+    passed on to ``intersect_fn`` as its keyword (None: the function's
+    own). The rays are detached on entry, as the search needs no
+    gradient."""
     if key_mode not in ("dir", "origin"):
         raise ValueError(f"unknown sort key {key_mode!r}")
+    kw = {} if precision is None else {"precision": resolve_precision(precision)}
     lo = packed.box_lo.amin(dim=0)
     hi = packed.box_hi.amax(dim=0)
 
@@ -958,7 +1205,7 @@ def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "di
         else:
             key = (octant << 27) | ((dm >> 18) << 15) | (om >> 15)
         perm = torch.argsort(key, stable=True)
-        h = intersect_fn(o[perm], d[perm], alive=None if alive is None else alive[perm])
+        h = intersect_fn(o[perm], d[perm], alive=None if alive is None else alive[perm], **kw)
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(perm.shape[0], device=perm.device)
         return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv])

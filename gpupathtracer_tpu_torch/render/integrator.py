@@ -98,6 +98,12 @@ class IntegratorOptions:
     sort_key: str = "dir"  # "dir" or "origin": the sort key's layout
     compact: bool = True
     compact_mode: str = "permute"  # "permute", "mask" or "hybrid" (see the module docstring)
+    # The decision product of the kernel route's searches
+    # (ops/packed_intersect.py PRECISIONS): "auto" resolves to "highest"
+    # (f32); "high", "mixed" and "default" are the JAX package's bf16 modes.
+    # The plain intersector ("plucker") always computes in f32, as the JAX
+    # package's dense plucker search does.
+    kernel_precision: str = "auto"
     material_set: tuple = (0, 1, 2, 3)
     rng: str = "pcg"
     # Diffuse albedo from the hit UV (checker / image); narrow_settings turns
@@ -117,6 +123,7 @@ def check_supported(options: IntegratorOptions) -> None:
         raise ValueError(f"unknown sort key {options.sort_key!r}")
     if options.compact_mode not in _COMPACT_MODES:
         raise ValueError(f"unknown compact_mode {options.compact_mode!r}")
+    packed_intersect.resolve_precision(options.kernel_precision)
 
 
 def resolved_intersector(options: IntegratorOptions) -> str:
@@ -124,6 +131,13 @@ def resolved_intersector(options: IntegratorOptions) -> str:
     whose wrappers launch the CUDA kernels on the card's tensors and run
     their plain versions on the CPU's; any other name stands."""
     return "pallas" if options.intersector == "auto" else options.intersector
+
+
+def _search_kwargs(options: IntegratorOptions) -> dict:
+    """``plain`` and ``precision`` of the packed searches for ``options``:
+    the kernel route takes ``kernel_precision``, the plain one f32."""
+    plain = options.intersector in _PLAIN_INTERSECTORS
+    return {"plain": plain, "precision": "highest" if plain else options.kernel_precision}
 
 
 def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=None):
@@ -146,7 +160,7 @@ def make_intersect_fn(scene: TriangleScene, options: IntegratorOptions, packed=N
         )
     if packed is None:
         packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
-    fn = partial(packed_intersect.intersect_packed, packed=packed, plain=which in _PLAIN_INTERSECTORS)
+    fn = partial(packed_intersect.intersect_packed, packed=packed, **_search_kwargs(options))
     if options.sort_rays and not options.compact:
         return packed_intersect.make_sorted_intersect(fn, packed, key_mode=options.sort_key)
     return fn
@@ -167,10 +181,7 @@ def make_occlusion_fn(
     if use_kernel and options.intersector not in _UNPACKED_INTERSECTORS:
         if packed is None:
             packed = packed_intersect.pack_scene(scene, tri_block=options.tri_block)
-        return partial(
-            packed_intersect.intersect_packed_occluded, packed=packed,
-            plain=options.intersector in _PLAIN_INTERSECTORS,
-        )
+        return partial(packed_intersect.intersect_packed_occluded, packed=packed, **_search_kwargs(options))
 
     def threshold(o, d, mt):
         h = intersect_fn(o, d, alive=mt > 0)

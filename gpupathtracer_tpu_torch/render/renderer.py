@@ -38,8 +38,7 @@ from gpupathtracer_tpu_torch.utils.debug import check_frame
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Render block of the config schema (the JAX package's fields that the
-    port reads; TPU tuning knobs are not carried over)."""
+    """Render block of the config schema, with the JAX package's fields."""
 
     width: int = 800
     height: int = 800
@@ -64,6 +63,7 @@ class RenderSettings:
     sort_key: str = "auto"
     compact: bool = True
     compact_mode: str = "permute"
+    kernel_precision: str = "auto"  # the searches' decision product (see IntegratorOptions)
     rng: str = "pcg"
     material_set: tuple = (0, 1, 2, 3)
     textured: bool = False
@@ -83,6 +83,7 @@ def _integrator_options(s: RenderSettings) -> IntegratorOptions:
         sort_key=s.sort_key if s.sort_key != "auto" else "dir",
         compact=s.compact,
         compact_mode=s.compact_mode,
+        kernel_precision=s.kernel_precision,
         material_set=s.material_set,
         rng=s.rng,
         textured=s.textured,

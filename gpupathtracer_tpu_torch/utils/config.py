@@ -135,6 +135,7 @@ def parse_config(cfg: dict, config_dir: str = "."):
         sort_key=rnd.get("sort_key", "auto"),
         compact=bool(rnd.get("compact", True)),
         compact_mode=rnd.get("compact_mode", "permute"),
+        kernel_precision=rnd.get("kernel_precision", "auto"),
         rng=rnd.get("rng", "pcg"),
     )
 

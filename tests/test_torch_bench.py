@@ -5,6 +5,7 @@ its file (or the line says it did not), ``vs_baseline`` divides by the
 port's own baseline, the budget skips rows, and the timed rows count rays
 as W·H·spp·bounces."""
 
+import ast
 import dataclasses
 import json
 import os
@@ -27,6 +28,19 @@ FAKE = {
     "fwd_bwd": {"rays_per_sec": 5.6e7},
     "configs": {"config%d" % i: {"rays_per_sec": 1e6, "pad": "x" * 512} for i in range(11)},
 }
+
+
+def _jax_kernel_keys() -> list[str]:
+    """The keys of the JAX package's ``_bench_kernel`` row, read from its
+    source."""
+    with open(j_bench.__file__) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "_bench_kernel")
+    out = next(n for n in ast.walk(fn) if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", None) == "out")
+    return [k.value for k in out.value.keys]
+
+
+JAX_KERNEL_KEYS = _jax_kernel_keys()
 
 
 def _last_json(out: str) -> dict:
@@ -81,6 +95,26 @@ def test_vs_baseline_is_the_ports_and_the_headline_flushes_first(monkeypatch, ca
     assert early["vs_baseline"] == 2.0 and early["detail"] is None
 
 
+def test_backward_adds_the_precision_ladder(monkeypatch):
+    """With ``backward``, the fwd+bwd row is followed by the JAX package's
+    ladder: the forward frame at "highest" and at "high", under JAX's keys
+    and in JAX's order."""
+    precisions = []
+
+    def frame(scene, camera, settings, *a, **kw):
+        precisions.append(settings.kernel_precision)
+        return {"rays_per_sec": 1.0, "median_s": 1.0, "warmup_s": 1.0}
+
+    monkeypatch.setattr(bench, "_bench_frame", frame)
+    monkeypatch.setattr(bench, "_bench_backward", lambda *a, **kw: {"rays_per_sec": 1.0})
+    monkeypatch.setenv("FIREFLY_SKIP_SPEC_SPP", "1")
+    result = bench.run_benchmark(backward=True, full_suite=False, device="cpu")
+    keys = [k for k in result if k in ("fwd_bwd", "fwd_exact_precision", "fwd_high_precision")]
+    assert keys == ["fwd_bwd", "fwd_exact_precision", "fwd_high_precision"]
+    assert precisions == ["auto", "highest", "high"]
+    assert result["fwd_high_precision"]["rays_per_sec"] == 1.0
+
+
 def test_budget_skips_every_row_after_the_headline(monkeypatch, capsys):
     monkeypatch.setattr(bench, "_bench_frame", lambda *a, **kw: {"rays_per_sec": 1.0, "median_s": 1.0,
                                                                   "warmup_s": 1.0})
@@ -90,6 +124,7 @@ def test_budget_skips_every_row_after_the_headline(monkeypatch, capsys):
     result = bench.run_benchmark(scene_path=scene, device="cpu")
     skipped = {"skipped": "bench budget exceeded"}
     assert result["fwd_bwd"] == skipped and result["kernel"] == skipped and result["full_spp"] == skipped
+    assert result["fwd_exact_precision"] == result["fwd_high_precision"] == skipped
     assert [name for name, _ in bench.CONFIG_SUITE] == list(result["configs"])
     for name, row in result["configs"].items():
         if name == "config3_icosphere.toml":  # the headline's own row
@@ -156,8 +191,17 @@ def test_bench_kernel_counts_tests(monkeypatch):
     monkeypatch.setattr(bench.Camera, "create", lambda **kw: create(**{**kw, "width": 32, "height": 24}))
     row = bench._bench_kernel(iters=1, device="cpu")
     assert set(row) == {"scene_rows", "coherent_tests_per_s", "incoherent_tests_per_s", "coherent_ms",
-                        "incoherent_ms", "incoherent_sorted_ms", "dense_tflops_incoherent"}
+                        "incoherent_ms", "mixed_coherent_ms", "mixed_incoherent_ms", "mixed_coherent_tests_per_s",
+                        "mixed_incoherent_tests_per_s", "incoherent_sorted_ms", "mixed_incoherent_sorted_ms",
+                        "dense_tflops_incoherent"}
     tests = 32 * 24 * row["scene_rows"]
-    assert row["coherent_tests_per_s"] * row["coherent_ms"] / 1e3 == pytest.approx(tests, rel=1e-9)
-    assert row["incoherent_tests_per_s"] * row["incoherent_ms"] / 1e3 == pytest.approx(tests, rel=1e-9)
-    assert row["incoherent_sorted_ms"] > 0
+    for prefix in ("", "mixed_"):
+        for rays in ("coherent", "incoherent"):
+            rate, ms = row[f"{prefix}{rays}_tests_per_s"], row[f"{prefix}{rays}_ms"]
+            assert rate * ms / 1e3 == pytest.approx(tests, rel=1e-9)
+    assert row["incoherent_sorted_ms"] > 0 and row["mixed_incoherent_sorted_ms"] > 0
+    # The JAX package's kernel row has every key of the port's but the v5e
+    # probes' (ROADMAP.md, "Deliberately not ported").
+    v5e = {"mfu_vs_bf16_peak", "vpu_peak_ops_per_s", "epilogue_ops_per_pair", "vpu_roofline_frac_incoherent_mixed",
+           "precision_note"}
+    assert set(row) - {"incoherent_sorted_ms"} <= set(JAX_KERNEL_KEYS) - v5e

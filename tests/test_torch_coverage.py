@@ -20,6 +20,7 @@ module keeps its path. Port-only modules and names are allowed.
 
 import argparse
 import ast
+import dataclasses
 import importlib
 import os
 import re
@@ -28,6 +29,7 @@ import pytest
 
 from gpupathtracer_tpu_torch import cli
 from gpupathtracer_tpu_torch.render.integrator import IntegratorOptions, resolved_intersector
+from gpupathtracer_tpu_torch.render.renderer import RenderSettings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DIR = os.path.join(ROOT, "gpupathtracer_tpu")
@@ -49,19 +51,12 @@ RENAMED = {
     "ops/plucker.py:decide": "ops/packed_intersect.py:_block_min",
 }
 
-TWO_PHASE = "K3's two-phase mode"
-PRECISION = "The bf16 precision modes"
 MOSAIC = "Mosaic workarounds"
 COMPILE_CACHE = "JAX's compile cache"
 SCALING_PROBE = "`bench.run_scaling_probe`"
-TPU_PROBES = "The bench's precision ladder and the v5e MFU/VPU probes"
+TPU_PROBES = "The v5e MFU/VPU probes"
 
 NOT_PORTED = {
-    "ops/pallas_intersect.py:STREAM_PHASE1_BUDGET": TWO_PHASE,
-    "ops/pallas_intersect.py:STREAM_SUBTILES": TWO_PHASE,
-    "ops/pallas_intersect.py:STREAM_FRESH_WORST": TWO_PHASE,
-    "ops/pallas_intersect.py:PRECISIONS": PRECISION,
-    "ops/pallas_intersect.py:resolve_precision": PRECISION,
     "ops/pallas_intersect.py:MIN_COMPILED_TRI_BLOCK": MOSAIC,
     "ops/pallas_intersect.py:compiled_tri_block": MOSAIC,
     "utils/debug.py:enable_compile_cache": COMPILE_CACHE,
@@ -148,6 +143,21 @@ def test_every_public_name_has_its_counterpart(rel):
     for name in kernel_bodies(tree):  # (d)
         source = KERNEL_SOURCES.get(f"{rel}:{name}")
         assert source and os.path.isfile(os.path.join(PORT_DIR, source)), f"{rel}:{name} has no CUDA source"
+
+
+def dataclass_fields(rel: str, cls: str) -> set[str]:
+    """The annotated fields of class ``cls`` in the JAX module ``rel``."""
+    node = next(n for n in _tree(rel).body if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {n.target.id for n in node.body if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)}
+
+
+@pytest.mark.parametrize("rel,port_cls", [("render/renderer.py", RenderSettings),
+                                          ("render/integrator.py", IntegratorOptions)],
+                         ids=lambda x: getattr(x, "__name__", x))
+def test_settings_dataclasses_have_the_jax_fields(rel, port_cls):
+    """The render settings and integrator options take the same fields in
+    both packages, so a config or caller of one constructs the other."""
+    assert {f.name for f in dataclasses.fields(port_cls)} == dataclass_fields(rel, port_cls.__name__)
 
 
 def test_the_maps_name_jax_names_and_roadmap_lists_the_reasons():

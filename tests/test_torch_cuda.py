@@ -652,3 +652,71 @@ def test_hierarchical_picks_equal_on_card_and_cpu(device):
     (pc, qc), (pg, qg) = picks["cpu"], picks[str(device)]
     assert torch.equal(pg, pc)
     torch.testing.assert_close(qg, qc, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+@pytest.mark.parametrize("precision", ["high", "mixed", "default"])
+def test_kernels_match_plain_version_at_each_precision(device, precision, streamed, monkeypatch):
+    """All four kernels at a bf16 precision mode against their plain
+    versions at that mode: the same packed rows and bit-equal t, and the
+    same flags (each chain is an f32 sum of exact bf16 products in
+    ascending k, as the plain version's matmuls of the same splits)."""
+    if streamed:
+        monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+        monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=21)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(5)) < 0.8).to(device)
+    hk = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision)
+    hp = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision, plain=True)
+    maxt = torch.where(hp.hit, hp.t * 1.5, 20.0)
+    ok = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision)
+    op = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision, plain=True)
+    torch.cuda.synchronize()
+    assert hp.hit.double().mean().item() > 0.2
+    assert torch.equal(hk.tri, hp.tri) and torch.equal(hk.t, hp.t)
+    assert torch.equal(ok, op) and 0.1 < op.double().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("budget,subtiles,fresh", [(1, 1, False), (2, 4, False), (0, 2, False), (0, 1, True)])
+def test_streamed_modes_kernel_matches_plain_version(device, budget, subtiles, fresh, monkeypatch):
+    """K3's traversal-mode kernel, seeded with a first budgeted call's
+    partial hits, against its plain version: the same best_t, best_i and
+    done flags."""
+    monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=22)
+    packed = tpi.pack_scene(scene, tri_block=64)
+    alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(6)) < 0.8).to(device)
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
+    init_t, init_i = tpi.closest_hit_streamed(*args, budget=1)
+    modes = dict(init_t=init_t, init_i=init_i, budget=budget or None, subtiles=subtiles, fresh=fresh, with_done=True)
+    before = tpi.closest_hit_streamed.launches
+    got = tpi.closest_hit_streamed(*args, **modes)
+    assert tpi.closest_hit_streamed.launches == before + 1
+    want = tpi.closest_hit_streamed_reference(*args, **modes)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (want[1] >= 0).double().mean().item() > 0.2
+
+
+def test_kernels_launch_on_offset_views_of_ray_inputs(device):
+    """Only w must start on a 16-byte boundary: an int32 alive or a float32
+    max_t that is a view one element into a larger tensor launches, with
+    the results of the same values in a tensor of their own."""
+    scene, o, d = _random_scene(device, seed=23)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    order, enter, feats, alive = tpi.prepare_rays(o, d, packed)
+    shifted = torch.cat([alive.new_zeros(1), alive])[1:]
+    assert shifted.data_ptr() % 16 and torch.equal(shifted, alive)
+    want = tpi.closest_hit(order, enter, feats, alive, packed.w)
+    got = tpi.closest_hit(order, enter, feats, shifted, packed.w)
+    max_t = torch.where(torch.arange(o.shape[0], device=device) % 3 == 0, 0.0, 6.0)
+    order, enter, feats, maxt = tpi.prepare_shadow_rays(o, d, max_t, packed)
+    shifted = torch.cat([maxt.new_zeros(1), maxt])[1:]
+    assert shifted.data_ptr() % 16 and torch.equal(shifted, maxt)
+    occ = tpi.occluded(order, enter, feats, maxt, packed.w)
+    occ_shifted = tpi.occluded(order, enter, feats, shifted, packed.w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(occ_shifted, occ)
+    assert (want[1] >= 0).any() and (occ > 0).any()

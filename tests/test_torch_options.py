@@ -149,13 +149,13 @@ def test_mask_mode_passes_the_live_mask_without_permuting(monkeypatch):
     seen = {"alive": [], "maxt": []}
     closest, anyhit = tpi.closest_hit_reference, tpi.occluded_reference
 
-    def closest_stub(order, enter, feats, alive, *rest):
+    def closest_stub(order, enter, feats, alive, *rest, **kw):
         seen["alive"].append(alive.clone())
-        return closest(order, enter, feats, alive, *rest)
+        return closest(order, enter, feats, alive, *rest, **kw)
 
-    def anyhit_stub(order, enter, feats, maxt, *rest):
+    def anyhit_stub(order, enter, feats, maxt, *rest, **kw):
         seen["maxt"].append(maxt.clone())
-        return anyhit(order, enter, feats, maxt, *rest)
+        return anyhit(order, enter, feats, maxt, *rest, **kw)
 
     monkeypatch.setattr(tpi, "closest_hit", closest_stub)
     monkeypatch.setattr(tpi, "occluded", anyhit_stub)
@@ -183,7 +183,7 @@ def test_normal_aov_takes_one_search(monkeypatch):
     (_, _, _), (ts_, tc, tst) = _resized("config3_icosphere.toml", 16, 4)
     calls = []
     plain = tpi.closest_hit_reference
-    monkeypatch.setattr(tpi, "closest_hit", lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(tpi, "closest_hit", lambda *a, **kw: calls.append(1) or plain(*a, **kw))
     render_frame(ts_, tc, dataclasses.replace(tst, aov="normal"), device="cpu")
     assert len(calls) == 1
 

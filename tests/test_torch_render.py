@@ -110,9 +110,9 @@ def test_render_on_missing_cuda_raises():
 def _counting(monkeypatch, name, plain):
     """Replace ``packed_intersect.<name>`` by a stub that counts its calls
     and runs the plain version."""
-    def stub(*args):
+    def stub(*args, **kwargs):
         stub.calls += 1
-        return plain(*args)
+        return plain(*args, **kwargs)
 
     stub.calls = 0
     monkeypatch.setattr(tpi, name, stub)

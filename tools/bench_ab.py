@@ -1,18 +1,25 @@
-"""Compares the port's bench in two checkouts on one card: runs
-``bench.run_benchmark(backward=True, full_suite=False)`` on the config 3
-stand-in (the headline, its fwd+bwd and the 256-spp frame) in each, in the
-order parent, change, change, parent (``ROUNDS`` times), and prints each
-number of both sides as its range.
+"""Compares the port in two checkouts on one card, in the order parent,
+change, change, parent (``ROUNDS`` times), and prints each number of both
+sides as its range. What each run measures:
+
+- by default, ``bench.run_benchmark(backward=True, full_suite=False)`` on
+  the config 3 stand-in: the headline, its fwd+bwd and the 256-spp frame;
+- with ``--kernels``, the four kernels' "highest" instantiations: the
+  median of 9 launches of K1 on the config 3 stand-in's camera and
+  bounce-1 rays, K2 on the config 8 stand-in's bounce-1 shadow rays, K3 on
+  the config 6 stand-in's camera and bounce-1 rays and K4 on its bounce-1
+  shadow rays (the inputs of chip_smoke.py's phases 3, 6, 9 and 11).
 
 Unpack both checkouts with ``tools/ab_smoke.py unpack`` (where git is),
 then, on the machine with the card:
 
-    python3 tools/bench_ab.py archive/ab/parent archive/ab/change OUT [ROUNDS]
+    python3 tools/bench_ab.py archive/ab/parent archive/ab/change OUT [ROUNDS] [--kernels]
 
 Each run is a fresh process in its checkout (its kernels build in that
-checkout's ``gpupathtracer_tpu_torch/build/`` on the first run); its
-output goes to ``OUT/<i>_<side>.log`` and the comparison to
-``OUT/summary.json``. Exits non-zero if any run failed.
+checkout's ``gpupathtracer_tpu_torch/build/`` on the first run) that
+prints its numbers as a JSON object on its last line; its output goes to
+``OUT/<i>_<side>.log`` and the comparison to ``OUT/summary.json``. Exits
+non-zero if any run failed.
 """
 
 from __future__ import annotations
@@ -24,26 +31,61 @@ import subprocess
 import sys
 
 ORDER = ("parent", "change", "change", "parent")
-RUN_TIMEOUT_S = 600
+RUN_TIMEOUT_S = 900
 SCENE = "scenes/config3_icosphere.toml"
-CODE = (
-    "import json; from gpupathtracer_tpu_torch import bench; "
-    f"print(json.dumps(bench.run_benchmark(scene_path={SCENE!r}, backward=True, full_suite=False)))"
-)
+BENCH = f"""
+import json
+from gpupathtracer_tpu_torch import bench
+r = bench.run_benchmark(scene_path={SCENE!r}, backward=True, full_suite=False)
+print(json.dumps({{
+    "headline_rays_per_s": r["value"],
+    "headline_median_s": r["median_s"],
+    "fwd_bwd_rays_per_s": r["fwd_bwd"]["rays_per_sec"],
+    "fwd_bwd_median_s": r["fwd_bwd"]["median_s"],
+    "full_spp_rays_per_s": r["full_spp"]["rays_per_sec"],
+    "full_spp_s": r["full_spp"]["median_s"],
+}}))
+"""
+KERNELS = r"""
+import dataclasses, json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from gpupathtracer_tpu_torch.ops import packed_intersect as pi
+
+cs.phase_device()
+cs.phase_build()
+device = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+ms = {}
+time = lambda label, fn, args: ms.__setitem__(label, cs.median_ms(lambda: fn(*args), device, reps=9))
+
+scene, camera, settings = cs.load_scene_file(cs.SCENE, device=device)
+settings = dataclasses.replace(settings, spp=4)
+p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
+(o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, p1)
+time("K1 camera", pi.closest_hit, pi.prepare_rays(o, d, p1) + (p1.w, pi.DEFAULT_RAY_TILE))
+time("K1 bounce-1", pi.closest_hit, pi.prepare_rays(o2, d2, p2) + (p2.w, pi.DEFAULT_RAY_TILE))
+
+scene, camera, settings = cs.load_scene_file(cs.NEE_SCENE, device=device)
+settings = dataclasses.replace(settings, spp=4)
+p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
+time("K2 shadow", pi.occluded, cs.nee_shadow_inputs(scene, camera, settings, p1, p2, "occluded_reference"))
+
+scene, camera, settings = cs.load_scene_file(cs.STREAM_SCENE, device=device)
+settings = dataclasses.replace(settings, spp=2)
+p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
+(o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, p1)
+time("K3 camera", pi.closest_hit_streamed, pi.prepare_rays_streamed(o, d, p1) + (pi.STREAM_RAY_TILE,))
+time("K3 bounce-1", pi.closest_hit_streamed, pi.prepare_rays_streamed(o2, d2, p2) + (pi.STREAM_RAY_TILE,))
+nee = dataclasses.replace(settings, estimator="nee")
+time("K4 shadow", pi.occluded_streamed,
+     cs.nee_shadow_inputs(scene, camera, nee, p1, p2, "occluded_streamed_reference"))
+print(json.dumps(ms), flush=True)
+"""
 
 
-def numbers(result: dict) -> dict[str, float]:
-    return {
-        "headline_rays_per_s": result["value"],
-        "headline_median_s": result["median_s"],
-        "fwd_bwd_rays_per_s": result["fwd_bwd"]["rays_per_sec"],
-        "fwd_bwd_median_s": result["fwd_bwd"]["median_s"],
-        "full_spp_rays_per_s": result["full_spp"]["rays_per_sec"],
-        "full_spp_s": result["full_spp"]["median_s"],
-    }
-
-
-def main(parent: str, change: str, out: str, rounds: int = 1) -> int:
+def main(parent: str, change: str, out: str, rounds: int = 1, code: str = BENCH) -> int:
     os.makedirs(out, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -52,7 +94,7 @@ def main(parent: str, change: str, out: str, rounds: int = 1) -> int:
     values: dict[str, dict[str, list[float]]] = {"parent": {}, "change": {}}
     failed = []
     for i, side in enumerate(ORDER * rounds):
-        proc = subprocess.run([sys.executable, "-c", CODE], cwd=dirs[side], capture_output=True, text=True,
+        proc = subprocess.run([sys.executable, "-c", code], cwd=dirs[side], capture_output=True, text=True,
                               timeout=RUN_TIMEOUT_S)
         with open(os.path.join(out, f"{i}_{side}.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
@@ -60,7 +102,7 @@ def main(parent: str, change: str, out: str, rounds: int = 1) -> int:
             failed.append(f"{i}_{side}")
             print(f"run {i} ({side}) failed: {proc.stderr[-2000:]}", flush=True)
             continue
-        row = numbers(json.loads(proc.stdout.strip().splitlines()[-1]))
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
         print(f"run {i} ({side}): {json.dumps(row)}", flush=True)
         for k, v in row.items():
             values[side].setdefault(k, []).append(v)
@@ -74,6 +116,7 @@ def main(parent: str, change: str, out: str, rounds: int = 1) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (4, 5):
+    args = [a for a in sys.argv[1:] if a != "--kernels"]
+    if len(args) not in (3, 4):
         raise SystemExit(__doc__)
-    sys.exit(main(*sys.argv[1:4], *(int(a) for a in sys.argv[4:])))
+    sys.exit(main(*args[:3], *(int(a) for a in args[3:]), code=KERNELS if "--kernels" in sys.argv else BENCH))
