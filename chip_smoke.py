@@ -8,7 +8,10 @@ Phases, one line each; any failure raises and exits non-zero:
    all started together, with ptxas's registers and shared memory per
    kernel, and each kernel's launch shape at its ray tile (128 rays for K1
    and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
-   every precision mode's instantiation (and K3's traversal-mode kernel);
+   every precision mode's instantiation (and K3's traversal-mode kernel),
+   with, for every K1 and K3 instantiation, its HMMA and FFMA instructions
+   (cuobjdump -sass of the built library; a bf16 instantiation of K1 or K3,
+   the tensor-core route, without HMMA fails the run);
    (once per resident pack of the naive and NEE paths, on the card: w is
    zero outside the 25 live slots that every kernel reads, and finite)
 3. the closest-hit kernel K1 against its plain PyTorch version at the naive
@@ -192,16 +195,19 @@ and the kernels' remaining modes:
 44. the precision modes "high", "mixed" and "default" of every kernel:
     right after each kernel's check at "highest" (phases 3, 6 and 9, and
     the K4 check of 11), on the same main-path inputs, the kernel under each
-    mode against its plain version at that mode (exact: the same packed
-    rows and bit-equal t, or every flag equal; the plain version timed once)
-    and against its own "highest" result by the JAX package's near-parity
+    mode against its plain version at that mode (the plain version timed
+    once): K1 and K3, whose bf16 modes run on the tensor cores, by the hit
+    bar, and at "mixed" with t bit-equal wherever the triangle agrees; K2
+    and K4 exactly (every flag equal); and against its own "highest" result
+    by the JAX package's near-parity
     bar (more than 99.5% of rays on the same triangle or flag; t to 1e-2
     under "high", bit-equal under "mixed"; "default" reported only, as the
-    JAX package keeps it for diagnostics), with the median of 5 ms, the
+    JAX package keeps it for diagnostics), with the median of 5 ms, its
+    ratio to the "highest" time on the same inputs, the
     bound at the mode's own operation count (its bf16 products at the
-    tensor cores' bf16 rate, its f32 adds at the f32 rate), and the
-    instantiation's
-    registers and CTAs per SM (phase 2 prints every instantiation's); after
+    tensor cores' bf16 rate, its f32 adds at the f32 rate) and its share,
+    and the instantiation's registers, CTAs per SM and (K1, K3) HMMA and
+    FFMA instructions (phase 2 prints every instantiation's); after
     phase 43, for each mode the config 3 stand-in's naive frame (800x800,
     spp 4, 4 bounces), the config 8 stand-in's NEE frame and the config 6
     stand-in's streamed NEE frame with kernel_precision set: launches,
@@ -215,7 +221,9 @@ and the kernels' remaining modes:
     its K3 launches and its time against the single-phase time; one case at
     "mixed"; and K3 with a budget of 1 cluster and the done flags, exactly
     equal to its plain version, every live lane it reports done holding its
-    single-phase triangle and some left undone;
+    single-phase triangle and some left undone; then the same budgeted
+    search at "mixed" (K3's mode kernel on the tensor cores) against its
+    plain version by the hit bar, t bit-equal where the triangle agrees;
 then the total wall time, a JSON line that summarises every kernel under
 every mode, and a JSON result line last. Lines starting "elapsed:" mark
 where the time of the run goes.
@@ -235,6 +243,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -334,8 +344,9 @@ FLOP_PER_PAIR = 2 * len(LIVE_SLOTS)
 # slot: the 25 live slots for "high", the 18 edge slots for "mixed"),
 # priced at the bf16 rate; the two f32 adds that fold a split scalar's
 # chains (5 scalars for "high", 3 for "mixed") and "mixed"'s f32 D|num
-# slots, at the f32 rate. The kernels run the products as f32 FMAs on the
-# CUDA cores, so they sit far above such a bound.
+# slots, at the f32 rate. K1 and K3 run the products on the tensor cores
+# (mma.sync m16n8k8 over 8-row windows, whose zero rows the bound does not
+# count); K2 and K4 as f32 FMAs on the CUDA cores, far above such a bound.
 PRECISION_MODES = ("high", "mixed", "default")
 FLOP_PER_PAIR_AT = {
     "highest": (FLOP_PER_PAIR, 0),
@@ -416,25 +427,61 @@ def phase_build() -> None:
         parts.append(f"{os.path.relpath(_build.source(name), ROOT)} -> "
                      f"{os.path.relpath(_build.library_path(name), ROOT)} ({usage})")
     print(f"build: nvcc, {len(reports)} sources in parallel, {dt:.2f} s: " + "; ".join(parts), flush=True)
+    sass = {name: sass_counts(name) for name in ("closest_hit", "closest_hit_streamed")}
     for name in _build.OCCUPANCY:
         ray_tile = STREAM_RAY_TILE if name.endswith("_streamed") else DEFAULT_RAY_TILE
         for precision in packed_intersect.PRECISIONS:
             for modes in (False, True) if name == "closest_hit_streamed" else (False,):
                 occ = packed_intersect.launch_occupancy(name, ray_tile, precision, modes)
-                # The entries are templates on rays a thread (K1, K3), the
-                # precision and K3's modes: <rpt, p>, <p> or <rpt, p, modes>
-                # in their mangled names.
+                # The entries are templates on rays a thread (K1 and K3 at
+                # highest), the precision and m-tiles a warp (their
+                # tensor-core kernels at the bf16 modes), the precision (K2,
+                # K4) and K3's modes: <rpt>, <p, mt>, <p>, <rpt, modes> and
+                # <p, mt, modes> in their mangled names.
                 p = packed_intersect.PRECISIONS.index(precision)
-                args = f"ILi{occ['rays_per_thread']}ELi{p}E" if name.startswith("closest_hit") else f"ILi{p}E"
-                if name == "closest_hit_streamed":
-                    args += f"Lb{int(modes)}E"
-                entry = f"{name}_kernel{args}E"
+                if occ["route"] == "mma":
+                    entry = f"{name}_mma_kernelILi{p}ELi{occ['m_tiles_per_warp']}E"
+                elif name.startswith("closest_hit"):
+                    entry = f"{name}_kernelILi{occ['rays_per_thread']}E"
+                else:
+                    entry = f"{name}_kernelILi{p}E"
+                entry += (f"Lb{int(modes)}E" if name == "closest_hit_streamed" else "") + "E"
                 occ["modes"] = modes
                 occ["ptxas"] = "; ".join(u for e, u in ptxas_usage(reports[name]).items() if entry in e)
                 if not occ["ptxas"]:
                     raise AssertionError(f"no ptxas report of {entry} in the build of {name}")
+                if name in sass:
+                    found = [c for e, c in sass[name].items() if entry in e]
+                    if len(found) != 1:
+                        raise AssertionError(f"{len(found)} SASS functions of {entry} in the build of {name}")
+                    occ.update(hmma=found[0]["HMMA"], ffma=found[0]["FFMA"])
+                    if occ["route"] == "mma" and not occ["hmma"]:
+                        raise AssertionError(f"{entry} at {precision} has no HMMA instruction: {occ}")
                 OCCUPANCY_ROWS[(name, precision, modes)] = occ
                 print(f"occupancy {name}: {json.dumps(occ)}", flush=True)
+
+
+def sass_counts(name: str) -> dict:
+    """The HMMA (tensor-core) and FFMA (f32 FMA) instructions of each
+    kernel entry in the built library ``name``, by mangled name, from
+    ``cuobjdump -sass`` of the CUDA toolkit that built it."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, entry = {}, None
+    for ln in out.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            entry = head.group(1)
+            counts[entry] = {"HMMA": 0, "FFMA": 0}
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if entry is not None and op:
+            for key in counts[entry]:
+                counts[entry][key] += op.group(1).startswith(key)
+    if not counts:
+        raise AssertionError(f"cuobjdump -sass found no function in {_build.library_path(name)}")
+    return counts
 
 
 # Each kernel instantiation's occupancy row (phase_build), by (library,
@@ -533,11 +580,12 @@ def nee_shadow_inputs(scene, camera, settings, packed, packed2, plain_name: str,
 
 
 def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5, exact: bool = False,
-              rows_exact: bool = False, plain_reps: int | None = None,
+              rows_exact: bool = False, t_exact: bool = False, plain_reps: int | None = None,
               flop_per_pair: tuple[int, int] = FLOP_PER_PAIR_AT["highest"]) -> dict:
     """A closest-hit kernel against its plain version on the same inputs;
     ``exact`` also requires the same packed row and a bit-equal t on every
-    lane, ``rows_exact`` the same packed row only. The plain version is
+    lane, ``rows_exact`` the same packed row only, ``t_exact`` a bit-equal
+    t wherever the triangle agrees. The plain version is
     timed over ``plain_reps`` runs (``reps`` unless given; 0: the one run
     that counts its work). The bound counts ``flop_per_pair`` (f32, bf16)."""
     device = args[0].device
@@ -554,6 +602,7 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
     err = (bt_k[same] - bt_r[same]).abs()
     max_abs_err = err.max().item() if err.numel() else 0.0
     t_ok = bool((err <= T_TOL + T_TOL * bt_r[same].abs()).all())
+    t_equal_same_tri = bool(torch.equal(bt_k[same], bt_r[same]))
     same_row = (bi_k == bi_r).double().mean().item()
     t_equal = bool(torch.equal(bt_k, bt_r))
     kernel_ms = median_ms(lambda: kernel(*args), device, reps)
@@ -565,13 +614,14 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
         "rays": args[-4].shape[0], "tri_block": packed.tri_block,
         "ray_tile": ray_tile, "blocks_per_schedule_entry": args[-2].shape[0] // args[0].shape[1],
         "hit_share": (bi_r >= 0).double().mean().item(), "same_tri": agree, "max_abs_err": max_abs_err,
-        "same_row": same_row, "t_equal": t_equal,
+        "same_row": same_row, "t_equal": t_equal, "t_equal_same_tri": t_equal_same_tri,
         "ms": kernel_ms, "plain_ms": plain_ms, "visited_blocks": work["blocks"],
         "lane_blocks": work["lane_blocks"], **b,
     }
     bar = f"same_tri >= {HIT_AGREE}, |dt| <= {T_TOL} + {T_TOL}|t|"
     bar += "; exact: same_tri = same_row = 1, max_abs_err = 0, t_equal" if exact else ""
     bar += "; same_row = 1" if rows_exact else ""
+    bar += "; t_equal_same_tri" if t_exact else ""
     print(f"{name} {label} (bar: {bar}): {json.dumps(row)}", flush=True)
     if agree < HIT_AGREE or not t_ok:
         raise AssertionError(f"{name} {label} misses the hit parity bar: same_tri {agree}, t ok {t_ok}")
@@ -580,6 +630,8 @@ def hit_check(name: str, label: str, kernel, plain, args, packed, reps: int = 5,
                              f"max_abs_err {max_abs_err}, t_equal {t_equal}")
     if rows_exact and same_row != 1.0:
         raise AssertionError(f"{name} {label}: same_row {same_row}, expected 1")
+    if t_exact and not t_equal_same_tri:
+        raise AssertionError(f"{name} {label}: t differs where the triangle agrees (max_abs_err {max_abs_err})")
     return row
 
 
@@ -1928,14 +1980,19 @@ def sorted_hit_check(label: str, o, d, packed) -> dict:
     return row
 
 
-def precision_checks(name: str, label: str, kernel, plain, args, packed=None) -> dict:
+def precision_checks(name: str, label: str, kernel, plain, args, packed=None, highest_ms: float | None = None) -> dict:
     """Phase 44 on one kernel's main-path inputs ``args``: the kernel under
-    each bf16 mode against its plain version at that mode (exact: the same
-    packed rows and bit-equal t, or every flag equal; the plain version
-    timed once), and against the kernel's own "highest" result by the JAX
-    package's near-parity bar (``NEAR_AGREE``; "default" reported only),
-    with the instantiation's registers and CTAs per SM. ``packed`` for a
-    closest hit (K1, K3), None for an any hit (K2, K4)."""
+    each bf16 mode against its plain version at that mode (the plain
+    version timed once), and against the kernel's own "highest" result by
+    the JAX package's near-parity bar (``NEAR_AGREE``; "default" reported
+    only). The closest hits (K1, K3; ``packed`` given) run the bf16 modes
+    on the tensor cores, whose sums take their own order: the hit bar
+    against the plain version, and at "mixed" (t in f32 as "highest") t
+    bit-equal wherever the triangle agrees. The any hits (K2, K4; ``packed``
+    None) run them on the FMA route: every flag equal. Prints ms, x highest
+    (``highest_ms``: the "highest" check's time on the same inputs), the
+    bound and its share, and the instantiation's registers, CTAs per SM
+    and, for K1 and K3, HMMA and FFMA instructions."""
     base = kernel(*args)
     lib = os.path.basename(KERNELS[name]["source"]).removesuffix(".cu")
     rows = {}
@@ -1943,7 +2000,8 @@ def precision_checks(name: str, label: str, kernel, plain, args, packed=None) ->
         k, p = partial(kernel, precision=mode), partial(plain, precision=mode)
         flop = FLOP_PER_PAIR_AT[mode]
         if packed is not None:
-            row = hit_check(name, f"{label} at {mode}", k, p, args, packed, exact=True, plain_reps=0, flop_per_pair=flop)
+            row = hit_check(name, f"{label} at {mode}", k, p, args, packed, t_exact=mode == "mixed", plain_reps=0,
+                            flop_per_pair=flop)
             bt0, bi0 = base
             bt, bi = k(*args)
             tri = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
@@ -1962,13 +2020,16 @@ def precision_checks(name: str, label: str, kernel, plain, args, packed=None) ->
             held = near["same_flag_vs_highest"] > NEAR_AGREE
         _sync(args[0].device)
         occ = OCCUPANCY_ROWS[(lib, mode, False)]
-        row.update(near, precision=mode, ptxas=occ["ptxas"], ctas_per_sm=occ["ctas_per_sm"], threads=occ["threads"])
+        row.update(near, precision=mode, ptxas=occ["ptxas"], ctas_per_sm=occ["ctas_per_sm"], threads=occ["threads"],
+                   route=occ["route"], hmma=occ.get("hmma"), ffma=occ.get("ffma"),
+                   over_highest=row["ms"] / highest_ms if highest_ms else None, share=row["bound_ms"] / row["ms"])
         bar = ("none (diagnostics only, as in the JAX package)" if mode == "default" else
                f"same triangle or flag > {NEAR_AGREE}" + ("" if packed is None else
                                                           ", t bit-equal" if mode == "mixed" else f", |dt| <= {NEAR_T_TOL}"))
+        shown = ("ms", "over_highest", "bound_ms", "bound_by", "share", "route", "ptxas", "ctas_per_sm", "threads",
+                 "hmma", "ffma")
         print(f"precision {name} {label} at {mode} against highest (bar: {bar}): "
-              f"{json.dumps({**near, 'ms': row['ms'], 'ptxas': occ['ptxas'], 'ctas_per_sm': occ['ctas_per_sm']})}",
-              flush=True)
+              f"{json.dumps({**near, **{key: row[key] for key in shown}})}", flush=True)
         if mode != "default" and not held:
             raise AssertionError(f"{name} {label} at {mode} misses the near-parity bar against highest: {near}")
         rows[mode] = row
@@ -2116,6 +2177,23 @@ def phase_stream_modes(rays) -> dict:
     if not (row["exact"] and row["done_sound"] and row["undone_live"] > 0):
         raise AssertionError(f"stream modes, budget 1: {row}")
     out["done_check"] = row
+    # The same budgeted search at "mixed", where K3's modes kernel runs on
+    # the tensor cores: the hit bar against its plain version, t bit-equal
+    # where the triangle agrees.
+    mixed = hit_check("closest_hit_streamed", f"{label}, budget 1 at mixed",
+                      partial(closest_hit_streamed, budget=1, precision="mixed"),
+                      partial(closest_hit_streamed_reference, budget=1, precision="mixed"), args, packed,
+                      t_exact=True, plain_reps=0, flop_per_pair=FLOP_PER_PAIR_AT["mixed"])
+    bt, bi, done = closest_hit_streamed(*args, budget=1, with_done=True, precision="mixed")
+    _, bi_r, done_r = closest_hit_streamed_reference(*args, budget=1, with_done=True, precision="mixed")
+    mixed["same_done"] = (done == done_r).double().mean().item()
+    mixed["undone_live"] = int(((done == 0) & live).sum())
+    print(f"stream modes {label}, budget 1 at mixed with done flags (bar: the hit bar, t bit-equal where the "
+          f"triangle agrees; some live lanes undone): {json.dumps({k: mixed[k] for k in ('same_tri', 'max_abs_err', 't_equal_same_tri', 'same_done', 'undone_live', 'ms', 'plain_ms', 'bound_ms')})}",
+          flush=True)
+    if mixed["undone_live"] == 0:
+        raise AssertionError(f"stream modes, budget 1 at mixed left no lane undone: {mixed}")
+    out["mixed_budget_check"] = mixed
     return out
 
 
@@ -2158,8 +2236,9 @@ def main() -> None:
     ]
     mode_rows = {"closest_hit": [
         precision_checks("closest_hit", label, closest_hit, closest_hit_reference,
-                         prepare_rays(oo, dd, p) + (p.w, DEFAULT_RAY_TILE), p)
-        for label, oo, dd, p in (("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2))
+                         prepare_rays(oo, dd, p) + (p.w, DEFAULT_RAY_TILE), p, row["ms"])
+        for (label, oo, dd, p), row in zip((("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2)),
+                                           k1_rows)
     ]}
     # What a rank of a 1x2 scene axis searches: the same rays against scene
     # shard 1 of 2, packed at the one width the sharded frames use.
@@ -2192,7 +2271,8 @@ def main() -> None:
         phase_live_zeros(f"config8 tb {p.tri_block}", p)
     k2_args = nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference")
     k2_row = occlusion_check("occluded", "bounce-1 shadow rays", occluded, occluded_reference, k2_args, exact=True)
-    mode_rows["occluded"] = [precision_checks("occluded", "bounce-1 shadow rays", occluded, occluded_reference, k2_args)]
+    mode_rows["occluded"] = [precision_checks("occluded", "bounce-1 shadow rays", occluded, occluded_reference, k2_args,
+                                              highest_ms=k2_row["ms"])]
     del k2_args
     for estimator in ("nee", "mis"):
         phase_image_check(scene, camera, dataclasses.replace(settings, estimator=estimator), size=128, spp=2)
@@ -2228,8 +2308,9 @@ def main() -> None:
     ]
     mode_rows["closest_hit_streamed"] = [
         precision_checks("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference,
-                         prepare_rays_streamed(oo, dd, p) + (STREAM_RAY_TILE,), p)
-        for label, oo, dd, p in (("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2))
+                         prepare_rays_streamed(oo, dd, p) + (STREAM_RAY_TILE,), p, row["ms"])
+        for (label, oo, dd, p), row in zip((("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2)),
+                                           k3_rows)
     ]
     elapsed("K3's traversal modes")
     k3_modes = phase_stream_modes([("camera rays", o, d, packed), ("bounce-1 rays", o2, d2, packed2)])
@@ -2256,7 +2337,7 @@ def main() -> None:
     k4_row = occlusion_check("occluded_streamed", "bounce-1 shadow rays", occluded_streamed,
                              occluded_streamed_reference, k4_args)
     mode_rows["occluded_streamed"] = [precision_checks("occluded_streamed", "bounce-1 shadow rays", occluded_streamed,
-                                                       occluded_streamed_reference, k4_args)]
+                                                       occluded_streamed_reference, k4_args, highest_ms=k4_row["ms"])]
     del k4_args
     k4_mask_row = occlusion_check(
         "occluded_streamed", "bounce-1 shadow rays uncompacted, max_t = 0 on dead lanes (mask mode)",

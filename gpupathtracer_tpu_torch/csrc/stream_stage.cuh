@@ -24,13 +24,15 @@
 // holds for both, dd <= -EPS and num < EPS * dd fail for both.
 //
 // The precision modes (ops/packed_intersect.py PRECISIONS, the JAX
-// package's `_decision_dot`). Each kernel is a template on the mode, and
-// the HIGHEST instantiation is the f32 code above. The bf16 modes take
-// their triangle operands from the wrapper, split once per pack
-// (`_kernel_operands`): operand a is bf16(w) (for MIXED, with the D|num
-// columns of w itself), operand b is bf16(w - bf16(w)). A thread splits its
-// rays' features the same way in registers (round to nearest even, as
-// torch and XLA round). DEFAULT sums fh * a over a scalar's live rows;
+// package's `_decision_dot`). HIGHEST is the f32 code above in every
+// kernel. The closest hits (K1, K3) run their bf16 modes on the tensor
+// cores (the tensor-core route, at the end of this file); the any hits
+// (K2, K4), templates on the mode, run them on this FMA route.
+// There the bf16 modes take their triangle operands from the wrapper, split
+// once per pack (`_kernel_operands`): operand a is bf16(w) (for MIXED, with
+// the D|num columns of w itself), operand b is bf16(w - bf16(w)). A thread
+// splits its rays' features the same way in registers (round to nearest
+// even, as torch and XLA round). DEFAULT sums fh * a over a scalar's live rows;
 // HIGH sums the three chains fh * a, fh * b and fl * a and returns
 // hh + (hl + lh), the JAX package's grouping; MIXED does so for the edge
 // slots of s0, s1 and s2 (the first NEDGE of the table) and sums f * a,
@@ -53,12 +55,12 @@
 // nothing beyond the tb % 4 == 0 and 16-byte base alignment the wrappers
 // check. The copies run STAGES - 1 chunks ahead of the arithmetic, across
 // block boundaries.
-// - Along a cluster (stream_cluster, K3 and K4): the cluster's computed
+// - Along a cluster (walk_cluster, K3 and K4): the cluster's computed
 //   blocks are fixed at its start, because every skip tests against the
 //   cluster-start worst or bound. The ring does not fetch into the next
 //   scheduled cluster: which of its blocks are computed depends on the bound
 //   this cluster leaves.
-// - Along a block schedule (stream_schedule, K1 and K2): there is no skip
+// - Along a block schedule (walk_schedule, K1 and K2): there is no skip
 //   inside the schedule, so the next block is always order[j + 1], and the
 //   exit test decides only whether it is used. The ring fetches it
 //   speculatively, while its entry bound is below the newest worst or bound
@@ -70,6 +72,7 @@
 #include "decision.cuh"
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 #include <type_traits>
 #include <utility>
 
@@ -293,15 +296,14 @@ __device__ __forceinline__ int next_block(const float* __restrict__ eb, int b, i
 // Walks the chunks of one cluster's computed blocks (ascending, chunks
 // ascending) through the ring and calls compute(stage, b, c0, cw4) for each,
 // with b the block within the cluster and cw4 the chunk's float4 columns.
-// `wc` is the cluster's first block in w. Every thread of the CTA calls it
+// fetch_chunk_of(stage, b, c0) starts the copies of block b's chunk at
+// column c0 into a stage of SF4 float4s. Every thread of the CTA calls it
 // with the same arguments; it holds one CTA barrier per chunk, and the
 // caller must hold one between two calls (the stages are refilled at once).
-template <int P, typename Compute>
-__device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const float* __restrict__ wc,
-                                               const float* __restrict__ wbc, const float* __restrict__ eb, int bpc,
-                                               int tb, float lim, Compute&& compute) {
-  constexpr int SF4 = stage_float4<P>();
-  const size_t block_floats = (size_t)K * NS * tb;
+template <int SF4, typename Fetch, typename Compute>
+__device__ __forceinline__ void walk_cluster(float4* __restrict__ ring, Fetch&& fetch_chunk_of,
+                                             const float* __restrict__ eb, int bpc, int tb, float lim,
+                                             Compute&& compute) {
   int pb = next_block(eb, 0, bpc, lim), pc = 0;  // the next chunk to fetch
   int cb = pb, cc = 0;                           // the next chunk to compute
   auto advance = [&](int& b, int& c0) {
@@ -313,7 +315,7 @@ __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const 
   };
   auto fetch = [&](int stage) {
     if (pb < bpc) {
-      fetch_chunk<P>(ring + stage * SF4, wc + pb * block_floats, wbc + pb * block_floats, tb, pc);
+      fetch_chunk_of(ring + stage * SF4, pb, pc);
       advance(pb, pc);
     }
     cp_async_commit();  // one group per chunk slot, empty past the end
@@ -329,6 +331,21 @@ __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const 
     advance(cb, cc);
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
+}
+
+// walk_cluster over the live rows of the FMA route: `wc` is the cluster's
+// first block in w, `wbc` in operand b.
+template <int P, typename Compute>
+__device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const float* __restrict__ wc,
+                                               const float* __restrict__ wbc, const float* __restrict__ eb, int bpc,
+                                               int tb, float lim, Compute&& compute) {
+  const size_t block_floats = (size_t)K * NS * tb;
+  walk_cluster<stage_float4<P>()>(
+      ring,
+      [&](float4* stage, int b, int c0) {
+        fetch_chunk<P>(stage, wc + b * block_floats, wbc + b * block_floats, tb, c0);
+      },
+      eb, bpc, tb, lim, compute);
 }
 
 // Max of v over the CTA, returned to every thread, with one barrier: each
@@ -360,26 +377,25 @@ __device__ __forceinline__ bool takes(const int* __restrict__ order, const float
 
 // Walks the chunks of one tile's block schedule (position j = 0, 1, ... is
 // block order[j], its chunks ascending) through the ring, taking positions
-// while takes(j, lim). Calls compute(stage, blk, c0, cw4) for each chunk,
-// with cw4 the chunk's float4 columns, and after a block's last chunk sets
-// lim = block_end(blk): the exact worst (K1) or bound (K2) after that block,
-// so the walk stops where the plain version stops. The copies of the chunks
-// that follow are fetched STAGES - 1 chunks ahead, across block boundaries,
-// each while its position is taken at the newest lim (see the header). On
-// return every copy has landed. Every thread of the CTA calls it with the
-// same arguments, and every thread calls block_end, which may hold
-// barriers; the walk holds one CTA barrier per chunk besides.
-template <int P, typename Compute, typename BlockEnd>
-__device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
-                                                const float* __restrict__ wb, const int* __restrict__ order,
-                                                const float* __restrict__ enter, int nb, int tb, float lim,
-                                                Compute&& compute, BlockEnd&& block_end) {
-  constexpr int SF4 = stage_float4<P>();
-  const size_t block_floats = (size_t)K * NS * tb;
+// while takes(j, lim). fetch_chunk_of(stage, blk, c0) starts the copies of
+// block blk's chunk at column c0 into a stage of SF4 float4s. Calls
+// compute(stage, blk, c0, cw4) for each chunk, with cw4 the chunk's float4
+// columns, and after a block's last chunk sets lim = block_end(blk): the
+// exact worst (K1) or bound (K2) after that block, so the walk stops where
+// the plain version stops. The copies of the chunks that follow are fetched
+// STAGES - 1 chunks ahead, across block boundaries, each while its position
+// is taken at the newest lim (see the header). On return every copy has
+// landed. Every thread of the CTA calls it with the same arguments, and
+// every thread calls block_end, which may hold barriers; the walk holds one
+// CTA barrier per chunk besides.
+template <int SF4, typename Fetch, typename Compute, typename BlockEnd>
+__device__ __forceinline__ void walk_schedule(float4* __restrict__ ring, Fetch&& fetch_chunk_of,
+                                              const int* __restrict__ order, const float* __restrict__ enter, int nb,
+                                              int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
   int pj = 0, pc = 0;  // the next chunk to fetch
   auto fetch = [&](int stage) {
     if (takes(order, enter, pj, nb, lim)) {
-      fetch_chunk<P>(ring + stage * SF4, w + order[pj] * block_floats, wb + order[pj] * block_floats, tb, pc);
+      fetch_chunk_of(ring + stage * SF4, order[pj], pc);
       pc += CHUNK;
       if (pc >= tb) {
         pc = 0;
@@ -408,6 +424,346 @@ __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
   cp_async_wait<0>();  // the speculative copies past the stop
+}
+
+// walk_schedule over the live rows of the FMA route (w, and operand b at wb).
+template <int P, typename Compute, typename BlockEnd>
+__device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
+                                                const float* __restrict__ wb, const int* __restrict__ order,
+                                                const float* __restrict__ enter, int nb, int tb, float lim,
+                                                Compute&& compute, BlockEnd&& block_end) {
+  const size_t block_floats = (size_t)K * NS * tb;
+  walk_schedule<stage_float4<P>()>(
+      ring,
+      [&](float4* stage, int blk, int c0) {
+        fetch_chunk<P>(stage, w + blk * block_floats, wb + blk * block_floats, tb, c0);
+      },
+      order, enter, nb, tb, lim, compute, block_end);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core route: the bf16 modes of the closest hits (K1 and K3 at
+// HIGH, MIXED and DEFAULT). K2, K4 and every HIGHEST instantiation keep the
+// FMA route above.
+//
+// Operands. The wrapper (`_kernel_operands(w, precision, mma=True)`) gives
+// w_hi = bf16(w) and w_lo = bf16(w - bf16(w)) as (nb, NS, tb, WIN) bf16:
+// for each block, scalar s and column c, the WIN = 8 feature rows of s's
+// window, contiguous in k. s0, s1, s2 and D take rows 0-7, num rows 6-13
+// (window_start), so every live slot lies in its scalar's window and every
+// other row of a window is 0 in w. A column window is 16 bytes, and the B
+// fragment of mma.m16n8k8.row.col (k = 2 (lane % 4) + {0, 1}, n = lane / 4)
+// is one 32-bit shared-memory load a thread: eight columns of 16 bytes, 32
+// distinct banks. Why k8 and not k16: a scalar reads at most 6 of the 10
+// live feature rows, all inside one 8-row window, so one k8 step gives the
+// same sums at half the tensor-core work of a k16 step.
+//
+// Rays (the A operand). A warp holds MT m-tiles of 16 rays; the thread
+// holds rays lane / 4 and lane / 4 + 8 of each, at k = 2 (lane % 4) +
+// {0, 1}. Its fragments are bf16(f) and bf16(f - bf16(f)) of window 0
+// (feature rows 0-5, with rows 6 and 7 set to 0 as they are in w) and of
+// num's window (rows 6-9; rows 10-13 are 0), loaded once per tile: a ray's
+// features do not change along its schedule.
+//
+// Products, for 8 staged columns and each scalar: DEFAULT one mma (but
+// num, below); HIGH three, fh wl, then fl wh, then fh wh, chained through
+// the accumulator (C), so the small products are summed first; MIXED those
+// three for s0-s2, and D and num as f32 FMA chains on the CUDA cores from
+// w's f32 live rows (staged after the bf16 windows), in exactly the order
+// HIGHEST sums them, so t is bit-equal to HIGHEST's wherever the winning
+// triangle agrees. A tensor core sums a k-step's products (each exact in
+// f32) in an order, and with an internal alignment, that PTX leaves
+// unspecified: the edge scalars, and at HIGH t, are not bit-equal to the
+// plain version's f32 matmuls, and the hit bar holds them. The JAX
+// package's grouping, hh + (hl + lh) from three separate accumulators
+// (`_dot_high`), costs 40 f32 adds a thread per 8 columns and some 30 more
+// registers, and was slower with the same bars met (tools/mma_variant_ab.py,
+// PERF.md section 6). DEFAULT sums
+// num on the CUDA cores too, fh times the bf16 num rows that lead its
+// staged window, in the plain version's order: at a bounce ray's own
+// surface num cancels to a residual of the bf16 roundings whose sign alone
+// decides a self-hit (t of order 1e-3, past the 1e-6 epsilon), so another
+// summation order flips about 0.1% of those rays' triangles (measured on
+// the H100 at the config 3 stand-in's bounce-1 rays).
+//
+// Epilogue. An m16n8 f32 accumulator leaves the thread rays lane / 4 and
+// lane / 4 + 8 at columns 2 (lane % 4) + {0, 1}, so the five scalars' tiles
+// over the same 8 columns put all five scalars of those 4 pairs in one
+// thread, and hit_t runs as it is. Each thread keeps its least (t, row) per
+// ray over ascending columns with strict <; at a fold the 4 threads of a
+// quad fold by (t, packed row), the lower row winning ties (quad_min): given
+// the same scalars, the plain version's argmin, ties included.
+//
+// Why mma.sync and not wgmma: at HIGH a 16 x 8 tile of pairs costs 15
+// m16n8k8, some 10-11 SM clocks at mma.sync's rate, and the epilogue's ~10
+// decision instructions a pair cost about as many clocks on the CUDA cores
+// for the same 128 pairs, so the epilogue keeps pace with the tensor cores.
+// wgmma's 64-row tiles, shared-memory A and asynchronous execution buy little
+// until a profile shows the tensor cores busy.
+
+constexpr int WIN = 8;  // feature rows of a scalar's window
+
+// First feature row of scalar s's window: 0 for s0, s1, s2 and D, 6 for num.
+__host__ __device__ constexpr int window_start(int s) { return s == 4 ? 6 : 0; }
+
+constexpr bool windows_hold_live_slots() {
+  for (int i = 0; i < NLIVE; ++i) {
+    const Slot a = live_slot(i);
+    if (a.k < window_start(a.s) || a.k >= window_start(a.s) + WIN) return false;
+  }
+  return true;
+}
+static_assert(windows_hold_live_slots(), "a live slot lies outside its scalar's window");
+
+constexpr int NDN = NLIVE - NEDGE;  // MIXED's f32 live rows of D and num
+
+// The first live slot whose products the CUDA cores sum (in table order, to
+// the last): MIXED's D and num, DEFAULT's num; none at HIGH.
+template <int P>
+__host__ __device__ constexpr int fma_slot0() {
+  return P == MIXED ? NEDGE : P == DEFAULT ? NEDGE + 3 : NLIVE;
+}
+
+// The scalars whose products run on the tensor cores (MIXED: s0, s1, s2;
+// DEFAULT: s0, s1, s2, D).
+template <int P>
+__host__ __device__ constexpr int mma_scalars() {
+  return P == MIXED ? 3 : P == DEFAULT ? 4 : NS;
+}
+
+// The bf16 windows staged: hi and lo of the tensor-core scalars, and for
+// DEFAULT hi of all five (num's rows feed its FMA chains).
+template <int P>
+__host__ __device__ constexpr int mma_segments() {
+  return P == DEFAULT ? NS : 2 * mma_scalars<P>();
+}
+
+// A stage: for each bf16 operand (w_hi, then w_lo) and each of its scalars,
+// CHUNK column windows of 16 bytes; for MIXED then the NDN f32 live rows of
+// D and num, CHUNK floats each.
+template <int P>
+__host__ __device__ constexpr int mma_stage_float4() {
+  return mma_segments<P>() * CHUNK + (P == MIXED ? NDN * CHUNK4 : 0);
+}
+
+template <int P>
+__host__ __device__ constexpr int mma_ring_bytes() {
+  return STAGES * mma_stage_float4<P>() * 16;
+}
+
+// Starts the copies of columns [c0, c0 + cw) of block blk into `stage`:
+// 16-byte column windows of w_hi and w_lo and, for MIXED, float4s of w's
+// D|num live rows, spread over every thread of the CTA.
+template <int P>
+__device__ __forceinline__ void fetch_chunk_mma(float4* __restrict__ stage, const float* __restrict__ w,
+                                                const __nv_bfloat16* __restrict__ w_hi,
+                                                const __nv_bfloat16* __restrict__ w_lo, int blk, int tb, int c0) {
+  constexpr int NM = P == DEFAULT ? NS : mma_scalars<P>();  // windows of each operand
+  const int cw = min(CHUNK, tb - c0);
+  for (int i = threadIdx.x; i < mma_segments<P>() * CHUNK; i += blockDim.x) {
+    const int seg = i / CHUNK, col = i % CHUNK;
+    if (col < cw) {
+      const __nv_bfloat16* src = seg < NM ? w_hi : w_lo;
+      cp_async16(stage + i, src + (((size_t)blk * NS + seg % NM) * tb + c0 + col) * WIN);
+    }
+  }
+  if constexpr (P == MIXED) {
+    const int cw4 = cw / 4;
+    const float* wb = w + (size_t)blk * K * NS * tb;
+    float4* rows = stage + mma_segments<P>() * CHUNK;
+    for (int i = threadIdx.x; i < NDN * CHUNK4; i += blockDim.x) {
+      const int r = i / CHUNK4, q = i % CHUNK4;
+      if (q < cw4) cp_async16(rows + i, wb + (size_t)slot_row(NEDGE + r) * tb + c0 + 4 * q);
+    }
+  }
+}
+
+// Two floats as bf16x2, each rounded to nearest even; x0 (the lower k) in
+// the low half, as the mma fragments hold them.
+__device__ __forceinline__ uint32_t bf16x2(float x0, float x1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A warp's rays as the tensor-core route multiplies them: MT m-tiles of 16
+// rays from `ray0`; ray lane / 4 + 8 h (h = 0, 1) of m-tile m is this
+// thread's ray (m, h).
+template <int P, int MT>
+struct RayFragments {
+  uint32_t hi[MT][2][2];  // [m][window 0, num's][h]: bf16(f) at k = 2 (lane % 4) + {0, 1}
+  uint32_t lo[MT][2][2];  // bf16(f - bf16(f)) (HIGH, MIXED)
+  float fx[MT][2][NDN];   // the CUDA cores' factors at live slots fma_slot0.. in table order:
+                          // f (MIXED's D and num), bf16(f) (DEFAULT's num)
+
+  __device__ __forceinline__ void load(const float* __restrict__ feats, int ray0, int lane) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* f = feats + (size_t)(ray0 + 16 * m + 8 * h + (lane >> 2)) * K;
+#pragma unroll
+        for (int win = 0; win < 2; ++win) {
+          const int k0 = window_start(win ? 4 : 0) + 2 * (lane & 3);
+          const int end = win ? NF : 6;  // the window's live feature rows end here
+          const float x0 = k0 < end ? f[k0] : 0.0f, x1 = k0 + 1 < end ? f[k0 + 1] : 0.0f;
+          const float h0 = bf16_rn(x0), h1 = bf16_rn(x1);
+          hi[m][win][h] = bf16x2(h0, h1);
+          if constexpr (P != DEFAULT) lo[m][win][h] = bf16x2(x0 - h0, x1 - h1);  // x - bf16(x) is exact
+        }
+#pragma unroll
+        for (int i = 0; i < NLIVE - fma_slot0<P>(); ++i) {
+          const float x = f[live_slot(fma_slot0<P>() + i).k];
+          fx[m][h][i] = P == DEFAULT ? bf16_rn(x) : x;
+        }
+      }
+    }
+  }
+};
+
+// d = a b on the tensor cores: m16n8k8, bf16 operands, f32 sums, C = 0.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// d += a b on the tensor cores (C = d).
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// s[m][sc][2 h + x] = scalar sc of ray (m, h) and staged column
+// 8 nt + 2 (lane % 4) + x at precision P: the decision products of the
+// tensor-core route. Every lane of the warp calls it (mma.sync is warp-wide).
+template <int P, int MT>
+__device__ __forceinline__ void mma_dots(const RayFragments<P, MT>& a, const float4* __restrict__ stage, int nt,
+                                         int lane, float (&s)[MT][NS][4]) {
+  constexpr int NM = mma_scalars<P>();
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(stage);
+  const int off = (8 * nt + (lane >> 2)) * (WIN / 2) + (lane & 3);  // column 8 nt + lane / 4, k pair lane % 4
+#pragma unroll
+  for (int sc = 0; sc < NM; ++sc) {
+    const int win = sc == 4;
+    const uint32_t bh = words[sc * CHUNK * (WIN / 2) + off];
+    if constexpr (P == DEFAULT) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_bf16(s[m][sc], a.hi[m][win][0], a.hi[m][win][1], bh);
+    } else {
+      const uint32_t bl = words[(NM + sc) * CHUNK * (WIN / 2) + off];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {  // the small products first: fh wl, fl wh, then fh wh
+        mma_bf16(s[m][sc], a.hi[m][win][0], a.hi[m][win][1], bl);
+        mma_bf16_acc(s[m][sc], a.lo[m][win][0], a.lo[m][win][1], bh);
+        mma_bf16_acc(s[m][sc], a.hi[m][win][0], a.hi[m][win][1], bh);
+      }
+    }
+  }
+  // The CUDA cores' slots, ascending k per scalar, as live_dots sums them:
+  // MIXED's D and num from w's f32 rows (staged after the windows), DEFAULT's
+  // num from the bf16 rows 6-9 that lead its staged window.
+  constexpr int F0 = fma_slot0<P>();
+  if constexpr (F0 < NLIVE) {
+    const int col = 8 * nt + 2 * (lane & 3);
+    float wx[NLIVE - F0][2];  // [slot][x]: w at column col + x
+    if constexpr (P == MIXED) {
+      const float* rows = reinterpret_cast<const float*>(stage + mma_segments<P>() * CHUNK);
+#pragma unroll
+      for (int i = 0; i < NLIVE - F0; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(rows + i * CHUNK + col);
+        wx[i][0] = v.x;
+        wx[i][1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const uint2 q = *reinterpret_cast<const uint2*>(words + (4 * CHUNK + col + x) * (WIN / 2));
+        wx[0][x] = __uint_as_float(q.x << 16);  // bf16 to f32: the high half of the bits
+        wx[1][x] = __uint_as_float(q.x & 0xffff0000u);
+        wx[2][x] = __uint_as_float(q.y << 16);
+        wx[3][x] = __uint_as_float(q.y & 0xffff0000u);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int sc = live_slot(F0).s; sc < NS; ++sc) s[m][sc][e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NLIVE - F0; ++i) {
+      const int sc = live_slot(F0 + i).s;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) s[m][sc][2 * h + x] = fmaf(a.fx[m][h][i], wx[i][x], s[m][sc][2 * h + x]);
+        }
+      }
+    }
+  }
+}
+
+// One chunk of the closest-hit search on the tensor-core route: n-tiles
+// nt = g, g + groups, ... of its cw staged columns (cw a multiple of 4;
+// row0 the packed row of column 0). For each ray (m, h) of the thread with
+// take(m, h), its least (t, row) over ascending columns, strict <, into
+// (gt, gi). Every lane of the warp calls it with the same g, groups and cw.
+template <int P, int MT, typename Take>
+__device__ __forceinline__ void mma_chunk_min(const RayFragments<P, MT>& a, const float4* __restrict__ stage, int g,
+                                              int groups, int cw, int row0, int lane, float (&gt)[MT][2],
+                                              int (&gi)[MT][2], Take&& take) {
+  for (int nt = g; 8 * nt < cw; nt += groups) {
+    float s[MT][NS][4];
+    mma_dots<P, MT>(a, stage, nt, lane, s);
+    const int col = 8 * nt + 2 * (lane & 3);
+    if (col < cw) {  // else a ragged last n-tile: both of this thread's columns lie past the chunk
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {  // ascending columns
+            const int e = 2 * h + x;
+            const float t = hit_t(s[m][0][e], s[m][1][e], s[m][2][e], s[m][3][e], s[m][4][e]);
+            if (take(m, h) && t < gt[m][h]) {  // strict <: the lower column wins ties
+              gt[m][h] = t;
+              gi[m][h] = row0 + col + x;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The least (t, i) of the 4 threads of a quad, the lower i winning ties,
+// returned to all 4.
+__device__ __forceinline__ void quad_min(float& t, int& i) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, t, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (ot < t || (ot == t && oi < i)) {
+      t = ot;
+      i = oi;
+    }
+  }
+}
+
+// The tensor-core route's launch shape: `groups` column groups of
+// ray_tile / (16 MT) warps, at most max_threads (the kernel's launch
+// bound). Returns the threads, or 0 if the shape is not one the kernel
+// takes.
+template <int MT>
+inline int mma_threads(int ray_tile, int groups, int max_threads) {
+  if (ray_tile <= 0 || ray_tile % (16 * MT) || groups < 1) return 0;
+  const int threads = ray_tile / (16 * MT) * 32 * groups;
+  return threads <= max_threads ? threads : 0;
 }
 
 // Returns f(std::integral_constant<int, P>{}) for the precision P named by

@@ -103,25 +103,60 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
-def _kernel_operands(w: torch.Tensor, precision: str):
-    """The two triangle operands the kernels stage for ``precision``, both
-    shaped as ``w``: ``w`` itself for "highest"; bf16(w) for "default";
-    (hi, lo) of ``split_bf16`` for "high"; for "mixed", hi with the D|num
-    columns of ``w`` and lo. Cached on ``w`` per precision, keyed on its
-    version counter, as the live-slot mark is."""
+# The tensor-core route of the closest hits' bf16 modes (K1, K3;
+# csrc/stream_stage.cuh): each decision scalar multiplies one window of
+# MMA_WINDOW feature rows, starting at its MMA_WINDOW_START row (s0, s1, s2
+# and D rows 0-7, num rows 6-13). Every live slot of a scalar lies in its
+# window, and every other row of a window is 0 in w.
+MMA_WINDOW = 8
+MMA_WINDOW_START = (0, 0, 0, 0, 6)
+
+
+def mma_windows(x: torch.Tensor) -> torch.Tensor:
+    """(nb, NSCALARS, tb, MMA_WINDOW) of ``x`` (nb, K, NSCALARS·tb): for
+    each block, scalar s and column c, the feature rows of s's window,
+    contiguous."""
+    nb, _, five_tb = x.shape
+    cols = x.view(nb, K, NSCALARS, five_tb // NSCALARS).permute(0, 2, 3, 1)
+    return torch.stack([cols[:, s, :, k0 : k0 + MMA_WINDOW] for s, k0 in enumerate(MMA_WINDOW_START)], dim=1)
+
+
+def _kernel_operands(w: torch.Tensor, precision: str, mma: bool = False):
+    """The triangle operands the kernels stage for ``precision``.
+
+    The FMA route (K2, K4; ``mma=False``): two tensors shaped as ``w``,
+    ``w`` itself for "highest"; bf16(w) for "default"; (hi, lo) of
+    ``split_bf16`` for "high"; for "mixed", hi with the D|num columns of
+    ``w`` and lo.
+
+    The tensor-core route (K1, K3; ``mma=True``): ``(w, hi, lo)``, with hi
+    = bf16(w) and lo = bf16(w - bf16(w)) as ``torch.bfloat16``
+    ``mma_windows`` of ``split_bf16(w)``: "default" reads hi, "high" hi and
+    lo, "mixed" hi and lo of s0-s2 and the f32 D|num rows of ``w``;
+    "highest" gets ``(w, w, w)`` and reads ``w`` only.
+
+    Cached on ``w`` per route and precision (the tensor-core route's split
+    once for all three modes), keyed on its version counter, as the
+    live-slot mark is."""
     if precision == "highest":
-        return w, w
+        return (w, w, w) if mma else (w, w)
     cache = getattr(w, "_kernel_operands", None)
     if cache is None:
         cache = w._kernel_operands = {}
-    entry = cache.get(precision)
+    key = "mma" if mma else precision
+    entry = cache.get(key)
     if entry is None or entry[0] != w._version:
         hi, lo = split_bf16(w)
-        if precision == "mixed":
+        if mma:
+            hi, lo = (mma_windows(x).to(torch.bfloat16) for x in (hi, lo))
+        elif precision == "mixed":
             tb = w.shape[2] // NSCALARS
             hi = torch.cat([hi[..., : 3 * tb], w[..., 3 * tb :]], dim=-1)
-        entry = cache[precision] = (w._version, hi, hi if precision == "default" else lo)
-    return entry[1], entry[2]
+        entry = cache[key] = (w._version, hi, lo)
+    hi, lo = entry[1], entry[2]
+    if mma:
+        return w, hi, hi if precision == "default" else lo
+    return hi, hi if precision == "default" else lo
 
 # Launch shape of the four kernels (csrc/stream_stage.cuh), per kernel
 # library: the threads a CTA aims at, and the rays a thread takes where the
@@ -129,19 +164,54 @@ def _kernel_operands(w: torch.Tensor, precision: str):
 # tile as column groups of ray_tile / rays_per_thread threads each. At the
 # 128-ray tile: K1 2 groups of 64 threads, K2 8 groups of 128; at the 64-ray
 # tile: K3 8 groups of 32 threads, K4 2 groups of 64 (the fastest shapes of
-# tools/stream_sweep.py on the H100, PERF.md section 6).
+# tools/stream_sweep.py on the H100, PERF.md section 6). These are the
+# "highest" shapes, and every shape of K2 and K4.
 LAUNCH = {
     "closest_hit": (128, 2),
     "occlusion": (1024, 1),
     "closest_hit_streamed": (256, 2),
     "occlusion_streamed": (128, 1),
 }
+# The closest hits' bf16 modes on the tensor cores (K1, K3): the threads a
+# CTA aims at and the m-tiles of 16 rays a warp. A CTA holds one ray tile
+# as column groups of ray_tile / (16·m_tiles) warps each, at most
+# MMA_MAX_THREADS (the kernels' launch bounds: K1 256 at one m-tile a warp,
+# with 3 CTAs an SM, K3 512; both 1,024 at two, taken where one would need
+# more). At the 128-ray tile K1 is 1 group of 8 warps, at the 64-ray tile
+# K3 4 groups of 4 (the fastest shapes of tools/stream_sweep.py mma on the
+# bounce-1 rays; two m-tiles a warp, held to 64 registers by the
+# 1,024-thread bound, was slower; PERF.md section 6).
+LAUNCH_MMA = {
+    "closest_hit": (256, 1),
+    "closest_hit_streamed": (512, 1),
+}
+MMA_MAX_THREADS = {
+    "closest_hit": {1: 256, 2: 1024},
+    "closest_hit_streamed": {1: 512, 2: 1024},
+}
 
 
-def launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
-    """``(threads, groups, rays_per_thread)`` of a kernel's CTA for
-    ``ray_tile`` rays (a multiple of 32): each group is a whole number of
-    warps, so two rays a thread need a multiple of 64."""
+def mma_route(library: str, precision: str) -> bool:
+    """Whether ``library`` runs ``precision`` on the tensor cores: the
+    closest hits' bf16 modes."""
+    return library in LAUNCH_MMA and precision != "highest"
+
+
+def launch_shape(library: str, ray_tile: int, precision: str = "highest") -> tuple[int, int, int]:
+    """``(threads, groups, per)`` of a kernel's CTA for ``ray_tile`` rays (a
+    multiple of 32) at ``precision``. On the FMA route ``per`` is the rays
+    a thread, and each group is a whole number of warps, so two rays a
+    thread need a multiple of 64. On the tensor-core route (``mma_route``)
+    ``per`` is the m-tiles of 16 rays a warp, and each group is
+    ray_tile / (16·per) warps."""
+    if mma_route(library, precision):
+        threads, mt = LAUNCH_MMA[library]
+        bound = MMA_MAX_THREADS[library]
+        if ray_tile // (16 * mt) * 32 > bound[mt]:
+            mt = 2
+        per_group = ray_tile // (16 * mt) * 32
+        groups = max(1, min(threads, bound[mt]) // per_group)
+        return per_group * groups, groups, mt
     threads, rpt = LAUNCH[library]
     if ray_tile % (32 * rpt):
         rpt = 1
@@ -153,26 +223,30 @@ def launch_shape(library: str, ray_tile: int) -> tuple[int, int, int]:
 def _shape_ints(library: str, ray_tile: int, precision: str = "highest") -> tuple[int, ...]:
     """The launch shape for ``ray_tile`` as the library's launch and
     occupancy functions take it: ray_tile, groups, for the closest hits K1
-    and K3 rays_per_thread (K2 and K4 take one ray a thread), and the
-    precision's index in ``PRECISIONS``."""
-    _, groups, rpt = launch_shape(library, ray_tile)
-    shape = (ray_tile, groups, rpt) if library.startswith("closest_hit") else (ray_tile, groups)
+    and K3 ``per`` (``launch_shape``; K2 and K4 take one ray a thread), and
+    the precision's index in ``PRECISIONS``."""
+    _, groups, per = launch_shape(library, ray_tile, precision)
+    shape = (ray_tile, groups, per) if library.startswith("closest_hit") else (ray_tile, groups)
     return shape + (PRECISIONS.index(precision),)
 
 
 def launch_occupancy(library: str, ray_tile: int, precision: str = "highest", modes: bool = False) -> dict:
     """The launch shape of a kernel's instantiation for ``precision`` (and,
-    for K3, its traversal modes) and its resident CTAs and warps per SM
-    there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from the built
+    for K3, its traversal modes), its route ("mma" on the tensor cores,
+    else "fma") and its resident CTAs and warps per SM there
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from the built
     library; needs the CUDA toolkit and a card)."""
-    threads, groups, rpt = launch_shape(library, ray_tile)
+    threads, groups, per = launch_shape(library, ray_tile, precision)
     ints = _shape_ints(library, ray_tile, precision) + ((int(modes),) if library == "closest_hit_streamed" else ())
     ctas = getattr(_build.library(library), f"{library}_occupancy")(*ints)
+    mma = mma_route(library, precision)
+    per_key = "m_tiles_per_warp" if mma else "rays_per_thread"
     if ctas < 0:
-        raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups x {rpt} rays a thread "
+        raise RuntimeError(f"{library} does not take ray_tile {ray_tile} as {groups} groups at {per_key} {per} "
                            f"at precision {precision!r}")
-    return {"ray_tile": ray_tile, "threads": threads, "groups": groups, "rays_per_thread": rpt,
-            "precision": precision, "ctas_per_sm": ctas, "warps_per_sm": ctas * threads // 32}
+    return {"ray_tile": ray_tile, "threads": threads, "groups": groups, per_key: per,
+            "route": "mma" if mma else "fma", "precision": precision, "ctas_per_sm": ctas,
+            "warps_per_sm": ctas * threads // 32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -538,8 +612,8 @@ def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_int
     schedule (rt, nb for the resident searches; rt, nc, bpc for the
     streamed ones), tb, the launch shape for ``ray_tile``, the precision and
     ``mode_ints`` (K3's traversal modes); raise if CUDA refused it."""
-    # The kernels copy w and w_lo in 16-byte pieces; _kernel_operands makes
-    # w_lo (and w's bf16 operand) a fresh allocation, so checking w does.
+    # The kernels copy w and its bf16 operands in 16-byte pieces;
+    # _kernel_operands makes the operands fresh allocations, so checking w does.
     if w.data_ptr() % 16:
         raise ValueError("w must start on a 16-byte boundary for the kernels")
     ints = (tuple(schedule_ints) + (w.shape[2] // NSCALARS,) + _shape_ints(library, ray_tile, precision)
@@ -576,7 +650,8 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE,
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
-        "closest_hit", "closest_hit", dev, (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i),
+        "closest_hit", "closest_hit", dev,
+        (order, enter, feats, alive, *_kernel_operands(w, precision, mma=True), best_t, best_i),
         w, (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
     )
     closest_hit.launches += 1
@@ -737,7 +812,8 @@ def closest_hit_streamed(
     done = torch.empty(feats.shape[0], dtype=torch.int32, device=dev) if any_mode else None
     _launch(
         "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision), best_t, best_i, done),
+        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision, mma=True), best_t,
+         best_i, done),
         w, (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
         (int(any_mode), budget or 0, subtiles, int(fresh)),
     )

@@ -120,6 +120,36 @@ def test_kernel_breaks_visit_order_ties_as_plain_version(device, tb):
     assert (ri >= 0).sum() > 50 and (ri[ri >= 0] >= tb).all()
 
 
+@pytest.mark.parametrize("precision", ["high", "mixed"])
+def test_mma_kernel_breaks_visit_order_ties_as_plain_version(device, precision):
+    """The visit-order tie test above on K1's tensor-core route: duplicate
+    blocks give every triangle two packed rows with equal t, the tile
+    visits the higher block first, and every hit stays on the higher row,
+    as in the plain version (the hit bar between them, and the same rows
+    wherever the triangle agrees)."""
+    tb = 128
+    scene, o, d = _random_scene(device, seed=tb + 30)
+    rows = scene.v0.shape[0]
+    scene = dataclasses.replace(scene, valid=scene.valid & (torch.arange(rows, device=device) < tb),
+                                two_sided=torch.zeros_like(scene.two_sided))
+    packed = tpi.pack_scene(scene, tri_block=tb)
+    twice = tpi.mark_live_slots(dataclasses.replace(packed, w=torch.cat([packed.w, packed.w]), live_slots_only=False))
+    _, _, feats, alive = tpi.prepare_rays(o, d, packed)
+    rt = feats.shape[0] // tpi.DEFAULT_RAY_TILE
+    order = torch.tensor([[1, 0]], dtype=torch.int32, device=device).repeat(rt, 1)
+    enter = torch.zeros((rt, 2), device=device)
+    args = (order, enter, feats, alive, twice.w, tpi.DEFAULT_RAY_TILE)
+    bt, bi = tpi.closest_hit(*args, precision=precision)
+    rt_, ri = tpi.closest_hit_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    col = lambda rows: torch.where(rows >= 0, rows % tb, -1)  # both blocks hold the same triangle per column
+    agree = col(bi) == col(ri)
+    assert agree.double().mean().item() >= 0.9995
+    assert torch.equal(bi[agree], ri[agree])
+    torch.testing.assert_close(bt[agree], rt_[agree], rtol=1e-5, atol=1e-5)
+    assert (ri >= 0).sum() > 50 and (ri[ri >= 0] >= tb).all() and (bi[bi >= 0] >= tb).all()
+
+
 def test_resident_kernels_on_all_dead_tiles(device):
     """Whole tiles of dead lanes (and of maxt = 0 lanes) among live ones:
     they visit nothing and report -inf / -1 and 0, as the plain versions."""
@@ -654,28 +684,86 @@ def test_hierarchical_picks_equal_on_card_and_cpu(device):
     torch.testing.assert_close(qg, qc, rtol=1e-5, atol=0)
 
 
+def assert_hit_bar(got, want, exact_t: bool = False):
+    """The repo's hit bar between two Hits (ROADMAP's parity bar): at least
+    99.95% of rays on the same triangle and, where they agree, t to rtol =
+    atol = 1e-5; ``exact_t`` also asks t bit-equal there."""
+    agree = got.tri == want.tri
+    assert agree.double().mean().item() >= 0.9995
+    same = agree & want.hit
+    assert same.sum() > 100
+    torch.testing.assert_close(got.t[same], want.t[same], rtol=1e-5, atol=1e-5)
+    if exact_t:
+        assert torch.equal(got.t[same], want.t[same])
+
+
 @pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
 @pytest.mark.parametrize("precision", ["high", "mixed", "default"])
 def test_kernels_match_plain_version_at_each_precision(device, precision, streamed, monkeypatch):
-    """All four kernels at a bf16 precision mode against their plain
-    versions at that mode: the same packed rows and bit-equal t, and the
-    same flags (each chain is an f32 sum of exact bf16 products in
-    ascending k, as the plain version's matmuls of the same splits)."""
+    """The closest-hit kernels K1 and K3 at a bf16 precision mode (the
+    tensor-core route) against their plain versions at that mode: the hit
+    bar, since a tensor core sums a k-step's exact bf16 products in an
+    order of its own; "mixed" computes t as "highest" does, so its t is
+    bit-equal wherever the triangle agrees."""
     if streamed:
         monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
         monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
     scene, o, d = _random_scene(device, seed=21)
     packed = tpi.pack_scene(scene, tri_block=128)
     alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(5)) < 0.8).to(device)
+    search = tpi.closest_hit_streamed if streamed else tpi.closest_hit
+    before = search.launches
     hk = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision)
+    assert search.launches == before + 1
     hp = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision, plain=True)
+    torch.cuda.synchronize()
+    assert hp.hit.double().mean().item() > 0.2
+    assert_hit_bar(hk, hp, exact_t=precision == "mixed")
+    assert not hk.hit[~alive].any()
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+@pytest.mark.parametrize("precision", ["high", "mixed", "default"])
+def test_anyhit_kernels_match_plain_version_at_each_precision(device, precision, streamed, monkeypatch):
+    """The any-hit kernels K2 and K4 at a bf16 precision mode (the FMA
+    route) against their plain versions at that mode: every flag equal
+    (each chain is an f32 sum of exact bf16 products in ascending k, as the
+    plain version's matmuls of the same splits)."""
+    if streamed:
+        monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+        monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=21)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    hp = tpi.intersect_packed(o, d, packed, precision=precision, plain=True)
     maxt = torch.where(hp.hit, hp.t * 1.5, 20.0)
     ok = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision)
     op = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision, plain=True)
     torch.cuda.synchronize()
-    assert hp.hit.double().mean().item() > 0.2
-    assert torch.equal(hk.tri, hp.tri) and torch.equal(hk.t, hp.t)
     assert torch.equal(ok, op) and 0.1 < op.double().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("budget,subtiles", [(1, 1), (0, 4), (1, 2)])
+def test_streamed_modes_kernel_at_mixed_matches_plain_version(device, budget, subtiles, monkeypatch):
+    """K3's traversal-mode instantiation at "mixed" (the tensor-core route),
+    seeded with a first budgeted call's partial hits, with a budget of 1
+    and with sub-tiles, against its plain version: the hit bar on the
+    hits, t bit-equal where the triangle agrees."""
+    monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=24)
+    packed = tpi.pack_scene(scene, tri_block=64)
+    alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(7)) < 0.8).to(device)
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
+    init = tpi.closest_hit_streamed_reference(*args, precision="mixed", budget=1)
+    modes = dict(init_t=init[0], init_i=init[1], budget=budget or None, subtiles=subtiles, precision="mixed")
+    before = tpi.closest_hit_streamed.launches
+    bt, bi = tpi.closest_hit_streamed(*args, **modes)
+    assert tpi.closest_hit_streamed.launches == before + 1
+    rt, ri = tpi.closest_hit_streamed_reference(*args, **modes)
+    torch.cuda.synchronize()
+    tri = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
+    hit = lambda bt, bi: tpi.Hit(t=bt, tri=tri(bi), hit=bi >= 0)
+    assert_hit_bar(hit(bt, bi), hit(rt, ri), exact_t=True)
 
 
 @pytest.mark.parametrize("budget,subtiles,fresh", [(1, 1, False), (2, 4, False), (0, 2, False), (0, 1, True)])

@@ -1,0 +1,201 @@
+"""The operands and the arithmetic of the closest hits' tensor-core route
+(K1 and K3 at "high", "mixed" and "default"; ``csrc/stream_stage.cuh``),
+on the CPU, where the kernels cannot run.
+
+The kernels stage ``_kernel_operands(w, precision, mma=True)``: bf16(w) and
+bf16(w - bf16(w)) as column windows of 8 feature rows per (block, scalar,
+column), and multiply each window by the ray's features over the same rows
+on ``mma.sync.m16n8k8``. Here: the windows equal ``split_bf16(w)`` element
+by element; every live slot lies in its scalar's window and every other
+window row is 0; the header's window table is the Python one; the split is
+made once per pack and anew after an in-place edit; and the exact window
+products, summed in float64, give ``_decision_scalars``' scalars at each
+bf16 mode (and the JAX package's ``_decision_dot`` at "high" and "mixed")
+within 2 ulps of the sum of |products|: the tensor cores sum the same
+products as the plain version's f32 matmuls, in another order.
+"""
+
+import dataclasses
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_intersect import random_scene, to_port
+
+from gpupathtracer_tpu.ops import pallas_intersect as jpi
+from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
+from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
+
+HEADER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "gpupathtracer_tpu_torch",
+                      "csrc", "stream_stage.cuh")
+BF16_MODES = ("high", "mixed", "default")
+TB = 64
+ULPS = 2
+
+
+@pytest.fixture(scope="module")
+def case():
+    """A random scene's pack at tri_block 64 and 500 random rays' features."""
+    js, o, d = random_scene(seed=31, pad=128, rays=500)
+    packed = tpi.pack_scene(to_port(js), tri_block=TB)
+    return packed, pack_rays(torch.as_tensor(o), torch.as_tensor(d))
+
+
+def window_rows(s: int) -> range:
+    return range(tpi.MMA_WINDOW_START[s], tpi.MMA_WINDOW_START[s] + tpi.MMA_WINDOW)
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_mma_operands_equal_split_bf16(case, mode):
+    """At every (block, scalar, column, window row) the staged hi and lo
+    are ``split_bf16(w)``'s value of that slot, as real bf16 tensors in the
+    (nb, 5, tb, 8) layout; "default" stages hi only, and w itself comes
+    first (HIGHEST and MIXED's D|num rows)."""
+    packed, _ = case
+    w = packed.w
+    w_, hi, lo = tpi._kernel_operands(w, mode, mma=True)
+    nb, tb = w.shape[0], w.shape[2] // NSCALARS
+    assert w_ is w
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.is_contiguous() and lo.is_contiguous()
+    assert tuple(hi.shape) == tuple(lo.shape) == (nb, NSCALARS, tb, tpi.MMA_WINDOW)
+    assert (lo is hi) == (mode == "default")
+    want_hi, want_lo = tpi.split_bf16(w)
+    for s in range(NSCALARS):
+        for r, k in enumerate(window_rows(s)):
+            cols = slice(s * tb, (s + 1) * tb)
+            assert torch.equal(hi[:, s, :, r].float(), want_hi[:, k, cols]), (s, k)
+            if mode != "default":
+                assert torch.equal(lo[:, s, :, r].float(), want_lo[:, k, cols]), (s, k)
+    assert lo.float().abs().sum() > 0 and hi.float().abs().sum() > 0
+
+
+def test_live_slots_lie_in_their_windows(case):
+    """Every LIVE_SLOTS entry lies in its scalar's window; every other row
+    of a window is exactly 0 in the pack's windows (and, past feature row
+    9, in the rays' features); and the header's window table, read as text,
+    is the Python one."""
+    packed, feats = case
+    live = set(LIVE_SLOTS)
+    for s, k in LIVE_SLOTS:
+        assert k in window_rows(s), (s, k)
+    windows = tpi.mma_windows(packed.w)
+    for s in range(NSCALARS):
+        for r, k in enumerate(window_rows(s)):
+            if (s, k) not in live:
+                assert not windows[:, s, :, r].any(), (s, k)
+    assert windows.abs().sum() > 0
+    assert not feats[:, 10:].any()
+    with open(HEADER) as f:
+        text = f.read()
+    assert re.search(rf"constexpr int WIN = {tpi.MMA_WINDOW};", text)
+    starts = re.search(r"constexpr int window_start\(int s\) \{ return s == 4 \? (\d+) : 0; \}", text)
+    assert starts and tpi.MMA_WINDOW_START == (0, 0, 0, 0, int(starts.group(1)))
+
+
+def test_mma_operands_are_split_once_per_pack(case):
+    """One split serves all three modes and every search of a pack (the
+    padded w of the streamed route included); an in-place edit of w makes
+    it anew."""
+    packed, _ = case
+    tp = dataclasses.replace(packed, w=packed.w.clone())
+    ops = {mode: tpi._kernel_operands(tp.w, mode, mma=True) for mode in BF16_MODES}
+    assert ops["high"][1] is ops["mixed"][1] is ops["default"][1] is ops["default"][2]
+    assert ops["high"][2] is ops["mixed"][2]
+    assert all(a is b for a, b in zip(ops["high"], tpi._kernel_operands(tp.w, "high", mma=True)))
+    assert tpi._kernel_operands(tp.w, "highest", mma=True) == (tp.w, tp.w, tp.w)
+    bpc = tp.w.shape[0] + 1
+    padded = tpi._pad_blocks(tp, bpc).w
+    first = tpi._kernel_operands(padded, "mixed", mma=True)
+    assert all(a is b for a, b in zip(first, tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed", mma=True)))
+    assert not first[1][-1].float().any() and not first[2][-1].float().any()
+    tp.w.mul_(2.0)
+    again = tpi._kernel_operands(tp.w, "high", mma=True)
+    assert again[1] is not ops["high"][1] and again[2] is not ops["high"][2]
+    assert torch.equal(again[1].float(), 2 * ops["high"][1].float())
+    edited = tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed", mma=True)
+    assert edited[1] is not first[1] and torch.equal(edited[1][:-1].float(), again[1].float())
+
+
+def ray_windows(feats: torch.Tensor) -> dict:
+    """The rays' A operand of the tensor-core route, as the kernels load it
+    (RayFragments): per scalar, its window of feature rows, with rows past
+    the window's live rows (6 and 7 of window 0, 10-13 of num's) set to 0;
+    float64 of the f32 features, and their bf16 hi and lo."""
+    hi, lo = tpi.split_bf16(feats)
+    out = {}
+    for name, x in (("f", feats), ("hi", hi), ("lo", lo)):
+        wins = []
+        for s in range(NSCALARS):
+            k0 = tpi.MMA_WINDOW_START[s]
+            win = x[:, k0 : k0 + tpi.MMA_WINDOW].double().clone()
+            win[:, (6 if s < 4 else 10) - k0 :] = 0.0
+            wins.append(win)
+        out[name] = torch.stack(wins, 1)  # (R, 5, 8)
+    return out
+
+
+def window_sums(a: torch.Tensor, b: torch.Tensor):
+    """(R, nb, 5, tb): sum over each window of a (R, 5, 8) times b
+    (nb, 5, tb, 8), in float64 (each product exact), and the sum of
+    |products|."""
+    return (torch.einsum("rsk,bsck->rbsc", a, b.double()),
+            torch.einsum("rsk,bsck->rbsc", a.abs(), b.double().abs()))
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_window_products_give_the_decision_scalars(case, mode):
+    """The exact products of each window summed in float64 (the three
+    chains of a split scalar, and "mixed"'s D and num from the f32 rows)
+    give ``_decision_scalars``' scalars at ``mode`` within 2 ulps (float32)
+    of the sum of |products| over all three chains; at "high" and "mixed"
+    the JAX package's ``_decision_dot`` too."""
+    packed, feats = case
+    w = packed.w
+    nb, tb = w.shape[0], w.shape[2] // NSCALARS
+    _, whi, wlo = tpi._kernel_operands(w, mode, mma=True)
+    a = ray_windows(feats)
+    hh, mag = window_sums(a["hi"], whi)
+    if mode == "default":
+        want = hh
+    else:
+        hl, mag_hl = window_sums(a["hi"], wlo)
+        lh, mag_lh = window_sums(a["lo"], whi)
+        want, mag = hh + (hl + lh), mag + mag_hl + mag_lh
+    if mode == "mixed":
+        exact, mag_exact = window_sums(a["f"], tpi.mma_windows(w))
+        want[:, :, 3:], mag[:, :, 3:] = exact[:, :, 3:], mag_exact[:, :, 3:]
+    blk = torch.arange(nb)
+    got = torch.stack(tpi._decision_scalars(feats[None].expand(nb, -1, -1), w, blk, tb, mode), 2)
+    got = got.permute(1, 0, 2, 3).double()  # (R, nb, 5, tb)
+    ulp = torch.as_tensor(np.spacing(mag.numpy().astype(np.float32)).astype(np.float64))
+    err = (got - want).abs()
+    assert (err <= ULPS * ulp).all(), (err / ulp).max().item()
+    assert mag.max() > 1.0 and (want != 0).double().mean() > 0.5
+    if mode != "default":
+        jw = jnp.asarray(w.numpy())
+        jf = jnp.asarray(feats.numpy())
+        js = np.stack([np.asarray(jpi._decision_dot(jf, jw[b], mode, tb)) for b in range(nb)], 1)
+        js = torch.as_tensor(js.reshape(feats.shape[0], nb, NSCALARS, tb)).double()
+        assert ((js - want).abs() <= ULPS * ulp).all(), ((js - want).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("library", sorted(tpi.LAUNCH_MMA))
+def test_mma_launch_shapes_are_whole_warps(library):
+    """For every ray tile the wrappers accept, the tensor-core route's
+    launch shape gives each column group ray_tile / (16·m_tiles) whole
+    warps and the CTA at most the kernel's launch bound
+    (``MMA_MAX_THREADS``); the main paths' tiles (128 for K1, 64 for K3)
+    take one m-tile a warp."""
+    for ray_tile in range(32, 1025, 32):
+        for mode in BF16_MODES:
+            threads, groups, mt = tpi.launch_shape(library, ray_tile, mode)
+            assert mt in (1, 2) and ray_tile % (16 * mt) == 0, (ray_tile, mt)
+            assert groups >= 1 and threads == groups * ray_tile // (16 * mt) * 32, (ray_tile, groups)
+            assert threads <= tpi.MMA_MAX_THREADS[library][mt], (ray_tile, threads)
+        assert tpi.launch_shape(library, ray_tile) == tpi.launch_shape(library, ray_tile, "highest")
+    main_tile = tpi.DEFAULT_RAY_TILE if library == "closest_hit" else tpi.STREAM_RAY_TILE
+    assert tpi.launch_shape(library, main_tile, "high")[2] == 1
+    assert not tpi.mma_route("occlusion", "high") and not tpi.mma_route(library, "highest")

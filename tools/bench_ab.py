@@ -8,12 +8,14 @@ sides as its range. What each run measures:
   median of 9 launches of K1 on the config 3 stand-in's camera and
   bounce-1 rays, K2 on the config 8 stand-in's bounce-1 shadow rays, K3 on
   the config 6 stand-in's camera and bounce-1 rays and K4 on its bounce-1
-  shadow rays (the inputs of chip_smoke.py's phases 3, 6, 9 and 11).
+  shadow rays (the inputs of chip_smoke.py's phases 3, 6, 9 and 11);
+- with ``--modes`` as well, K1 and K3 also at "high", "mixed" and
+  "default" on the same inputs (phase 44's).
 
 Unpack both checkouts with ``tools/ab_smoke.py unpack`` (where git is),
 then, on the machine with the card:
 
-    python3 tools/bench_ab.py archive/ab/parent archive/ab/change OUT [ROUNDS] [--kernels]
+    python3 tools/bench_ab.py archive/ab/parent archive/ab/change OUT [ROUNDS] [--kernels [--modes]]
 
 Each run is a fresh process in its checkout (its kernels build in that
 checkout's ``gpupathtracer_tpu_torch/build/`` on the first run) that
@@ -58,14 +60,21 @@ cs.phase_build()
 device = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 ms = {}
-time = lambda label, fn, args: ms.__setitem__(label, cs.median_ms(lambda: fn(*args), device, reps=9))
+MODES = ("highest",)
+
+
+def time(label, fn, args, modes=("highest",)):
+    for mode in modes:
+        key = label if mode == "highest" else f"{label} {mode}"
+        ms[key] = cs.median_ms(lambda: fn(*args, precision=mode), device, reps=9)
+
 
 scene, camera, settings = cs.load_scene_file(cs.SCENE, device=device)
 settings = dataclasses.replace(settings, spp=4)
 p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
 (o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, p1)
-time("K1 camera", pi.closest_hit, pi.prepare_rays(o, d, p1) + (p1.w, pi.DEFAULT_RAY_TILE))
-time("K1 bounce-1", pi.closest_hit, pi.prepare_rays(o2, d2, p2) + (p2.w, pi.DEFAULT_RAY_TILE))
+time("K1 camera", pi.closest_hit, pi.prepare_rays(o, d, p1) + (p1.w, pi.DEFAULT_RAY_TILE), MODES)
+time("K1 bounce-1", pi.closest_hit, pi.prepare_rays(o2, d2, p2) + (p2.w, pi.DEFAULT_RAY_TILE), MODES)
 
 scene, camera, settings = cs.load_scene_file(cs.NEE_SCENE, device=device)
 settings = dataclasses.replace(settings, spp=4)
@@ -76,8 +85,8 @@ scene, camera, settings = cs.load_scene_file(cs.STREAM_SCENE, device=device)
 settings = dataclasses.replace(settings, spp=2)
 p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
 (o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, p1)
-time("K3 camera", pi.closest_hit_streamed, pi.prepare_rays_streamed(o, d, p1) + (pi.STREAM_RAY_TILE,))
-time("K3 bounce-1", pi.closest_hit_streamed, pi.prepare_rays_streamed(o2, d2, p2) + (pi.STREAM_RAY_TILE,))
+time("K3 camera", pi.closest_hit_streamed, pi.prepare_rays_streamed(o, d, p1) + (pi.STREAM_RAY_TILE,), MODES)
+time("K3 bounce-1", pi.closest_hit_streamed, pi.prepare_rays_streamed(o2, d2, p2) + (pi.STREAM_RAY_TILE,), MODES)
 nee = dataclasses.replace(settings, estimator="nee")
 time("K4 shadow", pi.occluded_streamed,
      cs.nee_shadow_inputs(scene, camera, nee, p1, p2, "occluded_streamed_reference"))
@@ -116,7 +125,12 @@ def main(parent: str, change: str, out: str, rounds: int = 1, code: str = BENCH)
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--kernels"]
+    args = [a for a in sys.argv[1:] if a not in ("--kernels", "--modes")]
     if len(args) not in (3, 4):
         raise SystemExit(__doc__)
-    sys.exit(main(*args[:3], *(int(a) for a in args[3:]), code=KERNELS if "--kernels" in sys.argv else BENCH))
+    code = BENCH
+    if "--kernels" in sys.argv:
+        code = KERNELS
+        if "--modes" in sys.argv:
+            code = code.replace('MODES = ("highest",)', 'MODES = ("highest", "high", "mixed", "default")')
+    sys.exit(main(*args[:3], *(int(a) for a in args[3:]), code=code))

@@ -1,7 +1,7 @@
 """Times the kernels of the PyTorch + CUDA port under several launch shapes,
 at the main paths' shapes, on one card.
 
-    python3 tools/stream_sweep.py [resident|streamed]   (both by default)
+    python3 tools/stream_sweep.py [resident|streamed|mma]   (resident and streamed by default)
 
 resident: K1 and K2, with inputs built as chip_smoke.py's phases 3 and 6
 build them (640,000 camera rays at tb 128 and 640,000 bounce-1 rays at tb
@@ -14,6 +14,11 @@ streamed: K3 and K4, with inputs built as phases 9 and 11 build them on
 scenes/config6_icosphere.toml (640,000 camera rays at tb 256, 640,000
 bounce-1 rays at tb 1024, bounce 1's NEE shadow rays at tb 1024; 64-ray
 tiles).
+
+mma: K1 and K3 at "high", "mixed" and "default" (the tensor-core route,
+LAUNCH_MMA), on the closest hits' inputs above; shapes are (threads a CTA
+aims at, m-tiles of 16 rays a warp), and whether a shape gives exactly the
+default's outputs is printed, not held.
 
 For each launch shape (threads a CTA aims at, rays a thread) it prints the
 column groups, the resident CTAs and warps per SM and the median kernel
@@ -52,6 +57,15 @@ SHAPES = {
 }
 
 
+# The tensor-core route of K1 and K3 (LAUNCH_MMA): (threads a CTA aims at,
+# m-tiles of 16 rays a warp).
+MMA_SHAPES = {
+    "closest_hit": [(256, 1), (128, 2), (256, 2)],
+    "closest_hit_streamed": [(512, 1), (256, 1), (128, 1), (256, 2), (512, 2)],
+}
+MMA_MODES = ("high", "mixed", "default")
+
+
 def _same(got, want) -> bool:
     if isinstance(got, tuple):
         return all(torch.equal(a, b) for a, b in zip(got, want))
@@ -75,6 +89,49 @@ def sweep(library: str, label: str, kernel, args) -> None:
         print(f"sweep {library} {label}: {json.dumps(row)}", flush=True)
         if not same:
             raise AssertionError(f"{library} at {shape} differs from the default shape {default}")
+
+
+def sweep_mma(library: str, label: str, kernel, args) -> None:
+    """sweep() for the tensor-core route of a closest hit at each bf16 mode."""
+    device = args[0].device
+    ray_tile = args[-1]
+    default = tpi.LAUNCH_MMA[library]
+    for mode in MMA_MODES:
+        run = lambda: kernel(*args, precision=mode)
+        want = run()
+        for shape in MMA_SHAPES[library]:
+            tpi.LAUNCH_MMA[library] = shape
+            try:
+                occ = tpi.launch_occupancy(library, ray_tile, mode)
+                same = _same(run(), want)
+                ms = cs.median_ms(run, device)
+            finally:
+                tpi.LAUNCH_MMA[library] = default
+            row = {"target_threads": shape[0], **occ, "ms": ms, "same_as_default": same}
+            print(f"sweep {library} {label} at {mode}: {json.dumps(row)}", flush=True)
+
+
+def mma() -> None:
+    device = torch.device("cuda")
+    scene, camera, settings = load_scene_file(cs.SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    (o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, packed)
+    ray_tile = tpi.DEFAULT_RAY_TILE
+    sweep_mma("closest_hit", "camera rays", tpi.closest_hit, tpi.prepare_rays(o, d, packed) + (packed.w, ray_tile))
+    sweep_mma("closest_hit", "bounce-1 rays", tpi.closest_hit,
+              tpi.prepare_rays(o2, d2, packed2) + (packed2.w, ray_tile))
+    scene, camera, settings = load_scene_file(cs.STREAM_SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=2)
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    (o, d), (o2, d2) = cs.main_path_rays(scene, camera, settings, packed)
+    ray_tile = tpi.STREAM_RAY_TILE
+    sweep_mma("closest_hit_streamed", "camera rays", tpi.closest_hit_streamed,
+              tpi.prepare_rays_streamed(o, d, packed) + (ray_tile,))
+    sweep_mma("closest_hit_streamed", "bounce-1 rays", tpi.closest_hit_streamed,
+              tpi.prepare_rays_streamed(o2, d2, packed2) + (ray_tile,))
 
 
 def two_stage_libraries(names) -> dict:
@@ -165,12 +222,13 @@ def streamed() -> None:
 
 def main() -> None:
     which = sys.argv[1:] or ["resident", "streamed"]
-    if any(w not in ("resident", "streamed") for w in which):
-        raise SystemExit(f"usage: {sys.argv[0]} [resident|streamed]")
+    runs = {"resident": resident, "streamed": streamed, "mma": mma}
+    if any(w not in runs for w in which):
+        raise SystemExit(f"usage: {sys.argv[0]} [resident|streamed|mma]")
     cs.phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     for w in which:
-        {"resident": resident, "streamed": streamed}[w]()
+        runs[w]()
 
 
 if __name__ == "__main__":
