@@ -9,9 +9,9 @@ Phases, one line each; any failure raises and exits non-zero:
    kernel, and each kernel's launch shape at its ray tile (128 rays for K1
    and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
    every precision mode's instantiation (and K3's traversal-mode kernel),
-   with, for every K1 and K3 instantiation, its HMMA and FFMA instructions
-   (cuobjdump -sass of the built library; a bf16 instantiation of K1 or K3,
-   the tensor-core route, without HMMA fails the run);
+   with its HMMA and FFMA instructions, and those of every kernel entry of
+   the four libraries (cuobjdump -sass of the built library; a bf16
+   instantiation, the tensor-core route, without HMMA fails the run);
    (once per resident pack of the naive and NEE paths, on the card: w is
    zero outside the 25 live slots that every kernel reads, and finite)
 3. the closest-hit kernel K1 against its plain PyTorch version at the naive
@@ -196,9 +196,9 @@ and the kernels' remaining modes:
     right after each kernel's check at "highest" (phases 3, 6 and 9, and
     the K4 check of 11), on the same main-path inputs, the kernel under each
     mode against its plain version at that mode (the plain version timed
-    once): K1 and K3, whose bf16 modes run on the tensor cores, by the hit
+    once; every bf16 mode runs on the tensor cores): K1 and K3 by the hit
     bar, and at "mixed" with t bit-equal wherever the triangle agrees; K2
-    and K4 exactly (every flag equal); and against its own "highest" result
+    and K4 by the flag bar; and against its own "highest" result
     by the JAX package's near-parity
     bar (more than 99.5% of rays on the same triangle or flag; t to 1e-2
     under "high", bit-equal under "mixed"; "default" reported only, as the
@@ -206,8 +206,8 @@ and the kernels' remaining modes:
     ratio to the "highest" time on the same inputs, the
     bound at the mode's own operation count (its bf16 products at the
     tensor cores' bf16 rate, its f32 adds at the f32 rate) and its share,
-    and the instantiation's registers, CTAs per SM and (K1, K3) HMMA and
-    FFMA instructions (phase 2 prints every instantiation's); after
+    and the instantiation's registers, CTAs per SM, HMMA and FFMA
+    instructions (phase 2 prints every instantiation's); after
     phase 43, for each mode the config 3 stand-in's naive frame (800x800,
     spp 4, 4 bounces), the config 8 stand-in's NEE frame and the config 6
     stand-in's streamed NEE frame with kernel_precision set: launches,
@@ -344,9 +344,9 @@ FLOP_PER_PAIR = 2 * len(LIVE_SLOTS)
 # slot: the 25 live slots for "high", the 18 edge slots for "mixed"),
 # priced at the bf16 rate; the two f32 adds that fold a split scalar's
 # chains (5 scalars for "high", 3 for "mixed") and "mixed"'s f32 D|num
-# slots, at the f32 rate. K1 and K3 run the products on the tensor cores
-# (mma.sync m16n8k8 over 8-row windows, whose zero rows the bound does not
-# count); K2 and K4 as f32 FMAs on the CUDA cores, far above such a bound.
+# slots, at the f32 rate. Every kernel runs the products on the tensor
+# cores (mma.sync m16n8k8 over 8-row windows, whose zero rows the bound
+# does not count).
 PRECISION_MODES = ("high", "mixed", "default")
 FLOP_PER_PAIR_AT = {
     "highest": (FLOP_PER_PAIR, 0),
@@ -405,13 +405,16 @@ def phase_device() -> str:
 
 def ptxas_usage(report: str) -> dict:
     """ptxas's "Used ..." line of each kernel entry in an nvcc -Xptxas -v
-    report, by mangled entry name."""
-    usage, entry = {}, None
+    report, by mangled entry name, with its spill stores where there are
+    any."""
+    usage, entry, spill = {}, None, 0
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
+            entry, spill = ln.split("'")[1], 0
+        elif "bytes spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
         elif "Used" in ln and entry is not None:
-            usage[entry] = ln.split("info    :")[-1].strip()
+            usage[entry] = ln.split("info    :")[-1].strip() + (f", {spill} bytes spill stores" if spill else "")
     return usage
 
 
@@ -427,38 +430,44 @@ def phase_build() -> None:
         parts.append(f"{os.path.relpath(_build.source(name), ROOT)} -> "
                      f"{os.path.relpath(_build.library_path(name), ROOT)} ({usage})")
     print(f"build: nvcc, {len(reports)} sources in parallel, {dt:.2f} s: " + "; ".join(parts), flush=True)
-    sass = {name: sass_counts(name) for name in ("closest_hit", "closest_hit_streamed")}
+    sass = {name: sass_counts(name) for name in reports}
     for name in _build.OCCUPANCY:
         ray_tile = STREAM_RAY_TILE if name.endswith("_streamed") else DEFAULT_RAY_TILE
         for precision in packed_intersect.PRECISIONS:
             for modes in (False, True) if name == "closest_hit_streamed" else (False,):
                 occ = packed_intersect.launch_occupancy(name, ray_tile, precision, modes)
                 # The entries are templates on rays a thread (K1 and K3 at
-                # highest), the precision and m-tiles a warp (their
-                # tensor-core kernels at the bf16 modes), the precision (K2,
-                # K4) and K3's modes: <rpt>, <p, mt>, <p>, <rpt, modes> and
-                # <p, mt, modes> in their mangled names.
+                # highest), the precision and m-tiles a warp (the four
+                # tensor-core kernels at the bf16 modes) and K3's modes:
+                # <rpt>, <p, mt>, <rpt, modes> and <p, mt, modes> in their
+                # mangled names; K2's and K4's "highest" kernels are no
+                # templates (the name's end, then the parameters).
                 p = packed_intersect.PRECISIONS.index(precision)
+                modes_arg = f"Lb{int(modes)}E" if name == "closest_hit_streamed" else ""
                 if occ["route"] == "mma":
-                    entry = f"{name}_mma_kernelILi{p}ELi{occ['m_tiles_per_warp']}E"
+                    entry = f"{name}_mma_kernelILi{p}ELi{occ['m_tiles_per_warp']}E{modes_arg}E"
                 elif name.startswith("closest_hit"):
-                    entry = f"{name}_kernelILi{occ['rays_per_thread']}E"
+                    entry = f"{name}_kernelILi{occ['rays_per_thread']}E{modes_arg}E"
                 else:
-                    entry = f"{name}_kernelILi{p}E"
-                entry += (f"Lb{int(modes)}E" if name == "closest_hit_streamed" else "") + "E"
+                    entry = f"{len(name) + 7}{name}_kernelEP"
                 occ["modes"] = modes
                 occ["ptxas"] = "; ".join(u for e, u in ptxas_usage(reports[name]).items() if entry in e)
                 if not occ["ptxas"]:
                     raise AssertionError(f"no ptxas report of {entry} in the build of {name}")
-                if name in sass:
-                    found = [c for e, c in sass[name].items() if entry in e]
-                    if len(found) != 1:
-                        raise AssertionError(f"{len(found)} SASS functions of {entry} in the build of {name}")
-                    occ.update(hmma=found[0]["HMMA"], ffma=found[0]["FFMA"])
-                    if occ["route"] == "mma" and not occ["hmma"]:
-                        raise AssertionError(f"{entry} at {precision} has no HMMA instruction: {occ}")
+                found = [c for e, c in sass[name].items() if entry in e]
+                if len(found) != 1:
+                    raise AssertionError(f"{len(found)} SASS functions of {entry} in the build of {name}")
+                occ.update(hmma=found[0]["HMMA"], ffma=found[0]["FFMA"])
+                if occ["route"] == "mma" and not occ["hmma"]:
+                    raise AssertionError(f"{entry} at {precision} has no HMMA instruction: {occ}")
                 OCCUPANCY_ROWS[(name, precision, modes)] = occ
                 print(f"occupancy {name}: {json.dumps(occ)}", flush=True)
+    # Every instantiation, the two m-tiles a warp of the bf16 kernels too.
+    for name, counts in sass.items():
+        print(f"sass {name} (bar: HMMA in every tensor-core kernel): {json.dumps(counts)}", flush=True)
+        missing = [e for e, c in counts.items() if "_mma_kernel" in e and not c["HMMA"]]
+        if missing:
+            raise AssertionError(f"{name}: no HMMA instruction in {missing}")
 
 
 def sass_counts(name: str) -> dict:
@@ -1985,14 +1994,14 @@ def precision_checks(name: str, label: str, kernel, plain, args, packed=None, hi
     each bf16 mode against its plain version at that mode (the plain
     version timed once), and against the kernel's own "highest" result by
     the JAX package's near-parity bar (``NEAR_AGREE``; "default" reported
-    only). The closest hits (K1, K3; ``packed`` given) run the bf16 modes
-    on the tensor cores, whose sums take their own order: the hit bar
-    against the plain version, and at "mixed" (t in f32 as "highest") t
-    bit-equal wherever the triangle agrees. The any hits (K2, K4; ``packed``
-    None) run them on the FMA route: every flag equal. Prints ms, x highest
-    (``highest_ms``: the "highest" check's time on the same inputs), the
-    bound and its share, and the instantiation's registers, CTAs per SM
-    and, for K1 and K3, HMMA and FFMA instructions."""
+    only). Every kernel runs the bf16 modes on the tensor cores, whose sums
+    take their own order: the closest hits (K1, K3; ``packed`` given) meet
+    the hit bar against the plain version, and at "mixed" (t in f32 as
+    "highest") t bit-equal wherever the triangle agrees; the any hits (K2,
+    K4; ``packed`` None) the flag bar. Prints ms, x highest (``highest_ms``:
+    the "highest" check's time on the same inputs), the bound and its
+    share, and the instantiation's registers, CTAs per SM, HMMA and FFMA
+    instructions."""
     base = kernel(*args)
     lib = os.path.basename(KERNELS[name]["source"]).removesuffix(".cu")
     rows = {}
@@ -2015,7 +2024,7 @@ def precision_checks(name: str, label: str, kernel, plain, args, packed=None, hi
             held = near["same_tri_vs_highest"] > NEAR_AGREE and (
                 near["t_equal_vs_highest"] if mode == "mixed" else near["t_ok_vs_highest"])
         else:
-            row = occlusion_check(name, f"{label} at {mode}", k, p, args, exact=True, plain_reps=0, flop_per_pair=flop)
+            row = occlusion_check(name, f"{label} at {mode}", k, p, args, plain_reps=0, flop_per_pair=flop)
             near = {"same_flag_vs_highest": (k(*args) == base).double().mean().item()}
             held = near["same_flag_vs_highest"] > NEAR_AGREE
         _sync(args[0].device)

@@ -17,7 +17,7 @@
 //   w_hi, w_lo bf16 (nb, 5, tb, 8) the bf16 modes' operands: bf16(w) and
 //                               bf16(w - bf16(w)) in the tensor-core route's
 //                               column windows (stream_stage.cuh; the
-//                               wrapper's `_kernel_operands(mma=True)`);
+//                               wrapper's `_kernel_operands`);
 //                               HIGHEST reads w only, MIXED also w's D|num rows
 //
 // Semantics, as the TPU kernel, at each of its precisions (the decision
@@ -87,11 +87,10 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
                        const float* __restrict__ feats, const int* __restrict__ alive,
                        const float* __restrict__ w, float* __restrict__ best_t_out, int* __restrict__ best_i_out,
                        int nb, int tb, int ray_tile, int groups) {
-  constexpr int P = HIGHEST;
   extern __shared__ float4 smem[];
   float4* ring = smem;
-  float* fold_t = reinterpret_cast<float*>(smem + STAGES * stage_float4<P>());  // (groups, ray_tile)
-  int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);        // (groups, ray_tile)
+  float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
+  int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);  // (groups, ray_tile)
   __shared__ float warp_max[32];
 
   const int tpg = ray_tile / RPT;  // threads per group
@@ -101,7 +100,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   // Group 0 holds the running best of its rays; every group its least
   // (t, row) in the current block.
   int lane[RPT];  // ray within the tile
-  RayFeatures<P> f[RPT];
+  RayFeatures f[RPT];
   float best_t[RPT], gt[RPT];
   int best_i[RPT], gi[RPT];
 #pragma unroll
@@ -115,13 +114,13 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     gi[r] = 0;
   }
 
-  stream_schedule<P>(
-      ring, w, w, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
+  stream_schedule(
+      ring, w, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
       [&](const float4* stage, int blk, int c0, int cw4) {
         const int row0 = blk * tb + c0;
         for (int q = g; q < cw4; q += groups) {
           float acc[RPT][NS][4];
-          live_dots<RPT, P>(f, stage, q, acc);
+          live_dots<RPT>(f, stage, q, acc);
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
 #pragma unroll
@@ -303,7 +302,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>(), MT == 1 ? 3 : 1)
 
 template <int P>
 size_t smem_bytes(int ray_tile, int groups) {
-  return (P == HIGHEST ? ring_bytes<P>() : mma_ring_bytes<P>()) +
+  return (P == HIGHEST ? RING_BYTES : mma_ring_bytes<P>()) +
          (size_t)groups * ray_tile * (sizeof(float) + sizeof(int));
 }
 

@@ -7,10 +7,11 @@
 // and its seeded `init_t`/`init_i` inputs, cluster `budget`, per-lane
 // `done` output, sub-tile gating (`subtiles`) and fresh-worst gating
 // (`fresh`), which the two-phase straggler regroup of `intersect_packed`
-// uses. One kernel, closest_hit_streamed_kernel<RPT, P, MODES>: MODES =
-// false is the default single-phase mode that the renders run, MODES = true
-// the other modes (below). It computes what the TPU kernel computes; it is
-// not carried over block by block.
+// uses. One kernel template at HIGHEST, closest_hit_streamed_kernel<RPT,
+// MODES>, and one at the bf16 modes (below): MODES = false is the default
+// single-phase mode that the renders run, MODES = true the other modes
+// (below). It computes what the TPU kernel computes; it is not carried over
+// block by block.
 //
 // Inputs (row-major, contiguous, device pointers):
 //   order     int32 (rt, nc)        tile i's front-to-back cluster schedule
@@ -24,7 +25,7 @@
 //                                   cluster c is blocks c*bpc .. c*bpc+bpc-1
 //   w_hi, w_lo bf16 (nc*bpc, 5, tb, 8) the bf16 modes' operands: bf16(w) and
 //             bf16(w - bf16(w)) in the tensor-core route's column windows
-//             (stream_stage.cuh; the wrapper's `_kernel_operands(mma=True)`);
+//             (stream_stage.cuh; the wrapper's `_kernel_operands`);
 //             HIGHEST reads w only, MIXED also w's D|num rows
 // Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
 //
@@ -125,10 +126,9 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
                                 float* __restrict__ best_t_out, int* __restrict__ best_i_out,
                                 int* __restrict__ done_out, int nc, int bpc, int tb, int ray_tile, int groups,
                                 int budget, int subtiles, int fresh) {
-  constexpr int P = HIGHEST;
   extern __shared__ float4 smem[];
   float4* ring = smem;
-  float* fold_t = reinterpret_cast<float*>(smem + STAGES * stage_float4<P>());  // (groups, ray_tile)
+  float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
   int* fold_i = reinterpret_cast<int*>(fold_t + groups * ray_tile);             // (groups, ray_tile)
   float* lane_t = reinterpret_cast<float*>(fold_i + groups * ray_tile);         // MODES: (ray_tile,) running best
   __shared__ float warp_max[32];
@@ -141,7 +141,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
 
   // Every group holds the running best of its rays; the groups agree.
   int lane[RPT];  // ray within the tile
-  RayFeatures<P> f[RPT];
+  RayFeatures f[RPT];
   float best_t[RPT];
   int best_i[RPT];
   float tile_max = -INFINITY;
@@ -218,56 +218,56 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
       }
     }
     const size_t cluster = (size_t)c * bpc * K * NS * tb;
-    stream_cluster<P>(ring, w + cluster, w + cluster, eb, bpc, tb, worst,
-                      [&](const float4* stage, int b, int c0, int cw4) {
-                        bool any = true;
-                        if constexpr (MODES) {
-                          if (c0 == 0) {  // the block's gates, from lane_t as the last block left it
+    stream_cluster(ring, w + cluster, eb, bpc, tb, worst,
+                   [&](const float4* stage, int b, int c0, int cw4) {
+                     bool any = true;
+                     if constexpr (MODES) {
+                       if (c0 == 0) {  // the block's gates, from lane_t as the last block left it
 #pragma unroll
-                            for (int r = 0; r < RPT; ++r) {
-                              float gate = worst;
-                              if (subtiles > 1 || fresh) {
-                                const int gs = ray_tile / subtiles;  // lanes of a sub-tile
-                                const int lo = subtiles > 1 ? lane[r] / gs * gs : 0;
-                                const int n = subtiles > 1 ? gs : ray_tile;
-                                gate = -INFINITY;
-                                for (int i = 0; i < n; ++i) gate = fmaxf(gate, lane_t[lo + i]);
-                              }
-                              on[r] = eb[b] < gate;
-                              gt[r] = BIG;
-                              gi[r] = 0;
-                            }
-                          }
-                          any = false;
+                         for (int r = 0; r < RPT; ++r) {
+                           float gate = worst;
+                           if (subtiles > 1 || fresh) {
+                             const int gs = ray_tile / subtiles;  // lanes of a sub-tile
+                             const int lo = subtiles > 1 ? lane[r] / gs * gs : 0;
+                             const int n = subtiles > 1 ? gs : ray_tile;
+                             gate = -INFINITY;
+                             for (int i = 0; i < n; ++i) gate = fmaxf(gate, lane_t[lo + i]);
+                           }
+                           on[r] = eb[b] < gate;
+                           gt[r] = BIG;
+                           gi[r] = 0;
+                         }
+                       }
+                       any = false;
 #pragma unroll
-                          for (int r = 0; r < RPT; ++r) any |= on[r];
-                        }
-                        const int row0 = (c * bpc + b) * tb + c0;
-                        for (int q = g; any && q < cw4; q += groups) {
-                          float acc[RPT][NS][4];
-                          live_dots<RPT, P>(f, stage, q, acc);
+                       for (int r = 0; r < RPT; ++r) any |= on[r];
+                     }
+                     const int row0 = (c * bpc + b) * tb + c0;
+                     for (int q = g; any && q < cw4; q += groups) {
+                       float acc[RPT][NS][4];
+                       live_dots<RPT>(f, stage, q, acc);
 #pragma unroll
-                          for (int r = 0; r < RPT; ++r) {
+                       for (int r = 0; r < RPT; ++r) {
 #pragma unroll
-                            for (int x = 0; x < 4; ++x) {  // ascending columns
-                              const float t =
-                                  hit_t(acc[r][0][x], acc[r][1][x], acc[r][2][x], acc[r][3][x], acc[r][4][x]);
-                              if ((!MODES || on[r]) && t < gt[r]) {  // strict <: the lower row wins ties
-                                gt[r] = t;
-                                gi[r] = row0 + 4 * q + x;
-                              }
-                            }
-                          }
-                        }
-                        if constexpr (MODES) {
-                          // The block's last chunk: fold it and post it. The fold's reads
-                          // sit between its barrier and this one, the next block's writes
-                          // after the ring's next barrier.
-                          if (c0 + CHUNK < tb) return;
-                          fold();
-                          __syncthreads();
-                        }
-                      });
+                         for (int x = 0; x < 4; ++x) {  // ascending columns
+                           const float t =
+                               hit_t(acc[r][0][x], acc[r][1][x], acc[r][2][x], acc[r][3][x], acc[r][4][x]);
+                           if ((!MODES || on[r]) && t < gt[r]) {  // strict <: the lower row wins ties
+                             gt[r] = t;
+                             gi[r] = row0 + 4 * q + x;
+                           }
+                         }
+                       }
+                     }
+                     if constexpr (MODES) {
+                       // The block's last chunk: fold it and post it. The fold's reads
+                       // sit between its barrier and this one, the next block's writes
+                       // after the ring's next barrier.
+                       if (c0 + CHUNK < tb) return;
+                       fold();
+                       __syncthreads();
+                     }
+                   });
     if constexpr (!MODES) fold();
 
     tile_max = -INFINITY;
@@ -490,7 +490,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
 
 template <int P>
 size_t smem_bytes(int ray_tile, int groups, bool modes) {
-  return (P == HIGHEST ? ring_bytes<P>() : mma_ring_bytes<P>()) +
+  return (P == HIGHEST ? RING_BYTES : mma_ring_bytes<P>()) +
          (size_t)groups * ray_tile * (sizeof(float) + sizeof(int)) + (modes ? (size_t)ray_tile * sizeof(float) : 0);
 }
 

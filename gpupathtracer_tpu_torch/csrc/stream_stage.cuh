@@ -25,25 +25,11 @@
 //
 // The precision modes (ops/packed_intersect.py PRECISIONS, the JAX
 // package's `_decision_dot`). HIGHEST is the f32 code above in every
-// kernel. The closest hits (K1, K3) run their bf16 modes on the tensor
-// cores (the tensor-core route, at the end of this file); the any hits
-// (K2, K4), templates on the mode, run them on this FMA route.
-// There the bf16 modes take their triangle operands from the wrapper, split
-// once per pack (`_kernel_operands`): operand a is bf16(w) (for MIXED, with
-// the D|num columns of w itself), operand b is bf16(w - bf16(w)). A thread
-// splits its rays' features the same way in registers (round to nearest
-// even, as torch and XLA round). DEFAULT sums fh * a over a scalar's live rows;
-// HIGH sums the three chains fh * a, fh * b and fl * a and returns
-// hh + (hl + lh), the JAX package's grouping; MIXED does so for the edge
-// slots of s0, s1 and s2 (the first NEDGE of the table) and sums f * a,
-// exactly as HIGHEST, for D and num. Every product of two bf16 values is
-// exact in f32, so each chain is an f32 sum in ascending k, as the f32
-// chains are, and the plain versions' matmuls of the same splits give the
-// same sums.
+// kernel; every kernel runs its bf16 modes (HIGH, MIXED, DEFAULT) on the
+// tensor cores (the tensor-core route, at the end of this file).
 //
 // The ring. STAGES stages of NLIVE x CHUNK floats ([slot][column], 12.8 KB
-// each; for HIGH and MIXED, the operand-b rows of the split slots follow)
-// in dynamic shared memory, filled with cp.async.cg: 16 bytes a
+// each) in dynamic shared memory, filled with cp.async.cg: 16 bytes a
 // thread, one warp per 512-byte row segment, every warp of the CTA copying,
 // completion by commit/wait groups and then one CTA barrier per chunk. This
 // rather than the bulk copy (cp.async.bulk with an mbarrier): every thread
@@ -91,32 +77,11 @@ constexpr int CHUNK4 = CHUNK / 4;  // float4 columns of a full chunk (one per wa
 constexpr int STAGE_FLOAT4 = NLIVE * CHUNK4;
 constexpr int RING_BYTES = STAGES * STAGE_FLOAT4 * 16;  // 38,400
 
+static_assert(RING_BYTES == STAGES * NLIVE * CHUNK * (int)sizeof(float), "the f32 ring holds the live rows only");
+
 // The decision product's precision, in the order of PRECISIONS.
 enum Precision : int { HIGHEST = 0, HIGH = 1, MIXED = 2, DEFAULT = 3 };
 constexpr int NEDGE = 18;  // live slots of s0, s1 and s2: the first 18 of the table
-
-// Whether live slot i sums the three split chains.
-template <int P>
-__host__ __device__ constexpr bool split_slot(int i) {
-  return P == HIGH || (P == MIXED && i < NEDGE);
-}
-
-// Operand-b rows staged after the NLIVE operand-a rows of a stage.
-template <int P>
-__host__ __device__ constexpr int b_rows() {
-  return P == HIGH ? NLIVE : P == MIXED ? NEDGE : 0;
-}
-
-template <int P>
-__host__ __device__ constexpr int stage_float4() {
-  return (NLIVE + b_rows<P>()) * CHUNK4;
-}
-
-template <int P>
-__host__ __device__ constexpr int ring_bytes() {
-  return STAGES * stage_float4<P>() * 16;
-}
-static_assert(ring_bytes<HIGHEST>() == RING_BYTES, "the f32 ring keeps its size");
 
 struct Slot {
   int s;  // decision scalar: 0, 1, 2 = s0, s1, s2; 3 = D; 4 = num
@@ -162,24 +127,11 @@ __device__ __forceinline__ void load_live_features(const float* __restrict__ fea
 
 __device__ __forceinline__ float bf16_rn(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// A ray's live features as precision P multiplies them: f exact, and for
-// the bf16 modes fh = bf16(f) and fl = bf16(f - fh) (f - fh is exact).
-template <int P>
+// A ray's live features, as HIGHEST multiplies them.
 struct RayFeatures {
   float f[NF];
-  float fh[NF];
-  float fl[NF];
 
-  __device__ __forceinline__ void load(const float* __restrict__ feats, int ray) {
-    load_live_features(feats, ray, f);
-    if constexpr (P != HIGHEST) {
-#pragma unroll
-      for (int k = 0; k < NF; ++k) {
-        fh[k] = bf16_rn(f[k]);
-        fl[k] = bf16_rn(f[k] - fh[k]);
-      }
-    }
-  }
+  __device__ __forceinline__ void load(const float* __restrict__ feats, int ray) { load_live_features(feats, ray, f); }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -195,79 +147,51 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts the copies of columns [c0, c0 + cw) of the live rows of the block
-// at `wa` (operand a) and, for the split slots of P, at `wb` (operand b)
-// into `stage`: warp v copies rows v, v + nwarps, ..., lane q the float4
-// column q.
-template <int P>
-__device__ __forceinline__ void fetch_chunk(float4* __restrict__ stage, const float* __restrict__ wa,
-                                            const float* __restrict__ wb, int tb, int c0) {
+// at `wb` into `stage`: warp v copies rows v, v + nwarps, ..., lane q the
+// float4 column q.
+__device__ __forceinline__ void fetch_chunk(float4* __restrict__ stage, const float* __restrict__ wb, int tb, int c0) {
   const int cw4 = min(CHUNK, tb - c0) / 4;
   const int lane = threadIdx.x & 31;
   if (lane >= cw4) return;
   const int nwarps = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < NLIVE + b_rows<P>(); i += nwarps) {
-    const float* src = i < NLIVE ? wa + (size_t)slot_row(i) * tb : wb + (size_t)slot_row(i - NLIVE) * tb;
-    cp_async16(stage + i * CHUNK4 + lane, src + c0 + 4 * lane);
+  for (int i = threadIdx.x >> 5; i < NLIVE; i += nwarps) {
+    cp_async16(stage + i * CHUNK4 + lane, wb + (size_t)slot_row(i) * tb + c0 + 4 * lane);
   }
 }
 
-// acc[r][s][c] += x[r][k] * stage[slot I][4q + c] for live slot I = (s, k),
-// with x = f (HIGHEST, and MIXED's D|num) or fh (DEFAULT). A split slot
-// adds to the three chains `part` of its scalar instead (hh, hl, lh), which
-// the scalar's first slot starts at 0 and its last folds into acc.
-template <int RPT, int P, int I>
-__device__ __forceinline__ void fma_slot(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
-                                         float (&acc)[RPT][NS][4], float (&part)[RPT][3][4]) {
+// acc[r][s][c] += f[r][k] * stage[slot I][4q + c] for live slot I = (s, k).
+template <int RPT, int I>
+__device__ __forceinline__ void fma_slot(const RayFeatures (&x)[RPT], const float4* __restrict__ stage, int q,
+                                         float (&acc)[RPT][NS][4]) {
   constexpr Slot sl = live_slot(I);
   const float4 v = stage[I * CHUNK4 + q];  // a broadcast: one address for the whole warp
-  if constexpr (split_slot<P>(I)) {
-    constexpr bool first = I == 0 || live_slot(I - 1).s != sl.s;
-    constexpr bool last = I + 1 == NLIVE || live_slot(I + 1).s != sl.s;
-    const float4 u = stage[(NLIVE + I) * CHUNK4 + q];
-    const float va[4] = {v.x, v.y, v.z, v.w};
-    const float vb[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if constexpr (first) part[r][0][c] = part[r][1][c] = part[r][2][c] = 0.0f;
-        part[r][0][c] = fmaf(x[r].fh[sl.k], va[c], part[r][0][c]);
-        part[r][1][c] = fmaf(x[r].fh[sl.k], vb[c], part[r][1][c]);
-        part[r][2][c] = fmaf(x[r].fl[sl.k], va[c], part[r][2][c]);
-        if constexpr (last) acc[r][sl.s][c] = part[r][0][c] + (part[r][1][c] + part[r][2][c]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float xk = P == DEFAULT ? x[r].fh[sl.k] : x[r].f[sl.k];
-      acc[r][sl.s][0] = fmaf(xk, v.x, acc[r][sl.s][0]);
-      acc[r][sl.s][1] = fmaf(xk, v.y, acc[r][sl.s][1]);
-      acc[r][sl.s][2] = fmaf(xk, v.z, acc[r][sl.s][2]);
-      acc[r][sl.s][3] = fmaf(xk, v.w, acc[r][sl.s][3]);
-    }
+  for (int r = 0; r < RPT; ++r) {
+    const float xk = x[r].f[sl.k];
+    acc[r][sl.s][0] = fmaf(xk, v.x, acc[r][sl.s][0]);
+    acc[r][sl.s][1] = fmaf(xk, v.y, acc[r][sl.s][1]);
+    acc[r][sl.s][2] = fmaf(xk, v.z, acc[r][sl.s][2]);
+    acc[r][sl.s][3] = fmaf(xk, v.w, acc[r][sl.s][3]);
   }
 }
 
-template <int RPT, int P, int... I>
-__device__ __forceinline__ void fma_slots(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
-                                          float (&acc)[RPT][NS][4], float (&part)[RPT][3][4],
-                                          std::integer_sequence<int, I...>) {
-  (fma_slot<RPT, P, I>(x, stage, q, acc, part), ...);  // in table order
+template <int RPT, int... I>
+__device__ __forceinline__ void fma_slots(const RayFeatures (&x)[RPT], const float4* __restrict__ stage, int q,
+                                          float (&acc)[RPT][NS][4], std::integer_sequence<int, I...>) {
+  (fma_slot<RPT, I>(x, stage, q, acc), ...);  // in table order
 }
 
-// acc[r][s][c] = scalar s of ray r and staged columns 4q + c at precision
-// P: the sparse decision dot products, the slots unrolled at compile time.
-template <int RPT, int P>
-__device__ __forceinline__ void live_dots(const RayFeatures<P> (&x)[RPT], const float4* __restrict__ stage, int q,
+// acc[r][s][c] = scalar s of ray r and staged columns 4q + c at HIGHEST:
+// the sparse decision dot products, the slots unrolled at compile time.
+template <int RPT>
+__device__ __forceinline__ void live_dots(const RayFeatures (&x)[RPT], const float4* __restrict__ stage, int q,
                                           float (&acc)[RPT][NS][4]) {
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) acc[r][s][0] = acc[r][s][1] = acc[r][s][2] = acc[r][s][3] = 0.0f;
   }
-  float part[RPT][3][4];
-  fma_slots<RPT, P>(x, stage, q, acc, part, std::make_integer_sequence<int, NLIVE>{});
+  fma_slots<RPT>(x, stage, q, acc, std::make_integer_sequence<int, NLIVE>{});
 }
 
 // The closest-hit test of one pair: accept iff max(s0, s1, s2) <= 0 and
@@ -333,19 +257,16 @@ __device__ __forceinline__ void walk_cluster(float4* __restrict__ ring, Fetch&& 
   }
 }
 
-// walk_cluster over the live rows of the FMA route: `wc` is the cluster's
-// first block in w, `wbc` in operand b.
-template <int P, typename Compute>
+// walk_cluster over the live rows of w (HIGHEST): `wc` is the cluster's
+// first block.
+template <typename Compute>
 __device__ __forceinline__ void stream_cluster(float4* __restrict__ ring, const float* __restrict__ wc,
-                                               const float* __restrict__ wbc, const float* __restrict__ eb, int bpc,
-                                               int tb, float lim, Compute&& compute) {
+                                               const float* __restrict__ eb, int bpc, int tb, float lim,
+                                               Compute&& compute) {
   const size_t block_floats = (size_t)K * NS * tb;
-  walk_cluster<stage_float4<P>()>(
-      ring,
-      [&](float4* stage, int b, int c0) {
-        fetch_chunk<P>(stage, wc + b * block_floats, wbc + b * block_floats, tb, c0);
-      },
-      eb, bpc, tb, lim, compute);
+  walk_cluster<STAGE_FLOAT4>(
+      ring, [&](float4* stage, int b, int c0) { fetch_chunk(stage, wc + b * block_floats, tb, c0); }, eb, bpc, tb,
+      lim, compute);
 }
 
 // Max of v over the CTA, returned to every thread, with one barrier: each
@@ -426,27 +347,23 @@ __device__ __forceinline__ void walk_schedule(float4* __restrict__ ring, Fetch&&
   cp_async_wait<0>();  // the speculative copies past the stop
 }
 
-// walk_schedule over the live rows of the FMA route (w, and operand b at wb).
-template <int P, typename Compute, typename BlockEnd>
+// walk_schedule over the live rows of w (HIGHEST).
+template <typename Compute, typename BlockEnd>
 __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
-                                                const float* __restrict__ wb, const int* __restrict__ order,
-                                                const float* __restrict__ enter, int nb, int tb, float lim,
-                                                Compute&& compute, BlockEnd&& block_end) {
+                                                const int* __restrict__ order, const float* __restrict__ enter, int nb,
+                                                int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
   const size_t block_floats = (size_t)K * NS * tb;
-  walk_schedule<stage_float4<P>()>(
-      ring,
-      [&](float4* stage, int blk, int c0) {
-        fetch_chunk<P>(stage, w + blk * block_floats, wb + blk * block_floats, tb, c0);
-      },
-      order, enter, nb, tb, lim, compute, block_end);
+  walk_schedule<STAGE_FLOAT4>(
+      ring, [&](float4* stage, int blk, int c0) { fetch_chunk(stage, w + blk * block_floats, tb, c0); }, order,
+      enter, nb, tb, lim, compute, block_end);
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: the bf16 modes of the closest hits (K1 and K3 at
-// HIGH, MIXED and DEFAULT). K2, K4 and every HIGHEST instantiation keep the
-// FMA route above.
+// The tensor-core route: the bf16 modes of all four kernels (K1-K4 at
+// HIGH, MIXED and DEFAULT). Every HIGHEST instantiation keeps the f32 FMA
+// code above.
 //
-// Operands. The wrapper (`_kernel_operands(w, precision, mma=True)`) gives
+// Operands. The wrapper (`_kernel_operands(w, precision)`) gives
 // w_hi = bf16(w) and w_lo = bf16(w - bf16(w)) as (nb, NS, tb, WIN) bf16:
 // for each block, scalar s and column c, the WIN = 8 feature rows of s's
 // window, contiguous in k. s0, s1, s2 and D take rows 0-7, num rows 6-13
@@ -474,7 +391,8 @@ __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const
 // triangle agrees. A tensor core sums a k-step's products (each exact in
 // f32) in an order, and with an internal alignment, that PTX leaves
 // unspecified: the edge scalars, and at HIGH t, are not bit-equal to the
-// plain version's f32 matmuls, and the hit bar holds them. The JAX
+// plain version's f32 matmuls, and the hit bar (closest hits) or the flag
+// bar (any hits) holds them. The JAX
 // package's grouping, hh + (hl + lh) from three separate accumulators
 // (`_dot_high`), costs 40 f32 adds a thread per 8 columns and some 30 more
 // registers, and was slower with the same bars met (tools/mma_variant_ab.py,
@@ -492,7 +410,13 @@ __device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const
 // thread, and hit_t runs as it is. Each thread keeps its least (t, row) per
 // ray over ascending columns with strict <; at a fold the 4 threads of a
 // quad fold by (t, packed row), the lower row winning ties (quad_min): given
-// the same scalars, the plain version's argmin, ties included.
+// the same scalars, the plain version's argmin, ties included. The any
+// hits (mma_chunk_any) test blocks_ray on the same accumulators, division-
+// free, OR a ray's columns over the chunk, then its quad (one warp vote
+// after the chunk), so the four threads that hold a ray agree on its flag;
+// a warp takes a chunk only while one of its rays is open (maxt > 0, not
+// yet occluded). Votes after every n-tile, which stop a warp sooner, took
+// K4 7-16% longer (tools/mma_variant_ab.py anyhit, PERF.md section 6).
 //
 // Why mma.sync and not wgmma: at HIGH a 16 x 8 tile of pairs costs 15
 // m16n8k8, some 10-11 SM clocks at mma.sync's rate, and the epilogue's ~10
@@ -737,6 +661,53 @@ __device__ __forceinline__ void mma_chunk_min(const RayFragments<P, MT>& a, cons
           }
         }
       }
+    }
+  }
+}
+
+// One chunk of the any-hit search on the tensor-core route: n-tiles nt = g,
+// g + groups, ... of its cw staged columns (cw a multiple of 4). If no ray
+// of the warp is open (mt > 0 and not occ), the warp skips the chunk; else
+// each open ray (m, h) of the thread is set in occ when blocks_ray holds
+// for one of its columns in the chunk, in every thread of the ray's quad
+// (one warp vote per ray after the chunk's last n-tile).
+// Every lane of the warp calls it with the same g, groups and cw (mma.sync
+// and the votes are warp-wide).
+template <int P, int MT>
+__device__ __forceinline__ void mma_chunk_any(const RayFragments<P, MT>& a, const float4* __restrict__ stage, int g,
+                                              int groups, int cw, int lane, const float (&mt)[MT][2],
+                                              bool (&occ)[MT][2]) {
+  bool open = false;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) open |= !occ[m][h] && mt[m][h] > 0.0f;
+  }
+  if (!__any_sync(0xffffffffu, open)) return;
+  bool hit[MT][2] = {};
+  for (int nt = g; 8 * nt < cw; nt += groups) {
+    float s[MT][NS][4];
+    mma_dots<P, MT>(a, stage, nt, lane, s);
+    const bool in = 8 * nt + 2 * (lane & 3) < cw;  // else a ragged last n-tile: both columns lie past the chunk
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 2 * h + x;
+          hit[m][h] |= in && blocks_ray(s[m][0][e], s[m][1][e], s[m][2][e], s[m][3][e], s[m][4][e], mt[m][h]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // The quad's OR: lanes 4 (lane / 4) .. + 3 hold this ray.
+      const unsigned quad = __ballot_sync(0xffffffffu, hit[m][h]) >> (lane & ~3);
+      occ[m][h] |= (quad & 0xfu) && mt[m][h] > 0.0f;
     }
   }
 }

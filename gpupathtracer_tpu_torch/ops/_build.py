@@ -36,23 +36,21 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Kernel name -> its launch function's argument types: device pointers (w
-# and its bf16 operands among them: w_lo for the any hits K2 and K4, w_hi
-# and w_lo for the closest hits K1 and K3; K3 also init_t, init_i and
-# done), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
-# ray_tile, groups and, for K1 and K3, rays a thread or m-tiles a warp,
-# then the precision, for K3 its traversal modes (modes, budget, subtiles,
-# fresh), then the stream.
+# and its bf16 operands w_hi and w_lo among them; K3 also init_t, init_i
+# and done), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
+# ray_tile, groups, rays a thread or m-tiles a warp, the precision, for K3
+# its traversal modes (modes, budget, subtiles, fresh), then the stream.
 KERNELS = {
     "closest_hit": [_P] * 9 + [_I] * 7 + [_P],
-    "occlusion": [_P] * 7 + [_I] * 6 + [_P],
+    "occlusion": [_P] * 8 + [_I] * 7 + [_P],
     "closest_hit_streamed": [_P] * 13 + [_I] * 12 + [_P],
-    "occlusion_streamed": [_P] * 8 + [_I] * 7 + [_P],
+    "occlusion_streamed": [_P] * 9 + [_I] * 8 + [_P],
 }
 # Every library also exports ``<name>_occupancy``: resident CTAs per SM at
 # a launch shape, -1 if the kernel does not take it. It takes the launch's
-# ray_tile, groups (and for K1 and K3 rays a thread or m-tiles a warp),
-# precision (and for K3 modes) ints; here, their count.
-OCCUPANCY = {"closest_hit": 4, "occlusion": 3, "closest_hit_streamed": 5, "occlusion_streamed": 3}
+# ray_tile, groups, rays a thread or m-tiles a warp, precision (and for K3
+# modes) ints; here, their count.
+OCCUPANCY = {"closest_hit": 4, "occlusion": 4, "closest_hit_streamed": 5, "occlusion_streamed": 4}
 
 
 HOST_SOURCE = os.path.join(CSRC, "firefly_native.cpp")

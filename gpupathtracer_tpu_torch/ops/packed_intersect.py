@@ -103,11 +103,11 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
-# The tensor-core route of the closest hits' bf16 modes (K1, K3;
-# csrc/stream_stage.cuh): each decision scalar multiplies one window of
-# MMA_WINDOW feature rows, starting at its MMA_WINDOW_START row (s0, s1, s2
-# and D rows 0-7, num rows 6-13). Every live slot of a scalar lies in its
-# window, and every other row of a window is 0 in w.
+# The tensor-core route of the bf16 modes (K1-K4; csrc/stream_stage.cuh):
+# each decision scalar multiplies one window of MMA_WINDOW feature rows,
+# starting at its MMA_WINDOW_START row (s0, s1, s2 and D rows 0-7, num rows
+# 6-13). Every live slot of a scalar lies in its window, and every other
+# row of a window is 0 in w.
 MMA_WINDOW = 8
 MMA_WINDOW_START = (0, 0, 0, 0, 6)
 
@@ -121,79 +121,68 @@ def mma_windows(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cols[:, s, :, k0 : k0 + MMA_WINDOW] for s, k0 in enumerate(MMA_WINDOW_START)], dim=1)
 
 
-def _kernel_operands(w: torch.Tensor, precision: str, mma: bool = False):
-    """The triangle operands the kernels stage for ``precision``.
+def _kernel_operands(w: torch.Tensor, precision: str):
+    """The triangle operands the kernels stage for ``precision``:
+    ``(w, hi, lo)``. For the bf16 modes (the tensor-core route), hi =
+    bf16(w) and lo = bf16(w - bf16(w)) as ``torch.bfloat16``
+    ``mma_windows`` of ``split_bf16(w)``: "default" reads hi (lo is hi),
+    "high" hi and lo, "mixed" hi and lo of s0-s2 and the f32 D|num rows of
+    ``w``. "highest" gets ``(w, w, w)`` and reads ``w`` only.
 
-    The FMA route (K2, K4; ``mma=False``): two tensors shaped as ``w``,
-    ``w`` itself for "highest"; bf16(w) for "default"; (hi, lo) of
-    ``split_bf16`` for "high"; for "mixed", hi with the D|num columns of
-    ``w`` and lo.
-
-    The tensor-core route (K1, K3; ``mma=True``): ``(w, hi, lo)``, with hi
-    = bf16(w) and lo = bf16(w - bf16(w)) as ``torch.bfloat16``
-    ``mma_windows`` of ``split_bf16(w)``: "default" reads hi, "high" hi and
-    lo, "mixed" hi and lo of s0-s2 and the f32 D|num rows of ``w``;
-    "highest" gets ``(w, w, w)`` and reads ``w`` only.
-
-    Cached on ``w`` per route and precision (the tensor-core route's split
-    once for all three modes), keyed on its version counter, as the
-    live-slot mark is."""
+    Split once per ``w`` for all three modes and all four searches, and
+    cached on it keyed on its version counter, as the live-slot mark is."""
     if precision == "highest":
-        return (w, w, w) if mma else (w, w)
-    cache = getattr(w, "_kernel_operands", None)
-    if cache is None:
-        cache = w._kernel_operands = {}
-    key = "mma" if mma else precision
-    entry = cache.get(key)
-    if entry is None or entry[0] != w._version:
-        hi, lo = split_bf16(w)
-        if mma:
-            hi, lo = (mma_windows(x).to(torch.bfloat16) for x in (hi, lo))
-        elif precision == "mixed":
-            tb = w.shape[2] // NSCALARS
-            hi = torch.cat([hi[..., : 3 * tb], w[..., 3 * tb :]], dim=-1)
-        entry = cache[key] = (w._version, hi, lo)
-    hi, lo = entry[1], entry[2]
-    if mma:
-        return w, hi, hi if precision == "default" else lo
-    return hi, hi if precision == "default" else lo
+        return w, w, w
+    cached = getattr(w, "_kernel_operands", None)
+    if cached is None or cached[0] != w._version:
+        hi, lo = (mma_windows(x).to(torch.bfloat16) for x in split_bf16(w))
+        cached = w._kernel_operands = (w._version, hi, lo)
+    _, hi, lo = cached
+    return w, hi, hi if precision == "default" else lo
 
-# Launch shape of the four kernels (csrc/stream_stage.cuh), per kernel
-# library: the threads a CTA aims at, and the rays a thread takes where the
-# ray tile allows it (K2 and K4 are built for one only). A CTA holds one ray
-# tile as column groups of ray_tile / rays_per_thread threads each. At the
-# 128-ray tile: K1 2 groups of 64 threads, K2 8 groups of 128; at the 64-ray
-# tile: K3 8 groups of 32 threads, K4 2 groups of 64 (the fastest shapes of
-# tools/stream_sweep.py on the H100, PERF.md section 6). These are the
-# "highest" shapes, and every shape of K2 and K4.
+
+# Launch shape of the four kernels' "highest" instantiations
+# (csrc/stream_stage.cuh), per kernel library: the threads a CTA aims at,
+# and the rays a thread takes where the ray tile allows it (K2 and K4 are
+# built for one only). A CTA holds one ray tile as column groups of
+# ray_tile / rays_per_thread threads each. At the 128-ray tile: K1 2 groups
+# of 64 threads, K2 8 groups of 128; at the 64-ray tile: K3 8 groups of 32
+# threads, K4 2 groups of 64 (the fastest shapes of tools/stream_sweep.py
+# on the H100, PERF.md section 6).
 LAUNCH = {
     "closest_hit": (128, 2),
     "occlusion": (1024, 1),
     "closest_hit_streamed": (256, 2),
     "occlusion_streamed": (128, 1),
 }
-# The closest hits' bf16 modes on the tensor cores (K1, K3): the threads a
-# CTA aims at and the m-tiles of 16 rays a warp. A CTA holds one ray tile
-# as column groups of ray_tile / (16·m_tiles) warps each, at most
-# MMA_MAX_THREADS (the kernels' launch bounds: K1 256 at one m-tile a warp,
-# with 3 CTAs an SM, K3 512; both 1,024 at two, taken where one would need
+# The bf16 modes on the tensor cores (K1-K4): the threads a CTA aims at
+# and the m-tiles of 16 rays a warp. A CTA holds one ray tile as column
+# groups of ray_tile / (16·m_tiles) warps each, at most MMA_MAX_THREADS
+# (the kernels' launch bounds: K1 256 at one m-tile a warp, with 3 CTAs an
+# SM, K3 and K4 512, K2 1,024; all 1,024 at two, taken where one would need
 # more). At the 128-ray tile K1 is 1 group of 8 warps, at the 64-ray tile
 # K3 4 groups of 4 (the fastest shapes of tools/stream_sweep.py mma on the
 # bounce-1 rays; two m-tiles a warp, held to 64 registers by the
-# 1,024-thread bound, was slower; PERF.md section 6).
+# 1,024-thread bound, was slower; PERF.md section 6). On the NEE shadow
+# rays K2 is 4 groups of 8 warps at its 128-ray tile and K4 4 groups of 4
+# at its 64-ray tile, as K3 (the fastest shapes there).
 LAUNCH_MMA = {
     "closest_hit": (256, 1),
+    "occlusion": (1024, 1),
     "closest_hit_streamed": (512, 1),
+    "occlusion_streamed": (512, 1),
 }
 MMA_MAX_THREADS = {
     "closest_hit": {1: 256, 2: 1024},
+    "occlusion": {1: 1024, 2: 1024},
     "closest_hit_streamed": {1: 512, 2: 1024},
+    "occlusion_streamed": {1: 512, 2: 1024},
 }
 
 
 def mma_route(library: str, precision: str) -> bool:
-    """Whether ``library`` runs ``precision`` on the tensor cores: the
-    closest hits' bf16 modes."""
+    """Whether ``library`` runs ``precision`` on the tensor cores: every
+    kernel's bf16 modes."""
     return library in LAUNCH_MMA and precision != "highest"
 
 
@@ -222,12 +211,10 @@ def launch_shape(library: str, ray_tile: int, precision: str = "highest") -> tup
 
 def _shape_ints(library: str, ray_tile: int, precision: str = "highest") -> tuple[int, ...]:
     """The launch shape for ``ray_tile`` as the library's launch and
-    occupancy functions take it: ray_tile, groups, for the closest hits K1
-    and K3 ``per`` (``launch_shape``; K2 and K4 take one ray a thread), and
-    the precision's index in ``PRECISIONS``."""
+    occupancy functions take it: ray_tile, groups, ``per``
+    (``launch_shape``) and the precision's index in ``PRECISIONS``."""
     _, groups, per = launch_shape(library, ray_tile, precision)
-    shape = (ray_tile, groups, per) if library.startswith("closest_hit") else (ray_tile, groups)
-    return shape + (PRECISIONS.index(precision),)
+    return ray_tile, groups, per, PRECISIONS.index(precision)
 
 
 def launch_occupancy(library: str, ray_tile: int, precision: str = "highest", modes: bool = False) -> dict:
@@ -651,7 +638,7 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE,
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
         "closest_hit", "closest_hit", dev,
-        (order, enter, feats, alive, *_kernel_operands(w, precision, mma=True), best_t, best_i),
+        (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i),
         w, (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
     )
     closest_hit.launches += 1
@@ -812,7 +799,7 @@ def closest_hit_streamed(
     done = torch.empty(feats.shape[0], dtype=torch.int32, device=dev) if any_mode else None
     _launch(
         "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision, mma=True), best_t,
+        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision), best_t,
          best_i, done),
         w, (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
         (int(any_mode), budget or 0, subtiles, int(fresh)),

@@ -376,13 +376,15 @@ def test_streamed_occlusion_stops_mid_cluster(device, monkeypatch):
 def _assert_launch_shapes_fit(libraries):
     for library in libraries:
         for ray_tile in range(32, 1025, 32):
-            occ = tpi.launch_occupancy(library, ray_tile)
-            assert occ["threads"] <= 1024 and occ["ctas_per_sm"] >= 1, occ
+            for precision in tpi.PRECISIONS:
+                occ = tpi.launch_occupancy(library, ray_tile, precision)
+                assert occ["threads"] <= 1024 and occ["ctas_per_sm"] >= 1, occ
 
 
 def test_streamed_launch_shapes_fit_the_card(device):
     """Every ray tile the wrappers accept has a launch shape that the
-    streamed kernels take, with at least one CTA resident per SM."""
+    streamed kernels take at every precision (the bf16 modes on the
+    tensor-core route), with at least one CTA resident per SM."""
     _assert_launch_shapes_fit(["closest_hit_streamed", "occlusion_streamed"])
 
 
@@ -725,10 +727,11 @@ def test_kernels_match_plain_version_at_each_precision(device, precision, stream
 @pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
 @pytest.mark.parametrize("precision", ["high", "mixed", "default"])
 def test_anyhit_kernels_match_plain_version_at_each_precision(device, precision, streamed, monkeypatch):
-    """The any-hit kernels K2 and K4 at a bf16 precision mode (the FMA
-    route) against their plain versions at that mode: every flag equal
-    (each chain is an f32 sum of exact bf16 products in ascending k, as the
-    plain version's matmuls of the same splits)."""
+    """The any-hit kernels K2 and K4 at a bf16 precision mode (the
+    tensor-core route) against their plain versions at that mode: the flag
+    bar (at least 99.95% of flags equal, no maxt = 0 lane occluded), since
+    a tensor core sums a k-step's exact bf16 products in an order of its
+    own."""
     if streamed:
         monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
         monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
@@ -736,10 +739,70 @@ def test_anyhit_kernels_match_plain_version_at_each_precision(device, precision,
     packed = tpi.pack_scene(scene, tri_block=128)
     hp = tpi.intersect_packed(o, d, packed, precision=precision, plain=True)
     maxt = torch.where(hp.hit, hp.t * 1.5, 20.0)
+    maxt = torch.where(torch.rand(o.shape[0], generator=torch.Generator().manual_seed(9)).to(device) < 0.1, 0.0, maxt)
+    search = tpi.occluded_streamed if streamed else tpi.occluded
+    before = search.launches
     ok = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision)
+    assert search.launches == before + 1
     op = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision, plain=True)
     torch.cuda.synchronize()
-    assert torch.equal(ok, op) and 0.1 < op.double().mean().item() < 0.95
+    assert (ok == op).double().mean().item() >= 0.9995 and 0.1 < op.double().mean().item() < 0.95
+    assert not ok[maxt == 0].any()
+
+
+@pytest.mark.parametrize("precision", ["high", "mixed", "default"])
+def test_mma_occlusion_kernel_stops_after_first_block(device, precision):
+    """test_occlusion_kernel_stops_after_first_block at a bf16 mode (the
+    tensor-core route): the wall in each tile's first scheduled block
+    occludes every lane, the plain version visits one block a tile, and the
+    kernel's flags equal it (all set)."""
+    rng = np.random.default_rng(24)
+    far = rng.normal(size=(300, 3, 3)).astype(np.float32) * 2 + np.array([0, 0, 25], np.float32)
+    wall = np.array([[[-100, -100, 5], [0, 100, 5], [100, -100, 5]]], np.float32)  # faces -z: hit from z < 5
+    v = np.concatenate([wall, far])
+    mesh = MeshData(vertices=v, normals=np.zeros_like(v), uvs=np.zeros((v.shape[0], 3, 2), np.float32))
+    scene = build_scene([mesh_spec(mesh)], [{"type": "diffuse"}], pad_to_multiple=128, device=device)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    assert packed.w.shape[0] >= 3
+    o = torch.as_tensor(np.concatenate([rng.uniform(-1, 1, (1024, 2)), np.zeros((1024, 1))], 1).astype(np.float32),
+                        device=device)
+    d = torch.nn.functional.normalize(
+        torch.as_tensor(np.concatenate([rng.normal(size=(1024, 2)) * 0.2, np.ones((1024, 1))], 1).astype(np.float32),
+                        device=device), dim=1)
+    args = tpi.prepare_shadow_rays(o, d, torch.full((1024,), 100.0, device=device), packed) + (packed.w, 128)
+    occ = tpi.occluded(*args, precision=precision)
+    ref, work = tpi.occluded_reference(*args, count_work=True, precision=precision)
+    torch.cuda.synchronize()
+    assert work["blocks"] == 1024 // 128
+    assert torch.equal(occ, ref) and bool((ref == 1).all())
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["K2", "K4"])
+@pytest.mark.parametrize("precision", ["high", "mixed", "default"])
+def test_mma_anyhit_kernels_at_two_m_tiles_a_warp(device, precision, streamed, monkeypatch):
+    """K2 and K4 at a bf16 mode at a 1,024-ray tile, which takes two m-tiles
+    of 16 rays a warp (one m-tile would need more threads than the launch
+    bound), against their plain versions by the flag bar, with lanes at
+    maxt = 0 among live ones."""
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=26, rays=4096)
+    packed = tpi.pack_scene(scene, tri_block=128)
+    library = "occlusion_streamed" if streamed else "occlusion"
+    assert tpi.launch_shape(library, 1024, precision)[2] == 2
+    hit = tpi.intersect_packed(o, d, packed)
+    scale = (0.5 + torch.rand(o.shape[0], generator=torch.Generator().manual_seed(10))).to(device)
+    maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
+    maxt = maxt.masked_fill(_in_tile_dead_lanes(o.shape[0], 1024, device, seed=11), 0.0)
+    if streamed:
+        args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed, ray_tile=1024) + (1024,)
+        occ, ref = tpi.occluded_streamed(*args, precision=precision), tpi.occluded_streamed_reference(
+            *args, precision=precision)
+    else:
+        args = tpi.prepare_shadow_rays(o, d, maxt, packed, ray_tile=1024) + (packed.w, 1024)
+        occ, ref = tpi.occluded(*args, precision=precision), tpi.occluded_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert (occ == ref).double().mean().item() >= 0.9995 and 0.05 < ref.double().mean().item() < 0.9
+    assert not occ[: o.shape[0]][maxt == 0].any()
 
 
 @pytest.mark.parametrize("budget,subtiles", [(1, 1), (0, 4), (1, 2)])

@@ -1,8 +1,8 @@
-"""The operands and the arithmetic of the closest hits' tensor-core route
-(K1 and K3 at "high", "mixed" and "default"; ``csrc/stream_stage.cuh``),
-on the CPU, where the kernels cannot run.
+"""The operands and the arithmetic of the tensor-core route (K1-K4 at
+"high", "mixed" and "default"; ``csrc/stream_stage.cuh``), on the CPU,
+where the kernels cannot run.
 
-The kernels stage ``_kernel_operands(w, precision, mma=True)``: bf16(w) and
+The kernels stage ``_kernel_operands(w, precision)``: bf16(w) and
 bf16(w - bf16(w)) as column windows of 8 feature rows per (block, scalar,
 column), and multiply each window by the ray's features over the same rows
 on ``mma.sync.m16n8k8``. Here: the windows equal ``split_bf16(w)`` element
@@ -12,7 +12,10 @@ made once per pack and anew after an in-place edit; and the exact window
 products, summed in float64, give ``_decision_scalars``' scalars at each
 bf16 mode (and the JAX package's ``_decision_dot`` at "high" and "mixed")
 within 2 ulps of the sum of |products|: the tensor cores sum the same
-products as the plain version's f32 matmuls, in another order.
+products as the plain version's f32 matmuls, in another order. The any
+hits' epilogue, modelled in numpy on those products by the fragment
+layout, covers every (ray, column) once and gives ``occluded_reference``'s
+flags to the flag bar.
 """
 
 import dataclasses
@@ -56,7 +59,7 @@ def test_mma_operands_equal_split_bf16(case, mode):
     first (HIGHEST and MIXED's D|num rows)."""
     packed, _ = case
     w = packed.w
-    w_, hi, lo = tpi._kernel_operands(w, mode, mma=True)
+    w_, hi, lo = tpi._kernel_operands(w, mode)
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
     assert w_ is w
     assert hi.dtype == lo.dtype == torch.bfloat16 and hi.is_contiguous() and lo.is_contiguous()
@@ -101,21 +104,21 @@ def test_mma_operands_are_split_once_per_pack(case):
     it anew."""
     packed, _ = case
     tp = dataclasses.replace(packed, w=packed.w.clone())
-    ops = {mode: tpi._kernel_operands(tp.w, mode, mma=True) for mode in BF16_MODES}
+    ops = {mode: tpi._kernel_operands(tp.w, mode) for mode in BF16_MODES}
     assert ops["high"][1] is ops["mixed"][1] is ops["default"][1] is ops["default"][2]
     assert ops["high"][2] is ops["mixed"][2]
-    assert all(a is b for a, b in zip(ops["high"], tpi._kernel_operands(tp.w, "high", mma=True)))
-    assert tpi._kernel_operands(tp.w, "highest", mma=True) == (tp.w, tp.w, tp.w)
+    assert all(a is b for a, b in zip(ops["high"], tpi._kernel_operands(tp.w, "high")))
+    assert tpi._kernel_operands(tp.w, "highest") == (tp.w, tp.w, tp.w)
     bpc = tp.w.shape[0] + 1
     padded = tpi._pad_blocks(tp, bpc).w
-    first = tpi._kernel_operands(padded, "mixed", mma=True)
-    assert all(a is b for a, b in zip(first, tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed", mma=True)))
+    first = tpi._kernel_operands(padded, "mixed")
+    assert all(a is b for a, b in zip(first, tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed")))
     assert not first[1][-1].float().any() and not first[2][-1].float().any()
     tp.w.mul_(2.0)
-    again = tpi._kernel_operands(tp.w, "high", mma=True)
+    again = tpi._kernel_operands(tp.w, "high")
     assert again[1] is not ops["high"][1] and again[2] is not ops["high"][2]
     assert torch.equal(again[1].float(), 2 * ops["high"][1].float())
-    edited = tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed", mma=True)
+    edited = tpi._kernel_operands(tpi._pad_blocks(tp, bpc).w, "mixed")
     assert edited[1] is not first[1] and torch.equal(edited[1][:-1].float(), again[1].float())
 
 
@@ -155,7 +158,7 @@ def test_window_products_give_the_decision_scalars(case, mode):
     packed, feats = case
     w = packed.w
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
-    _, whi, wlo = tpi._kernel_operands(w, mode, mma=True)
+    _, whi, wlo = tpi._kernel_operands(w, mode)
     a = ray_windows(feats)
     hh, mag = window_sums(a["hi"], whi)
     if mode == "default":
@@ -187,8 +190,9 @@ def test_mma_launch_shapes_are_whole_warps(library):
     """For every ray tile the wrappers accept, the tensor-core route's
     launch shape gives each column group ray_tile / (16·m_tiles) whole
     warps and the CTA at most the kernel's launch bound
-    (``MMA_MAX_THREADS``); the main paths' tiles (128 for K1, 64 for K3)
-    take one m-tile a warp."""
+    (``MMA_MAX_THREADS``); the main paths' tiles (128 for K1 and K2, 64
+    for K3 and K4) take one m-tile a warp. Every kernel's bf16 modes take
+    the route, "highest" none."""
     for ray_tile in range(32, 1025, 32):
         for mode in BF16_MODES:
             threads, groups, mt = tpi.launch_shape(library, ray_tile, mode)
@@ -196,6 +200,105 @@ def test_mma_launch_shapes_are_whole_warps(library):
             assert groups >= 1 and threads == groups * ray_tile // (16 * mt) * 32, (ray_tile, groups)
             assert threads <= tpi.MMA_MAX_THREADS[library][mt], (ray_tile, threads)
         assert tpi.launch_shape(library, ray_tile) == tpi.launch_shape(library, ray_tile, "highest")
-    main_tile = tpi.DEFAULT_RAY_TILE if library == "closest_hit" else tpi.STREAM_RAY_TILE
+    main_tile = tpi.STREAM_RAY_TILE if library.endswith("_streamed") else tpi.DEFAULT_RAY_TILE
     assert tpi.launch_shape(library, main_tile, "high")[2] == 1
-    assert not tpi.mma_route("occlusion", "high") and not tpi.mma_route(library, "highest")
+    assert all(tpi.mma_route(library, mode) for mode in BF16_MODES) and not tpi.mma_route(library, "highest")
+    assert sorted(tpi.LAUNCH_MMA) == sorted(tpi.LAUNCH)
+
+
+def blocks_ray(s: np.ndarray, mt: np.ndarray) -> np.ndarray:
+    """stream_stage.cuh's ``blocks_ray`` in float32: s (..., 5, cols), mt
+    (..., 1); an accepted hit with t in (EPSILON, mt), division-free, the
+    products rounded on their own."""
+    eps = np.float32(tpi.EPSILON)
+    s0, s1, s2, dd, num = (s[..., k, :] for k in range(NSCALARS))
+    edge = np.maximum(np.maximum(s0, s1), s2)
+    return (edge <= 0) & (dd <= -eps) & (num < eps * dd) & (num > mt * dd)
+
+
+def fragment_flags(blocked: np.ndarray, mt: np.ndarray, ray_tile: int, groups: int, m_tiles: int, chunk: int):
+    """The any hits' flags as the tensor-core route folds them
+    (``mma_chunk_any``): ``blocked`` (tiles, ray_tile, nb, tb) per (ray,
+    packed column) and ``mt`` (tiles, ray_tile). Group g, warp v of the
+    group and lane l hold rays v·16·m_tiles + 16 m + 8 h + l // 4 and, of
+    each staged chunk, columns 8 nt + 2 (l % 4) + {0, 1} of n-tiles nt = g,
+    g + groups, ... where 8 nt + 2 (l % 4) lies inside the chunk. A thread
+    ORs its columns over the chunk's n-tiles, the quad ORs its 4 lanes
+    after the chunk (one warp vote), a thread's flag ORs over the chunks
+    and blocks, and the groups OR through the shared word, which only a
+    quad's first lane sets; only maxt > 0 is ever set. Returns the
+    flags (tiles, ray_tile) and, per chunk width, how often each (ray,
+    column) is evaluated."""
+    tiles, _, nb, tb = blocked.shape
+    wpg = ray_tile // (16 * m_tiles)
+    g, v, lane, m, h, j, x = np.ix_(range(groups), range(wpg), range(32), range(m_tiles), range(2),
+                                    range(-(-chunk // 8 // groups) + 1), range(2))
+    ray = v * 16 * m_tiles + 16 * m + 8 * h + lane // 4
+    quads = np.broadcast_to(ray, np.broadcast_shapes(g.shape, ray.shape))[..., 0, 0]  # the ray of (g, v, lane, m, h)
+    occ = np.zeros((tiles, ray_tile), bool)
+    cover = {}
+    for c0 in range(0, tb, chunk):
+        cw = min(chunk, tb - c0)
+        nt = g + groups * j
+        inside = 8 * nt + 2 * (lane % 4) < cw
+        col = 8 * nt + 2 * (lane % 4) + x
+        shape = np.broadcast_shapes(ray.shape, col.shape, inside.shape)
+        r_, c_, in_ = (np.broadcast_to(a, shape) for a in (ray, col, inside))
+        counts = np.zeros((ray_tile, cw), int)
+        np.add.at(counts, (r_[in_], c_[in_]), 1)
+        cover[cw] = counts
+        for b in range(nb):
+            hit = blocked[:, r_, b, c0 + np.minimum(c_, cw - 1)] & in_  # (tiles, *shape)
+            hit = hit.any(axis=(-2, -1))  # a thread's columns of the chunk
+            hit = hit.reshape(tiles, groups, wpg, 8, 4, m_tiles, 2).any(axis=4, keepdims=True)  # the quad's vote
+            hit = np.broadcast_to(hit, (tiles, groups, wpg, 8, 4, m_tiles, 2)).reshape(tiles, groups, wpg, 32,
+                                                                                         m_tiles, 2)
+            # The groups, through the shared word that each quad's first lane sets.
+            np.logical_or.at(occ, (slice(None), quads[:, :, ::4]), hit[:, :, :, ::4])
+    return occ & (mt > 0), cover
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_anyhit_fragment_epilogue_gives_the_reference_flags(case, mode):
+    """The any hits' epilogue on the tensor-core route, in numpy: the exact
+    window products (as above, rounded once to float32) through
+    ``blocks_ray``, folded by the fragment layout at K2's and K4's main-path
+    launch shapes and at two m-tiles a warp. Every (ray, column) of a chunk
+    is evaluated exactly once, and the flags meet the flag bar against
+    ``occluded_reference`` at the same mode over every block (at least
+    99.95% equal), with no maxt = 0 lane occluded."""
+    packed, feats = case
+    w = packed.w
+    nb, tb = w.shape[0], w.shape[2] // NSCALARS
+    rays = 1024  # whole tiles of every shape below; padded lanes have zero features and maxt = 0
+    fpad = torch.cat([feats, feats.new_zeros((rays - feats.shape[0], K))])
+    rng = np.random.default_rng(8)
+    mt = rng.uniform(0.0, 12.0, rays).astype(np.float32)
+    mt[rng.uniform(size=rays) < 0.1] = 0.0
+    mt[feats.shape[0]:] = 0.0
+    _, whi, wlo = tpi._kernel_operands(w, mode)
+    a = ray_windows(fpad)
+    s = window_sums(a["hi"], whi)[0]
+    if mode != "default":
+        s = s + (window_sums(a["hi"], wlo)[0] + window_sums(a["lo"], whi)[0])
+    if mode == "mixed":
+        s[:, :, 3:] = window_sums(a["f"], tpi.mma_windows(w))[0][:, :, 3:]
+    blocked = blocks_ray(s.numpy().astype(np.float32), mt[:, None, None])  # (rays, nb, tb)
+
+    ref_tile = tpi.DEFAULT_RAY_TILE
+    rt = rays // ref_tile
+    order = torch.arange(nb, dtype=torch.int32).repeat(rt, 1)
+    ref = tpi.occluded_reference(order, torch.zeros((rt, nb)), fpad, torch.as_tensor(mt), w, ref_tile,
+                                 precision=mode).numpy().astype(bool)
+    assert 0.05 < ref[: feats.shape[0]].mean() < 0.95
+    with open(os.path.join(os.path.dirname(HEADER), "decision.cuh")) as f:
+        chunk = int(re.search(r"constexpr int CHUNK = (\d+);", f.read()).group(1))
+    for library, ray_tile in (("occlusion", tpi.DEFAULT_RAY_TILE), ("occlusion_streamed", tpi.STREAM_RAY_TILE),
+                              ("occlusion", 1024)):
+        _, groups, m_tiles = tpi.launch_shape(library, ray_tile, mode)
+        occ, cover = fragment_flags(blocked.reshape(-1, ray_tile, nb, tb), mt.reshape(-1, ray_tile), ray_tile,
+                                    groups, m_tiles, chunk)
+        assert all((c == 1).all() for c in cover.values()), (library, ray_tile)
+        occ = occ.reshape(-1)
+        assert (occ == ref).mean() >= 0.9995, (library, ray_tile, int((occ != ref).sum()))
+        assert not occ[mt == 0].any()

@@ -200,24 +200,50 @@ def test_default_matches_a_numpy_model_of_one_bf16_pass(case):
     assert_hit_bar(h, np.where(hit, t_min, 3.0e38), tri, hit)
 
 
-def test_streamed_operands_are_split_once_per_pack(case):
-    """The streamed route pads a pack whose block count is no multiple of
-    its blocks per cluster. The padded w is made once per pack and reused,
-    so the bf16 operands cached on it are split once, not on every search;
-    an in-place edit of w makes both anew."""
-    _, ts, _, _, _ = case
+def test_streamed_operands_are_split_once_per_pack(case, monkeypatch):
+    """The K3 and the K4 search of one pack at "high" stage one split. The
+    streamed route pads a pack whose block count is no multiple of its
+    blocks per cluster; the padded w is made once per pack, and both
+    searches take their bf16 operands from the one split cached on it. An
+    in-place edit of w makes the padded w and the split anew. The wrappers'
+    staging is watched with the launch replaced (there is no card here)."""
+    _, ts, o, d, max_t = case
     tp = tpi.pack_scene(ts, tri_block=TB)
     tp = dataclasses.replace(tp, w=tp.w.clone())
-    bpc = tp.w.shape[0] + 1
-    first, again = tpi._pad_blocks(tp, bpc), tpi._pad_blocks(tp, bpc)
-    assert first.w.shape[0] == bpc and first.w is again.w
-    assert torch.equal(first.w[:-1], tp.w) and not first.w[-1].any()
-    ops = tpi._kernel_operands(first.w, "high")
-    assert all(a is b for a, b in zip(ops, tpi._kernel_operands(again.w, "high")))
+    nb = tp.w.shape[0]
+    bpc = nb - 1
+    assert nb > 2 and nb % bpc
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", bpc * K * NSCALARS * TB * 4)
+    staged = []
+    monkeypatch.setattr(tpi, "_kernel_device", lambda feats, name: feats.device)
+    monkeypatch.setattr(tpi, "_launch", lambda name, library, dev, tensors, *args: staged.append((library, tensors)))
+    for search in (tpi.closest_hit_streamed, tpi.occluded_streamed):
+        monkeypatch.setattr(search, "launches", search.launches)
+    o, d, max_t = (torch.as_tensor(x) for x in (o, d, max_t))
+
+    def operands():
+        """(w, hi, lo) that K3 and then K4 stage at "high"."""
+        staged.clear()
+        tpi.closest_hit_streamed(*tpi.prepare_rays_streamed(o, d, tp), tpi.STREAM_RAY_TILE, precision="high")
+        tpi.occluded_streamed(*tpi.prepare_shadow_rays_streamed(o, d, max_t, tp), tpi.STREAM_RAY_TILE,
+                              precision="high")
+        (k3, t3), (k4, t4) = staged
+        assert (k3, k4) == ("closest_hit_streamed", "occlusion_streamed")
+        return t3[7:10], t4[5:8]
+
+    k3, k4 = operands()
+    w, hi, lo = k3
+    assert all(a is b for a, b in zip(k3, k4))
+    assert w.shape[0] == 2 * bpc and torch.equal(w[:nb], tp.w) and not w[nb:].any()
+    assert hi.dtype == lo.dtype == torch.bfloat16 and lo is not hi
+    assert w._kernel_operands[1] is hi and w._kernel_operands[2] is lo  # the one split on w
+    again = operands()
+    assert all(a is b for a, b in zip(again[0] + again[1], k3 + k4))
     tp.w.mul_(1.0)
-    edited = tpi._pad_blocks(tp, bpc)
-    assert edited.w is not first.w and torch.equal(edited.w, first.w)
-    assert all(a is not b for a, b in zip(ops, tpi._kernel_operands(edited.w, "high")))
+    edited = operands()
+    assert all(a is b for a, b in zip(edited[0], edited[1]))
+    assert all(a is not b for a, b in zip(edited[0], k3))
+    assert all(torch.equal(a, b) for a, b in zip(edited[0], k3))
 
 
 def test_render_at_mixed_matches_jax():

@@ -9,7 +9,7 @@ sides as its range. What each run measures:
   bounce-1 rays, K2 on the config 8 stand-in's bounce-1 shadow rays, K3 on
   the config 6 stand-in's camera and bounce-1 rays and K4 on its bounce-1
   shadow rays (the inputs of chip_smoke.py's phases 3, 6, 9 and 11);
-- with ``--modes`` as well, K1 and K3 also at "high", "mixed" and
+- with ``--modes`` as well, every kernel also at "high", "mixed" and
   "default" on the same inputs (phase 44's).
 
 Unpack both checkouts with ``tools/ab_smoke.py unpack`` (where git is),
@@ -79,7 +79,7 @@ time("K1 bounce-1", pi.closest_hit, pi.prepare_rays(o2, d2, p2) + (p2.w, pi.DEFA
 scene, camera, settings = cs.load_scene_file(cs.NEE_SCENE, device=device)
 settings = dataclasses.replace(settings, spp=4)
 p1, p2 = (pi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary))
-time("K2 shadow", pi.occluded, cs.nee_shadow_inputs(scene, camera, settings, p1, p2, "occluded_reference"))
+time("K2 shadow", pi.occluded, cs.nee_shadow_inputs(scene, camera, settings, p1, p2, "occluded_reference"), MODES)
 
 scene, camera, settings = cs.load_scene_file(cs.STREAM_SCENE, device=device)
 settings = dataclasses.replace(settings, spp=2)
@@ -89,7 +89,7 @@ time("K3 camera", pi.closest_hit_streamed, pi.prepare_rays_streamed(o, d, p1) + 
 time("K3 bounce-1", pi.closest_hit_streamed, pi.prepare_rays_streamed(o2, d2, p2) + (pi.STREAM_RAY_TILE,), MODES)
 nee = dataclasses.replace(settings, estimator="nee")
 time("K4 shadow", pi.occluded_streamed,
-     cs.nee_shadow_inputs(scene, camera, nee, p1, p2, "occluded_streamed_reference"))
+     cs.nee_shadow_inputs(scene, camera, nee, p1, p2, "occluded_streamed_reference"), MODES)
 print(json.dumps(ms), flush=True)
 """
 

@@ -15,10 +15,11 @@ scenes/config6_icosphere.toml (640,000 camera rays at tb 256, 640,000
 bounce-1 rays at tb 1024, bounce 1's NEE shadow rays at tb 1024; 64-ray
 tiles).
 
-mma: K1 and K3 at "high", "mixed" and "default" (the tensor-core route,
-LAUNCH_MMA), on the closest hits' inputs above; shapes are (threads a CTA
-aims at, m-tiles of 16 rays a warp), and whether a shape gives exactly the
-default's outputs is printed, not held.
+mma: K2, K4, K1 and K3 at "high", "mixed" and "default" (the tensor-core
+route, LAUNCH_MMA), on the inputs above (K2's and K4's the NEE shadow rays
+of phase 44); shapes are (threads a CTA aims at, m-tiles of 16 rays a
+warp), and whether a shape gives exactly the default's outputs is printed,
+not held.
 
 For each launch shape (threads a CTA aims at, rays a thread) it prints the
 column groups, the resident CTAs and warps per SM and the median kernel
@@ -57,11 +58,13 @@ SHAPES = {
 }
 
 
-# The tensor-core route of K1 and K3 (LAUNCH_MMA): (threads a CTA aims at,
-# m-tiles of 16 rays a warp).
+# The tensor-core route (LAUNCH_MMA): (threads a CTA aims at, m-tiles of 16
+# rays a warp).
 MMA_SHAPES = {
     "closest_hit": [(256, 1), (128, 2), (256, 2)],
+    "occlusion": [(1024, 1), (256, 1), (512, 1), (512, 2), (1024, 2)],
     "closest_hit_streamed": [(512, 1), (256, 1), (128, 1), (256, 2), (512, 2)],
+    "occlusion_streamed": [(256, 1), (128, 1), (512, 1), (256, 2), (512, 2)],
 }
 MMA_MODES = ("high", "mixed", "default")
 
@@ -92,7 +95,7 @@ def sweep(library: str, label: str, kernel, args) -> None:
 
 
 def sweep_mma(library: str, label: str, kernel, args) -> None:
-    """sweep() for the tensor-core route of a closest hit at each bf16 mode."""
+    """sweep() for the tensor-core route of a kernel at each bf16 mode."""
     device = args[0].device
     ray_tile = args[-1]
     default = tpi.LAUNCH_MMA[library]
@@ -113,6 +116,19 @@ def sweep_mma(library: str, label: str, kernel, args) -> None:
 
 def mma() -> None:
     device = torch.device("cuda")
+    scene, camera, settings = load_scene_file(cs.NEE_SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    sweep_mma("occlusion", "bounce-1 shadow rays", tpi.occluded,
+              cs.nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_reference"))
+    scene, camera, settings = load_scene_file(cs.STREAM_SCENE, device=device)
+    nee = dataclasses.replace(settings, spp=2, estimator="nee")
+    packed = tpi.pack_scene(scene, tri_block=nee.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=nee.tri_block_secondary)
+    sweep_mma("occlusion_streamed", "bounce-1 shadow rays", tpi.occluded_streamed,
+              cs.nee_shadow_inputs(scene, camera, nee, packed, packed2, "occluded_streamed_reference"))
+    del scene, packed, packed2
     scene, camera, settings = load_scene_file(cs.SCENE, device=device)
     settings = dataclasses.replace(settings, spp=4)
     packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
