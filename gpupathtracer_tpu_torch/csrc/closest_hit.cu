@@ -13,7 +13,12 @@
 //   alive  int32 (rt*TR)        0 = dead lane (best_t starts at -inf)
 //   w      float (nb, 16, 5*tb) triangle columns [s0 | s1 | s2 | D | num]
 //                               from pack_scene (only the live slots are read)
-// Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
+// Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss;
+//   tests     int64 (1) or null: the (live lane, triangle column) tests
+//             computed are added to it (add_tests in stream_stage.cuh: the
+//             blocks the walk computed x the tile's live lanes x tb), once
+//             a CTA at its exit; null, which every untraced frame passes,
+//             adds nothing and changes no output.
 //   w_hi, w_lo bf16 (nb, 5, tb, 8) the bf16 modes' operands: bf16(w) and
 //                               bf16(w - bf16(w)) in the tensor-core route's
 //                               column windows (stream_stage.cuh; the
@@ -86,7 +91,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     closest_hit_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                        const float* __restrict__ feats, const int* __restrict__ alive,
                        const float* __restrict__ w, float* __restrict__ best_t_out, int* __restrict__ best_i_out,
-                       int nb, int tb, int ray_tile, int groups) {
+                       unsigned long long* __restrict__ tests, int nb, int tb, int ray_tile, int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
@@ -114,7 +119,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     gi[r] = 0;
   }
 
-  stream_schedule(
+  const int blocks = stream_schedule(
       ring, w, order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
       [&](const float4* stage, int blk, int c0, int cw4) {
         const int row0 = blk * tb + c0;
@@ -177,6 +182,12 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
       best_i_out[ray] = best_i[r];
     }
   }
+  if (tests) {  // group 0 owns the tile's rays
+    unsigned long long mine = 0;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) mine += g == 0 && alive[tile * ray_tile + lane[r]] > 0 ? blocks : 0;
+    add_tests(tests, mine, tb);
+  }
 }
 
 // The tensor-core kernel's launch bounds: at one m-tile a warp 256 threads
@@ -195,7 +206,8 @@ __global__ void __launch_bounds__(mma_max_threads<MT>(), MT == 1 ? 3 : 1)
                            const float* __restrict__ feats, const int* __restrict__ alive,
                            const float* __restrict__ w, const __nv_bfloat16* __restrict__ w_hi,
                            const __nv_bfloat16* __restrict__ w_lo, float* __restrict__ best_t_out,
-                           int* __restrict__ best_i_out, int nb, int tb, int ray_tile, int groups) {
+                           int* __restrict__ best_i_out, unsigned long long* __restrict__ tests, int nb, int tb,
+                           int ray_tile, int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   float* fold_t = reinterpret_cast<float*>(smem + STAGES * mma_stage_float4<P>());  // (groups, ray_tile)
@@ -227,7 +239,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>(), MT == 1 ? 3 : 1)
     }
   }
 
-  walk_schedule<mma_stage_float4<P>()>(
+  const int blocks = walk_schedule<mma_stage_float4<P>()>(
       ring, [&](float4* stage, int blk, int c0) { fetch_chunk_mma<P>(stage, w, w_hi, w_lo, blk, tb, c0); },
       order + (size_t)tile * nb, enter + (size_t)tile * nb, nb, tb, INFINITY,
       [&](const float4* stage, int blk, int c0, int cw4) {
@@ -298,6 +310,17 @@ __global__ void __launch_bounds__(mma_max_threads<MT>(), MT == 1 ? 3 : 1)
       }
     }
   }
+  if (tests) {  // the first thread of each quad of group 0 owns its rays
+    unsigned long long mine = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mine += g == 0 && (lane & 3) == 0 && alive[tile * ray_tile + lane_of[m][h]] > 0 ? blocks : 0;
+      }
+    }
+    add_tests(tests, mine, tb);
+  }
 }
 
 template <int P>
@@ -329,11 +352,12 @@ extern "C" {
 // of 16 rays a warp (1 or 2), with at most 256 (1 m-tile) or 1024 (2)
 // threads in all. Anything else
 // returns cudaErrorInvalidValue. w_hi and w_lo are read only at the bf16
-// modes. The caller checks shapes, types, alignment (tb % 4 == 0; w, w_hi
+// modes. `tests` (null: no count) takes the tests computed (see the
+// header). The caller checks shapes, types, alignment (tb % 4 == 0; w, w_hi
 // and w_lo on a 16-byte boundary) and ray_tile.
 int closest_hit_launch(const void* order, const void* enter, const void* feats, const void* alive, const void* w,
-                       const void* w_hi, const void* w_lo, void* best_t, void* best_i, int rt, int nb, int tb,
-                       int ray_tile, int groups, int per, int precision, void* stream) {
+                       const void* w_hi, const void* w_lo, void* best_t, void* best_i, void* tests, int rt, int nb,
+                       int tb, int ray_tile, int groups, int per, int precision, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   return with_precision(precision, invalid, [&](auto p) {
@@ -346,25 +370,26 @@ int closest_hit_launch(const void* order, const void* enter, const void* feats, 
     const auto wf = static_cast<const float*>(w);
     const auto bt = static_cast<float*>(best_t);
     const auto bi = static_cast<int*>(best_i);
+    const auto n = static_cast<unsigned long long*>(tests);
     if constexpr (P == HIGHEST) {
       if (per == 1 && threads_of<1>(ray_tile, groups)) {
         return launch_ring(closest_hit_kernel<1>, rt, threads_of<1>(ray_tile, groups), bytes, s, o, e, f, al, wf, bt,
-                           bi, nb, tb, ray_tile, groups);
+                           bi, n, nb, tb, ray_tile, groups);
       }
       if (per == 2 && threads_of<2>(ray_tile, groups)) {
         return launch_ring(closest_hit_kernel<2>, rt, threads_of<2>(ray_tile, groups), bytes, s, o, e, f, al, wf, bt,
-                           bi, nb, tb, ray_tile, groups);
+                           bi, n, nb, tb, ray_tile, groups);
       }
     } else {
       const auto hi = static_cast<const __nv_bfloat16*>(w_hi);
       const auto lo = static_cast<const __nv_bfloat16*>(w_lo);
       if (per == 1 && mma_threads_of<1>(ray_tile, groups)) {
         return launch_ring(closest_hit_mma_kernel<P, 1>, rt, mma_threads_of<1>(ray_tile, groups), bytes, s, o, e, f,
-                           al, wf, hi, lo, bt, bi, nb, tb, ray_tile, groups);
+                           al, wf, hi, lo, bt, bi, n, nb, tb, ray_tile, groups);
       }
       if (per == 2 && mma_threads_of<2>(ray_tile, groups)) {
         return launch_ring(closest_hit_mma_kernel<P, 2>, rt, mma_threads_of<2>(ray_tile, groups), bytes, s, o, e, f,
-                           al, wf, hi, lo, bt, bi, nb, tb, ray_tile, groups);
+                           al, wf, hi, lo, bt, bi, n, nb, tb, ray_tile, groups);
       }
     }
     return invalid;

@@ -27,7 +27,14 @@
 //             bf16(w - bf16(w)) in the tensor-core route's column windows
 //             (stream_stage.cuh; the wrapper's `_kernel_operands`);
 //             HIGHEST reads w only, MIXED also w's D|num rows
-// Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss.
+// Outputs: best_t float (rt*TR), best_i int32 (rt*TR) packed row, -1 on miss;
+//   tests     int64 (1) or null: the (live lane, triangle column) tests
+//             computed are added to it, once a CTA at its exit: tb x, over
+//             each block computed, the tile's live lanes (add_tests in
+//             stream_stage.cuh); in the modes, the live lanes the block was
+//             computed for, as the plain version counts them (the gates
+//             count into shared memory as they open). Null, which every
+//             untraced frame passes, adds nothing and changes no output.
 //
 // Semantics of the single-phase mode, as the TPU kernel, at each of its
 // precisions: lanes start at BIG (live) or -inf (dead)
@@ -116,16 +123,19 @@ using namespace stream;
 // tensor-core kernel below): MODES = false is the single-phase mode (it
 // reads no seed, no budget and no gate, and writes no done), MODES = true
 // the others. `if constexpr` leaves the single-phase instantiation none of
-// the modes' code, so it keeps its registers and occupancy.
-template <int RPT, bool MODES>
+// the modes' code, so it keeps its registers and occupancy. COUNT = true
+// (a non-null test counter, traced frames only) adds the count; the
+// instantiations without it are those of an untraced frame, with neither
+// the count's code nor its registers.
+template <int RPT, bool MODES, bool COUNT>
 __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     closest_hit_streamed_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                                 const float* __restrict__ enter_blk, const float* __restrict__ feats,
                                 const int* __restrict__ alive, const float* __restrict__ init_t,
                                 const int* __restrict__ init_i, const float* __restrict__ w,
                                 float* __restrict__ best_t_out, int* __restrict__ best_i_out,
-                                int* __restrict__ done_out, int nc, int bpc, int tb, int ray_tile, int groups,
-                                int budget, int subtiles, int fresh) {
+                                int* __restrict__ done_out, unsigned long long* __restrict__ tests, int nc, int bpc,
+                                int tb, int ray_tile, int groups, int budget, int subtiles, int fresh) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   float* fold_t = reinterpret_cast<float*>(smem + STAGES * STAGE_FLOAT4);  // (groups, ray_tile)
@@ -133,6 +143,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   float* lane_t = reinterpret_cast<float*>(fold_i + groups * ray_tile);         // MODES: (ray_tile,) running best
   __shared__ float warp_max[32];
   __shared__ float tile_worst;
+  __shared__ unsigned int lane_blocks;  // MODES with a test counter: live lanes x blocks computed for them
 
   const int tpg = ray_tile / RPT;  // threads per group
   const int g = threadIdx.x / tpg;
@@ -160,7 +171,8 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
     }
     tile_max = fmaxf(tile_max, best_t[r]);
   }
-  // Its barriers also publish lane_t.
+  if (MODES && COUNT && threadIdx.x == 0) lane_blocks = 0;
+  // Its barriers also publish lane_t (and lane_blocks' start).
   float worst = decision::cta_max(tile_max, warp_max, &tile_worst);
 
   const int* tile_order = order + (size_t)tile * nc;
@@ -171,6 +183,7 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
   bool on[RPT];   // MODES: the current block is computed for ray r
   float gt[RPT];  // this group's least (t, row) in the cluster (MODES: in the block)
   int gi[RPT];
+  int blocks = 0;  // COUNT, single-phase: blocks computed for every ray of the tile
   // Fold the groups by (t, row), then into the running best (MODES: of the
   // rays that computed the block, and post it to lane_t for the next gates).
   auto fold = [&]() {
@@ -234,6 +247,9 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
                              for (int i = 0; i < n; ++i) gate = fmaxf(gate, lane_t[lo + i]);
                            }
                            on[r] = eb[b] < gate;
+                           if constexpr (COUNT) {
+                             if (on[r] && g == 0 && alive[tile * ray_tile + lane[r]] > 0) atomicAdd(&lane_blocks, 1u);
+                           }
                            gt[r] = BIG;
                            gi[r] = 0;
                          }
@@ -266,6 +282,8 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
                        if (c0 + CHUNK < tb) return;
                        fold();
                        __syncthreads();
+                     } else if constexpr (COUNT) {
+                       blocks += c0 + CHUNK >= tb;  // the block's last chunk
                      }
                    });
     if constexpr (!MODES) fold();
@@ -288,6 +306,15 @@ __global__ void __launch_bounds__(RPT == 1 ? 1024 : 512)
       }
     }
   }
+  if constexpr (COUNT && MODES) {  // the gates counted as they opened
+    __syncthreads();
+    if (threadIdx.x == 0 && lane_blocks) atomicAdd(tests, (unsigned long long)lane_blocks * tb);
+  } else if constexpr (COUNT) {  // group 0 owns the tile's rays
+    unsigned long long mine = 0;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) mine += g == 0 && alive[tile * ray_tile + lane[r]] > 0 ? blocks : 0;
+    add_tests(tests, mine, tb);
+  }
 }
 
 // The tensor-core kernel's launch bound: 512 threads at one m-tile a warp
@@ -299,8 +326,9 @@ constexpr int mma_max_threads() {
   return MT == 1 ? 512 : 1024;
 }
 
-// The bf16 modes on the tensor cores (see the header), in every mode.
-template <int P, int MT, bool MODES>
+// The bf16 modes on the tensor cores (see the header), in every mode, with
+// and without the count (COUNT, as the kernel above).
+template <int P, int MT, bool MODES, bool COUNT>
 __global__ void __launch_bounds__(mma_max_threads<MT>())
     closest_hit_streamed_mma_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                                     const float* __restrict__ enter_blk, const float* __restrict__ feats,
@@ -308,8 +336,8 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
                                     const int* __restrict__ init_i, const float* __restrict__ w,
                                     const __nv_bfloat16* __restrict__ w_hi, const __nv_bfloat16* __restrict__ w_lo,
                                     float* __restrict__ best_t_out, int* __restrict__ best_i_out,
-                                    int* __restrict__ done_out, int nc, int bpc, int tb, int ray_tile, int groups,
-                                    int budget, int subtiles, int fresh) {
+                                    int* __restrict__ done_out, unsigned long long* __restrict__ tests, int nc,
+                                    int bpc, int tb, int ray_tile, int groups, int budget, int subtiles, int fresh) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   float* fold_t = reinterpret_cast<float*>(smem + STAGES * mma_stage_float4<P>());  // (groups, ray_tile)
@@ -317,6 +345,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
   float* lane_t = reinterpret_cast<float*>(fold_i + groups * ray_tile);             // MODES: (ray_tile,) running best
   __shared__ float warp_max[32];
   __shared__ float tile_worst;
+  __shared__ unsigned int lane_blocks;  // MODES with a test counter: live lanes x blocks computed for them
 
   const int lane = threadIdx.x & 31;
   const int wpg = ray_tile / (16 * MT);  // warps per group
@@ -350,7 +379,8 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
       tile_max = fmaxf(tile_max, best_t[m][h]);
     }
   }
-  // Its barriers also publish lane_t.
+  if (MODES && COUNT && threadIdx.x == 0) lane_blocks = 0;
+  // Its barriers also publish lane_t (and lane_blocks' start).
   float worst = decision::cta_max(tile_max, warp_max, &tile_worst);
 
   const int* tile_order = order + (size_t)tile * nc;
@@ -361,6 +391,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
   bool on[MT][2];   // MODES: the current block is computed for ray (m, h)
   float gt[MT][2];  // this thread's least (t, row) in the cluster (MODES: in the block)
   int gi[MT][2];
+  int blocks = 0;  // COUNT, single-phase: blocks computed for every ray of the tile
   // Fold the quad, then the groups by (t, row), then into the running best
   // (MODES: of the rays that computed the block, and post it to lane_t for
   // the next gates). The barrier also keeps lane_t's writes behind every
@@ -440,6 +471,11 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
                     for (int i = 0; i < n; ++i) gate = fmaxf(gate, lane_t[lo + i]);
                   }
                   on[m][h] = eb[b] < gate;
+                  if constexpr (COUNT) {
+                    if (on[m][h] && g == 0 && (lane & 3) == 0 && alive[tile * ray_tile + lane_of[m][h]] > 0) {
+                      atomicAdd(&lane_blocks, 1u);
+                    }
+                  }
                   gt[m][h] = BIG;
                   gi[m][h] = 0;
                 }
@@ -461,6 +497,8 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
             if (c0 + CHUNK < tb) return;
             fold();
             __syncthreads();
+          } else if constexpr (COUNT) {
+            blocks += c0 + CHUNK >= tb;  // the block's last chunk
           }
         });
     if constexpr (!MODES) fold();
@@ -486,6 +524,20 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
       }
     }
   }
+  if constexpr (COUNT && MODES) {  // the gates counted as they opened
+    __syncthreads();
+    if (threadIdx.x == 0 && lane_blocks) atomicAdd(tests, (unsigned long long)lane_blocks * tb);
+  } else if constexpr (COUNT) {  // the first thread of each quad of group 0 owns its rays
+    unsigned long long mine = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mine += g == 0 && (lane & 3) == 0 && alive[tile * ray_tile + lane_of[m][h]] > 0 ? blocks : 0;
+      }
+    }
+    add_tests(tests, mine, tb);
+  }
 }
 
 template <int P>
@@ -500,21 +552,23 @@ int threads_of(int ray_tile, int groups) {
 }
 
 // f(kernel, threads) for the kernel at precision P, in the modes or the
-// single-phase one: at HIGHEST the FMA kernel of per = rays_per_thread (1
-// or 2), at the bf16 modes the tensor-core kernel of per m-tiles a warp (1
-// or 2); `invalid` for a shape it does not take.
-template <int P, bool MODES, typename F>
+// single-phase one, with or without the count: at HIGHEST the FMA kernel of
+// per = rays_per_thread (1 or 2), at the bf16 modes the tensor-core kernel
+// of per m-tiles a warp (1 or 2); `invalid` for a shape it does not take.
+template <int P, bool MODES, bool COUNT, typename F>
 int with_kernel(int ray_tile, int groups, int per, int invalid, F&& f) {
   if constexpr (P == HIGHEST) {
     if (per == 1 && threads_of<1>(ray_tile, groups))
-      return f(closest_hit_streamed_kernel<1, MODES>, threads_of<1>(ray_tile, groups));
+      return f(closest_hit_streamed_kernel<1, MODES, COUNT>, threads_of<1>(ray_tile, groups));
     if (per == 2 && threads_of<2>(ray_tile, groups))
-      return f(closest_hit_streamed_kernel<2, MODES>, threads_of<2>(ray_tile, groups));
+      return f(closest_hit_streamed_kernel<2, MODES, COUNT>, threads_of<2>(ray_tile, groups));
   } else {
     if (per == 1 && mma_threads<1>(ray_tile, groups, mma_max_threads<1>()))
-      return f(closest_hit_streamed_mma_kernel<P, 1, MODES>, mma_threads<1>(ray_tile, groups, mma_max_threads<1>()));
+      return f(closest_hit_streamed_mma_kernel<P, 1, MODES, COUNT>,
+               mma_threads<1>(ray_tile, groups, mma_max_threads<1>()));
     if (per == 2 && mma_threads<2>(ray_tile, groups, mma_max_threads<2>()))
-      return f(closest_hit_streamed_mma_kernel<P, 2, MODES>, mma_threads<2>(ray_tile, groups, mma_max_threads<2>()));
+      return f(closest_hit_streamed_mma_kernel<P, 2, MODES, COUNT>,
+               mma_threads<2>(ray_tile, groups, mma_max_threads<2>()));
   }
   return invalid;
 }
@@ -527,7 +581,8 @@ extern "C" {
 // at `precision` (0 highest, 1 high, 2 mixed, 3 default): with modes = 0
 // the single-phase mode (init_t, init_i and done are not read), else the
 // other modes with budget (0 = none), subtiles (dividing ray_tile) and
-// fresh (0 or 1); init_t and init_i may be null (BIG and -1), done too.
+// fresh (0 or 1); init_t and init_i may be null (BIG and -1), done too;
+// `tests` (null: no count) takes the tests computed (see the header).
 // Returns cudaGetLastError() (0 = launched). At HIGHEST the CTA is
 // `groups` column groups of ray_tile / per threads, per = rays a thread (1
 // or 2), with at most 1024 (1 ray a thread) or 512 (2) threads in all; at
@@ -539,8 +594,8 @@ extern "C" {
 int closest_hit_streamed_launch(const void* order, const void* enter, const void* enter_blk,
                                 const void* feats, const void* alive, const void* init_t, const void* init_i,
                                 const void* w, const void* w_hi, const void* w_lo, void* best_t, void* best_i,
-                                void* done, int rt, int nc, int bpc, int tb, int ray_tile, int groups, int per,
-                                int precision, int modes, int budget, int subtiles, int fresh, void* stream) {
+                                void* done, void* tests, int rt, int nc, int bpc, int tb, int ray_tile, int groups,
+                                int per, int precision, int modes, int budget, int subtiles, int fresh, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (modes && (subtiles < 1 || ray_tile % subtiles || budget < 0)) return invalid;
@@ -555,8 +610,9 @@ int closest_hit_streamed_launch(const void* order, const void* enter, const void
                            static_cast<const float*>(enter), static_cast<const float*>(enter_blk),
                            static_cast<const float*>(feats), static_cast<const int*>(alive),
                            static_cast<const float*>(init_t), static_cast<const int*>(init_i), operands...,
-                           static_cast<float*>(best_t), static_cast<int*>(best_i), static_cast<int*>(done), nc, bpc,
-                           tb, ray_tile, groups, budget, subtiles, fresh);
+                           static_cast<float*>(best_t), static_cast<int*>(best_i), static_cast<int*>(done),
+                           static_cast<unsigned long long*>(tests), nc, bpc, tb, ray_tile, groups, budget, subtiles,
+                           fresh);
       };
       const auto wf = static_cast<const float*>(w);
       if constexpr (P == HIGHEST) {
@@ -565,22 +621,26 @@ int closest_hit_streamed_launch(const void* order, const void* enter, const void
         return with_operands(wf, static_cast<const __nv_bfloat16*>(w_hi), static_cast<const __nv_bfloat16*>(w_lo));
       }
     };
-    return modes ? with_kernel<P, true>(ray_tile, groups, per, invalid, launch)
-                 : with_kernel<P, false>(ray_tile, groups, per, invalid, launch);
+    if (tests) {
+      return modes ? with_kernel<P, true, true>(ray_tile, groups, per, invalid, launch)
+                   : with_kernel<P, false, true>(ray_tile, groups, per, invalid, launch);
+    }
+    return modes ? with_kernel<P, true, false>(ray_tile, groups, per, invalid, launch)
+                 : with_kernel<P, false, false>(ray_tile, groups, per, invalid, launch);
   });
 }
 
 // CTAs resident per SM at the launch shape of these arguments (as
-// closest_hit_streamed_launch takes them; modes 0 or 1), or -1 if it is
-// not one.
+// closest_hit_streamed_launch takes them; modes 0 or 1; without the count),
+// or -1 if it is not one.
 int closest_hit_streamed_occupancy(int ray_tile, int groups, int per, int precision, int modes) {
   return with_precision(precision, -1, [&](auto p) {
     constexpr int P = decltype(p)::value;
     auto occupancy = [&](auto kernel, int threads) {
       return ring_occupancy(kernel, threads, smem_bytes<P>(ray_tile, groups, modes != 0));
     };
-    return modes ? with_kernel<P, true>(ray_tile, groups, per, -1, occupancy)
-                 : with_kernel<P, false>(ray_tile, groups, per, -1, occupancy);
+    return modes ? with_kernel<P, true, false>(ray_tile, groups, per, -1, occupancy)
+                 : with_kernel<P, false, false>(ray_tile, groups, per, -1, occupancy);
   });
 }
 

@@ -286,6 +286,24 @@ __device__ __forceinline__ float cta_max_posted(float v, float* warp_max) {
   return v;
 }
 
+// The closest-hit searches' test counter (K1, K3; a null `tests` counts
+// nothing): adds tb x the sum over the CTA's threads of `lane_blocks`, the
+// blocks each thread's walk computed for the live rays it owns (each ray
+// owned by one thread of the CTA, 0 from the others), so the CTA adds the
+// (live lane, triangle column) tests it computed, as the plain versions'
+// count_work counts them (lane_blocks x tb). Called at the CTA's exit by
+// every thread (it holds two barriers): one atomic a CTA in global memory.
+__device__ __forceinline__ void add_tests(unsigned long long* tests, unsigned long long lane_blocks, int tb) {
+  __shared__ unsigned long long cta_lane_blocks;
+  if (threadIdx.x == 0) cta_lane_blocks = 0;
+  __syncthreads();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) lane_blocks += __shfl_xor_sync(0xffffffffu, lane_blocks, off);
+  if ((threadIdx.x & 31) == 0 && lane_blocks) atomicAdd(&cta_lane_blocks, lane_blocks);
+  __syncthreads();
+  if (threadIdx.x == 0 && cta_lane_blocks) atomicAdd(tests, cta_lane_blocks * (unsigned long long)tb);
+}
+
 // Whether a walk along a block schedule takes position j: j < nb and
 // enter[j] < lim, and order[j] names a block (the culled tail holds the
 // sentinel nb with enter = +inf, so the entry test stops there first).
@@ -306,13 +324,14 @@ __device__ __forceinline__ bool takes(const int* __restrict__ order, const float
 // the plain version stops. The copies of the chunks that follow are fetched
 // STAGES - 1 chunks ahead, across block boundaries, each while its position
 // is taken at the newest lim (see the header). On return every copy has
-// landed. Every thread of the CTA calls it with the same arguments, and
-// every thread calls block_end, which may hold barriers; the walk holds one
-// CTA barrier per chunk besides.
+// landed, and it returns the number of blocks it computed. Every thread of
+// the CTA calls it with the same arguments, and every thread calls
+// block_end, which may hold barriers; the walk holds one CTA barrier per
+// chunk besides.
 template <int SF4, typename Fetch, typename Compute, typename BlockEnd>
-__device__ __forceinline__ void walk_schedule(float4* __restrict__ ring, Fetch&& fetch_chunk_of,
-                                              const int* __restrict__ order, const float* __restrict__ enter, int nb,
-                                              int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
+__device__ __forceinline__ int walk_schedule(float4* __restrict__ ring, Fetch&& fetch_chunk_of,
+                                             const int* __restrict__ order, const float* __restrict__ enter, int nb,
+                                             int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
   int pj = 0, pc = 0;  // the next chunk to fetch
   auto fetch = [&](int stage) {
     if (takes(order, enter, pj, nb, lim)) {
@@ -345,15 +364,16 @@ __device__ __forceinline__ void walk_schedule(float4* __restrict__ ring, Fetch&&
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
   cp_async_wait<0>();  // the speculative copies past the stop
+  return cj;
 }
 
 // walk_schedule over the live rows of w (HIGHEST).
 template <typename Compute, typename BlockEnd>
-__device__ __forceinline__ void stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
-                                                const int* __restrict__ order, const float* __restrict__ enter, int nb,
-                                                int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
+__device__ __forceinline__ int stream_schedule(float4* __restrict__ ring, const float* __restrict__ w,
+                                               const int* __restrict__ order, const float* __restrict__ enter, int nb,
+                                               int tb, float lim, Compute&& compute, BlockEnd&& block_end) {
   const size_t block_floats = (size_t)K * NS * tb;
-  walk_schedule<STAGE_FLOAT4>(
+  return walk_schedule<STAGE_FLOAT4>(
       ring, [&](float4* stage, int blk, int c0) { fetch_chunk(stage, w + blk * block_floats, tb, c0); }, order,
       enter, nb, tb, lim, compute, block_end);
 }

@@ -37,13 +37,14 @@ NVCC_FLAGS = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Kernel name -> its launch function's argument types: device pointers (w
 # and its bf16 operands w_hi and w_lo among them; K3 also init_t, init_i
-# and done), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
-# ray_tile, groups, rays a thread or m-tiles a warp, the precision, for K3
-# its traversal modes (modes, budget, subtiles, fresh), then the stream.
+# and done; K1 and K3 last the test counter, null for none), then rt, nb
+# (resident) or rt, nc, bpc (streamed), then tb, ray_tile, groups, rays a
+# thread or m-tiles a warp, the precision, for K3 its traversal modes
+# (modes, budget, subtiles, fresh), then the stream.
 KERNELS = {
-    "closest_hit": [_P] * 9 + [_I] * 7 + [_P],
+    "closest_hit": [_P] * 10 + [_I] * 7 + [_P],
     "occlusion": [_P] * 8 + [_I] * 7 + [_P],
-    "closest_hit_streamed": [_P] * 13 + [_I] * 12 + [_P],
+    "closest_hit_streamed": [_P] * 14 + [_I] * 12 + [_P],
     "occlusion_streamed": [_P] * 9 + [_I] * 8 + [_P],
 }
 # Every library also exports ``<name>_occupancy``: resident CTAs per SM at

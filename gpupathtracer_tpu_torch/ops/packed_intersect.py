@@ -38,6 +38,13 @@ default (``STREAM_PHASE1_BUDGET``, ``STREAM_SUBTILES``,
 with a per-lane ``done`` flag, and the straggler regroup in
 ``intersect_packed`` that resumes the undone lanes in fresh tiles. They
 change the work, never the hits.
+
+The closest-hit searches take a test counter, ``tests`` (an int64 tensor
+of one element, or None): they add to it the (live lane, triangle column)
+tests they compute, the kernels on the device and the plain versions from
+their ``count_work`` count. ``intersect_packed`` passes the traced frame's
+(``utils.profiling.frame_tests``) and opens the ``render.schedule`` and
+``render.search.*`` spans.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
 from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
+from gpupathtracer_tpu_torch.utils.profiling import frame_tests, scope
 
 DEFAULT_RAY_TILE = 128
 INF = float("inf")
@@ -616,10 +624,14 @@ def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_int
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest"):
+def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest",
+                tests=None):
     """Closest hit of every ray tile along its schedule: ``(best_t, best_i)``,
     (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1),
-    with the decision product at ``precision`` (``PRECISIONS``).
+    with the decision product at ``precision`` (``PRECISIONS``). ``tests``
+    (int64 (1,) on the rays' device, or None) takes the (live lane, triangle
+    column) tests computed: the blocks each tile computed x its live lanes
+    x tb, the plain version's ``lane_blocks`` x tb.
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/closest_hit.cu``, at ``launch_shape``) and raises if it cannot;
@@ -631,14 +643,15 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE,
     """
     precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, alive, w, ray_tile)
+    _check_tests(tests, feats)
     dev = _kernel_device(feats, "closest_hit")
     if dev is None:
-        return closest_hit_reference(order, enter, feats, alive, w, ray_tile, precision=precision)
+        return closest_hit_reference(order, enter, feats, alive, w, ray_tile, precision=precision, tests=tests)
     best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
     best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
         "closest_hit", "closest_hit", dev,
-        (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i),
+        (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i, tests),
         w, (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
     )
     closest_hit.launches += 1
@@ -646,6 +659,15 @@ def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE,
 
 
 closest_hit.launches = 0
+
+
+def _check_tests(tests, feats) -> None:
+    """Raise unless ``tests`` is None or an int64 tensor of one element on
+    the rays' device."""
+    if tests is not None and (tests.dtype != torch.int64 or tests.shape != (1,) or tests.device != feats.device):
+        raise ValueError(f"tests must be int64 (1,) on {feats.device}, got {tests.dtype} {tuple(tests.shape)} "
+                         f"on {tests.device}")
+
 
 # Pairs (ray x column) the plain versions evaluate per batched matmul; bounds
 # their (tiles, ray_tile, 5*tb) intermediates to ~128 MB each.
@@ -699,7 +721,7 @@ def _blocked(ft, mt, w, blk, tb: int, precision: str = "highest"):
 
 def closest_hit_reference(
     order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False,
-    precision: str = "highest",
+    precision: str = "highest", tests=None,
 ):
     """Plain PyTorch version of ``closest_hit``: the same schedule, early exit,
     acceptance and tie-breaks, with one matmul per (tile, block) at
@@ -707,7 +729,7 @@ def closest_hit_reference(
 
     ``count_work=True`` also returns ``{"blocks": visited (tile, block)
     pairs, "lane_blocks": the sum over them of the tile's live lanes}``,
-    the work these inputs need."""
+    the work these inputs need; ``tests`` takes ``lane_blocks`` x tb."""
     _check_f32_matmul(feats, "closest_hit_reference")
     precision = resolve_precision(precision)
     nb, _, five_tb = w.shape
@@ -726,7 +748,7 @@ def closest_hit_reference(
         tiles = torch.nonzero(running).flatten()
         if tiles.numel() == 0:
             break
-        if count_work:
+        if count_work or tests is not None:
             blocks += tiles.numel()
             lane_blocks += int(live[tiles].sum())
         for c0 in range(0, tiles.numel(), per_call):
@@ -737,6 +759,8 @@ def closest_hit_reference(
             best_t[ti] = torch.where(upd, blk_min, bt)
             best_i[ti] = torch.where(upd & (blk_min < BIG), arg, best_i[ti])
         worst[tiles] = best_t[tiles].amax(dim=1)
+    if tests is not None:
+        tests += lane_blocks * tb
     out = (best_t.reshape(-1), best_i.reshape(-1))
     return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
 
@@ -760,10 +784,11 @@ def _check_stream_modes(feats, ray_tile: int, init_t, init_i, budget, subtiles: 
 def closest_hit_streamed(
     order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, precision: str = "highest",
     init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1, fresh: bool = False,
-    with_done: bool = False,
+    with_done: bool = False, tests=None,
 ):
     """Closest hit of every ray tile along its cluster schedule (the streamed
-    route): ``(best_t, best_i)`` as ``closest_hit`` gives them. ``order`` and
+    route): ``(best_t, best_i)`` as ``closest_hit`` gives them, and the
+    tests computed added to ``tests`` as there. ``order`` and
     ``enter`` are (rt, nc), ``enter_blk`` (rt, nb) and ``w`` (nb, K, 5·tb)
     with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
 
@@ -788,7 +813,9 @@ def closest_hit_streamed(
     precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
     _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
-    modes = dict(init_t=init_t, init_i=init_i, budget=budget, subtiles=subtiles, fresh=fresh, with_done=with_done)
+    _check_tests(tests, feats)
+    modes = dict(init_t=init_t, init_i=init_i, budget=budget, subtiles=subtiles, fresh=fresh, with_done=with_done,
+                 tests=tests)
     dev = _kernel_device(feats, "closest_hit_streamed")
     if dev is None:
         return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile,
@@ -800,7 +827,7 @@ def closest_hit_streamed(
     _launch(
         "closest_hit_streamed", "closest_hit_streamed", dev,
         (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision), best_t,
-         best_i, done),
+         best_i, done, tests),
         w, (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
         (int(any_mode), budget or 0, subtiles, int(fresh)),
     )
@@ -814,7 +841,7 @@ closest_hit_streamed.launches = 0
 def closest_hit_streamed_reference(
     order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False,
     precision: str = "highest", init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1,
-    fresh: bool = False, with_done: bool = False,
+    fresh: bool = False, with_done: bool = False, tests=None,
 ):
     """Plain PyTorch version of ``closest_hit_streamed``, as the TPU kernel
     ``_kernel_streamed`` runs: live lanes start at ``init_t`` (BIG by
@@ -832,7 +859,7 @@ def closest_hit_streamed_reference(
 
     ``count_work=True`` also returns ``{"blocks": computed (tile, block)
     pairs, "lane_blocks": the sum over them of the live lanes they were
-    computed for}``, after ``done``."""
+    computed for}``, after ``done``; ``tests`` takes ``lane_blocks`` x tb."""
     _check_f32_matmul(feats, "closest_hit_streamed_reference")
     precision = resolve_precision(precision)
     _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
@@ -854,6 +881,7 @@ def closest_hit_streamed_reference(
     running = torch.ones((rt,), dtype=torch.bool, device=dev)
     per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
     gated = fresh or subtiles > 1
+    counting = count_work or tests is not None
     blocks = lane_blocks = 0
     for j in range(cap):
         go = running & (enter[:, j] < worst)
@@ -870,7 +898,7 @@ def closest_hit_streamed_reference(
                         else bt.amax(dim=1, keepdim=True))
                 on = (enter_blk[tiles, blk[:, b]][:, None] < gate).repeat_interleave(ray_tile // gate.shape[1], dim=1)
                 sel = torch.nonzero(on.any(dim=1)).flatten()
-                if count_work:
+                if counting:
                     blocks += sel.numel()
                     lane_blocks += int((live[tiles] & on).sum())
                 for c0 in range(0, sel.numel(), per_call):
@@ -886,7 +914,7 @@ def closest_hit_streamed_reference(
             # in block order: min over blocks with the first block winning
             # ties is the chain of strict-< updates block by block.
             pt, pb = torch.nonzero(enter_blk[tiles[:, None], blk] < worst[tiles][:, None], as_tuple=True)
-            if count_work:
+            if counting:
                 blocks += pt.numel()
                 lane_blocks += int(live[tiles[pt]].sum())
             m = torch.full((tiles.numel(), bpc, ray_tile), BIG, dtype=torch.float32, device=dev)
@@ -904,6 +932,8 @@ def closest_hit_streamed_reference(
             best_t[tiles] = torch.where(upd, cmin, bt)
             best_i[tiles] = torch.where(upd & (cmin < BIG), carg, best_i[tiles])
         worst[tiles] = best_t[tiles].amax(dim=1)
+    if tests is not None:
+        tests += lane_blocks * tb
     out = (best_t.reshape(-1), best_i.reshape(-1))
     if with_done:
         next_enter = torch.gather(enter, 1, j_end.clamp(max=nc - 1)[:, None])
@@ -1135,14 +1165,16 @@ def _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile: int, *
     from gpupathtracer_tpu_torch.ops.compaction import partition_alive
 
     padded, bpc, o, d, (_, _, _, feats, alive_i, w) = prepared
-    undone = (alive_i > 0) & (done == 0)
-    perm, inv = partition_alive(undone)
-    und_p = undone[perm]
-    mask, enter = tile_block_mask(o[perm], d[perm], padded, ray_tile, alive=und_p)
-    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
-    bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, ray_tile,
-                      init_t=torch.where(und_p, best_t[perm], -INF), init_i=best_i[perm], **modes)
-    return torch.where(undone, bt2[inv], best_t), torch.where(undone, bi2[inv], best_i)
+    with scope("render.schedule"):
+        undone = (alive_i > 0) & (done == 0)
+        perm, inv = partition_alive(undone)
+        und_p = undone[perm]
+        mask, enter = tile_block_mask(o[perm], d[perm], padded, ray_tile, alive=und_p)
+        order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
+    with scope("render.search.closest"):
+        bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, ray_tile,
+                          init_t=torch.where(und_p, best_t[perm], -INF), init_i=best_i[perm], **modes)
+        return torch.where(undone, bt2[inv], best_t), torch.where(undone, bi2[inv], best_i)
 
 
 def _hits(best_t, best_i, packed: PackedScene, r: int) -> Hit:
@@ -1172,26 +1204,37 @@ def intersect_packed(
 
     The search is discrete: it runs on detached rays and the ``Hit`` never
     carries autograd history (``resolve_hits`` re-derives the attributes).
+    Its schedule runs in ``render.schedule`` spans and its launches and
+    hits in ``render.search.closest`` spans; a traced frame's test counter
+    (``utils.profiling.frame_tests``) takes the tests computed.
     """
     o, d = o.detach(), d.detach()
     precision = resolve_precision(precision)
+    tests = frame_tests()
     if is_resident(packed):
         search = closest_hit_reference if plain else closest_hit
-        order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
-        best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile, precision=precision)
-    else:
-        search = closest_hit_streamed_reference if plain else closest_hit_streamed
-        ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-        modes = {"precision": precision, "fresh": STREAM_FRESH_WORST,
-                 "subtiles": STREAM_SUBTILES if ray_tile % max(STREAM_SUBTILES, 1) == 0 else 1}
+        with scope("render.schedule"):
+            order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
+        with scope("render.search.closest"):
+            best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile, precision=precision,
+                                    tests=tests)
+            return _hits(best_t, best_i, packed, o.shape[0])
+    search = closest_hit_streamed_reference if plain else closest_hit_streamed
+    ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
+    modes = {"precision": precision, "fresh": STREAM_FRESH_WORST,
+             "subtiles": STREAM_SUBTILES if ray_tile % max(STREAM_SUBTILES, 1) == 0 else 1, "tests": tests}
+    with scope("render.schedule"):
         prepared = _prepare_streamed(o, d, packed, alive, ray_tile)
-        if STREAM_PHASE1_BUDGET > 0:
+    if STREAM_PHASE1_BUDGET > 0:
+        with scope("render.search.closest"):
             best_t, best_i, done = search(*prepared[-1], ray_tile, budget=STREAM_PHASE1_BUDGET, with_done=True,
                                           **modes)
-            best_t, best_i = _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile, **modes)
-        else:
-            best_t, best_i = search(*prepared[-1], ray_tile, **modes)
-    return _hits(best_t, best_i, packed, o.shape[0])
+        best_t, best_i = _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile, **modes)
+        with scope("render.search.closest"):
+            return _hits(best_t, best_i, packed, o.shape[0])
+    with scope("render.search.closest"):
+        best_t, best_i = search(*prepared[-1], ray_tile, **modes)
+        return _hits(best_t, best_i, packed, o.shape[0])
 
 
 def _shadow_lanes(o, d, max_t, ray_tile: int):
@@ -1234,12 +1277,15 @@ def intersect_packed_occluded(
     precision = resolve_precision(precision)
     if is_resident(packed):
         search = occluded_reference if plain else occluded
-        occ = search(*prepare_shadow_rays(o, d, max_t, packed, ray_tile), packed.w, ray_tile, precision=precision)
+        with scope("render.schedule"):
+            inputs = prepare_shadow_rays(o, d, max_t, packed, ray_tile) + (packed.w,)
     else:
         search = occluded_streamed_reference if plain else occluded_streamed
         ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-        occ = search(*prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile), ray_tile, precision=precision)
-    return occ[: o.shape[0]] > 0
+        with scope("render.schedule"):
+            inputs = prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile)
+    with scope("render.search.any"):
+        return search(*inputs, ray_tile, precision=precision)[: o.shape[0]] > 0
 
 
 def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir", precision: str | None = None):
@@ -1260,17 +1306,20 @@ def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "di
 
     def wrapped(o, d, alive=None) -> Hit:
         o, d = o.detach(), d.detach()
-        octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-        dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
-        om = _morton_codes(o, lo, hi)
-        if key_mode == "origin":
-            key = (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
-        else:
-            key = (octant << 27) | ((dm >> 18) << 15) | (om >> 15)
-        perm = torch.argsort(key, stable=True)
-        h = intersect_fn(o[perm], d[perm], alive=None if alive is None else alive[perm], **kw)
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-        return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv])
+        with scope("render.compact"):
+            octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+            dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
+            om = _morton_codes(o, lo, hi)
+            if key_mode == "origin":
+                key = (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
+            else:
+                key = (octant << 27) | ((dm >> 18) << 15) | (om >> 15)
+            perm = torch.argsort(key, stable=True)
+            o, d, alive = o[perm], d[perm], None if alive is None else alive[perm]
+        h = intersect_fn(o, d, alive=alive, **kw)
+        with scope("render.compact"):
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+            return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv])
 
     return wrapped

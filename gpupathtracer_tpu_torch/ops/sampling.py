@@ -12,10 +12,14 @@ torch has no uint32 arithmetic, so words are held in int64 tensors with
 values in [0, 2^32). Every add is masked back to 32 bits, products are
 formed from 16-bit halves so no int64 product overflows, and every shift
 acts on non-negative values, so ``>>`` is a logical shift.
+
+Every sampler's ``path_keys``, ``fold`` and ``uniform`` runs in a
+``render.rng`` span (``utils/profiling.py``) while a profiler records.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,6 +27,7 @@ import torch
 from gpupathtracer_tpu_torch.core.tensors import clip, maximum
 from gpupathtracer_tpu_torch.ops import threefry
 from gpupathtracer_tpu_torch.ops.threefry import mul32 as _mul32
+from gpupathtracer_tpu_torch.utils.profiling import scope
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9  # odd multiplier: fold chains stay injective
@@ -121,6 +126,21 @@ class ThreefrySampler:
 
 
 SAMPLERS = {"pcg": PcgSampler, "threefry": ThreefrySampler}
+
+
+def _rng_span(fn):
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with scope("render.rng"):
+            return fn(*args, **kwargs)
+
+    return staticmethod(spanned)
+
+
+for _sampler in SAMPLERS.values():
+    for _method in ("path_keys", "fold", "uniform"):
+        setattr(_sampler, _method, _rng_span(getattr(_sampler, _method)))
+del _sampler, _method
 
 
 def make_sampler(impl: str):

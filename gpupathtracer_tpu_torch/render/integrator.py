@@ -64,6 +64,7 @@ from gpupathtracer_tpu_torch.ops.sampling import (
     reflect,
     refract,
 )
+from gpupathtracer_tpu_torch.utils.profiling import scope
 
 # Offset along the oriented normal when spawning secondary and shadow rays.
 RAY_OFFSET = 1e-4
@@ -342,9 +343,11 @@ def make_bounce_fn(
         if mask_compact:
             h = intersect_fn(o, d, alive=mask)
             return Hit(t=h.t, tri=h.tri, hit=h.hit & mask)
-        o_c, d_c, inv = compact(o, d, mask)
+        with scope("render.compact"):
+            o_c, d_c, inv = compact(o, d, mask)
         h = intersect_fn(o_c, d_c)
-        return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv] & mask)
+        with scope("render.compact"):
+            return Hit(t=h.t[inv], tri=h.tri[inv], hit=h.hit[inv] & mask)
 
     def masked_occluded(o, d, max_t, mask):
         """Shadow query for lanes where ``mask`` holds (others report
@@ -353,15 +356,27 @@ def make_bounce_fn(
         mt = torch.where(mask, max_t, 0.0)
         if not options.compact or mask_compact:
             return occlude(o, d, mt) & mask
-        o_c, d_c, inv = compact_rays(o, d, mask)
-        mt_c = torch.zeros_like(mt)
-        mt_c[inv] = mt  # lane i moves to position inv[i]
-        return occlude(o_c, d_c, mt_c)[inv] & mask
+        with scope("render.compact"):
+            o_c, d_c, inv = compact_rays(o, d, mask)
+            mt_c = torch.zeros_like(mt)
+            mt_c[inv] = mt  # lane i moves to position inv[i]
+        occ = occlude(o_c, d_c, mt_c)
+        with scope("render.compact"):
+            return occ[inv] & mask
 
     def bounce(state: PathState, bounce_idx: int, compact_now: bool = True) -> PathState:
+        # Made before the search is queued: on the card this copy from host
+        # memory returns only once the work queued before it has run, and
+        # after the search it would hold the host back for the search's time.
+        background = torch.tensor(options.background, dtype=torch.float32, device=state.o.device)
+        hit = masked_intersect(state.o, state.d, state.alive, compact_now)
+        with scope("render.shade"):
+            return shade(state, hit, bounce_idx, background)
+
+    def shade(state: PathState, hit: Hit, bounce_idx: int, background: torch.Tensor) -> PathState:
+        """The bounce after its closest hit: emission, light samples and
+        the scatter."""
         o, d, throughput, radiance, alive = state.o, state.d, state.throughput, state.radiance, state.alive
-        background = torch.tensor(options.background, dtype=torch.float32, device=o.device)
-        hit = masked_intersect(o, d, alive, compact_now)
         attrs = resolve_hits(o, d, scene, hit.tri, need_sn=options.use_shading_normals, need_uv=textured)
         found = alive & hit.hit
         missed = alive & ~hit.hit
@@ -572,14 +587,21 @@ def trace_paths(
     if hybrid:
         options = dataclasses.replace(options, compact_mode="mask")
     first, later = make_path_bounces(scene, options, intersect_fn, packed, packed_secondary)
-    state = first(init_path_state(origins, directions, keys))
+    state = init_path_state(origins, directions, keys)
+    with scope("render.bounce"):
+        state = first(state)
     inv = None
     if hybrid:
-        perm, inv = partition_alive(state.alive)
-        state = _permute_state(state, perm)
+        with scope("render.compact"):
+            perm, inv = partition_alive(state.alive)
+            state = _permute_state(state, perm)
     for b in range(1, options.bounces):
-        state = later(state, b)
-    return state.radiance if inv is None else state.radiance.index_select(0, inv)
+        with scope("render.bounce"):
+            state = later(state, b)
+    if inv is None:
+        return state.radiance
+    with scope("render.compact"):
+        return state.radiance.index_select(0, inv)
 
 
 def normal_aov(

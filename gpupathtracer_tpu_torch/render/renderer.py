@@ -33,6 +33,7 @@ from gpupathtracer_tpu_torch.render.integrator import (
     normal_aov,
     trace_paths,
 )
+from gpupathtracer_tpu_torch.utils import profiling
 from gpupathtracer_tpu_torch.utils.debug import check_frame
 
 
@@ -179,8 +180,18 @@ def render_frame(
     ``intersector="bvh"`` searches the scene's BVH (``_cached_bvh``, built on
     the host and cached as the packs are) with ``intersect_bvh`` for every
     closest hit and every shadow ray (thresholded), as the JAX package's
-    ``render_frame`` does; no kernel runs."""
+    ``render_frame`` does; no kernel runs.
+
+    Each call is recorded (``utils.profiling.frame``): its host start and
+    return, and while a profiler records, the ``render.frame`` span with
+    its seed and the searches' test counter."""
     device = resolve_device(device)
+    seed = settings.seed if seed is None else seed
+    with profiling.frame(seed, device):
+        return _render_frame(scene, camera, settings, seed, device)
+
+
+def _render_frame(scene, camera, settings, seed, device) -> torch.Tensor:
     scene, camera, settings, packed, packed2 = _prepare(scene, camera, settings, device)
     h, w = settings.height, settings.width
     intersect_fn = None
@@ -194,7 +205,7 @@ def render_frame(
                            intersect_fn=intersect_fn or make_intersect_fn(scene, opts, packed=packed))
         return check_frame(color.reshape(h, w, 3), "render_frame")
     pixel_idx = torch.arange(h * w, device=device)
-    key_data = prng_key_data(settings.seed if seed is None else seed)
+    key_data = prng_key_data(seed)
     film_sum = accumulate_radiance(
         scene, camera, pixel_idx, settings, key_data, packed=packed, packed_secondary=packed2,
         intersect_fn=intersect_fn,

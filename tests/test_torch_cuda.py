@@ -871,3 +871,62 @@ def test_kernels_launch_on_offset_views_of_ray_inputs(device):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(occ_shifted, occ)
     assert (want[1] >= 0).any() and (occ > 0).any()
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "mixed", "default"])
+@pytest.mark.parametrize("streamed", [False, True], ids=["K1", "K3"])
+def test_test_counter_on_the_main_path_rays(device, streamed, precision):
+    """K1 (config 3 stand-in) and K3 (config 6 stand-in) on chip_smoke's
+    inputs, sample 0's camera rays on the first pack and its bounce-1 rays
+    on the second: the test counter equals the plain version's
+    lane_blocks x tb, and the hits with the counter are bit-equal to a
+    launch with a null one."""
+    import chip_smoke
+
+    scene, camera, settings = load_scene_file(chip_smoke.STREAM_SCENE if streamed else chip_smoke.SCENE,
+                                              device=device)
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary or settings.tri_block)
+    assert tpi.is_resident(packed) != streamed
+    prepare = tpi.prepare_rays_streamed if streamed else tpi.prepare_rays
+    kernel = tpi.closest_hit_streamed if streamed else tpi.closest_hit
+    plain = tpi.closest_hit_streamed_reference if streamed else tpi.closest_hit_reference
+    ray_tile = tpi.STREAM_RAY_TILE if streamed else tpi.DEFAULT_RAY_TILE
+    for (o, d), pack in zip(chip_smoke.main_path_rays(scene, camera, settings, packed), (packed, packed2)):
+        args = prepare(o, d, pack) + (() if streamed else (pack.w,)) + (ray_tile,)
+        tests = torch.zeros(1, dtype=torch.int64, device=device)
+        bt, bi = kernel(*args, precision=precision, tests=tests)
+        bt0, bi0 = kernel(*args, precision=precision)
+        *_, work = plain(*args, precision=precision, count_work=True)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(bt), _bits(bt0)) and torch.equal(bi, bi0)
+        assert int(tests.item()) == work["lane_blocks"] * pack.tri_block > 0
+
+
+@pytest.mark.parametrize("budget,subtiles,fresh", [(1, 1, False), (2, 4, False), (0, 1, True)])
+@pytest.mark.parametrize("precision", ["highest", "mixed"])
+def test_streamed_modes_test_counter(device, budget, subtiles, fresh, precision, monkeypatch):
+    """K3's traversal-mode kernel counts what its plain version counts (in
+    the gated modes, the live lanes each block was computed for), and the
+    counter changes no output."""
+    monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", 100 * 1024)
+    scene, o, d = _random_scene(device, seed=25)
+    packed = tpi.pack_scene(scene, tri_block=64)
+    alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(8)) < 0.8).to(device)
+    args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
+    init_t, init_i = tpi.closest_hit_streamed_reference(*args, budget=1, precision=precision)
+    modes = dict(init_t=init_t, init_i=init_i, budget=budget or None, subtiles=subtiles, fresh=fresh,
+                 with_done=True, precision=precision)
+    tests = torch.zeros(1, dtype=torch.int64, device=device)
+    got = tpi.closest_hit_streamed(*args, tests=tests, **modes)
+    bare = tpi.closest_hit_streamed(*args, **modes)
+    *_, work = tpi.closest_hit_streamed_reference(*args, count_work=True, **modes)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(bare[0])) and torch.equal(got[1], bare[1])
+    assert torch.equal(got[2], bare[2])
+    assert int(tests.item()) == work["lane_blocks"] * 64 > 0

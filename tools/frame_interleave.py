@@ -6,8 +6,9 @@ bounds, whose wall time follows whatever else the host runs.
 
 Each checkout gets one process of its own (its package, its kernels built
 there) that loads the naive path (scenes/config3_icosphere.toml, 800x800,
-spp 4, 4 bounces) and the NEE path (scenes/config8_icosphere.toml, 512x512,
-spp 4, 3 bounces) and renders one warm-up frame of each. Then, for ROUNDS
+spp 4, 4 bounces), the NEE path (scenes/config8_icosphere.toml, 512x512,
+spp 4, 3 bounces) and the streamed path (scenes/config6_icosphere.toml,
+800x800, spp 2, 4 bounces) and renders one warm-up frame of each. Then, for ROUNDS
 rounds (default 10), each path renders one frame in each process in the
 order parent, change, change, parent (then the next round), with a varied
 seed, each timed from the call to a synchronised scalar of the image: the
@@ -32,9 +33,10 @@ from gpupathtracer_tpu_torch.render.renderer import render_frame
 from gpupathtracer_tpu_torch.utils.config import load_scene_file
 torch.backends.cuda.matmul.allow_tf32 = False
 paths = {}
-for name, cfg in (("naive", "scenes/config3_icosphere.toml"), ("nee", "scenes/config8_icosphere.toml")):
+for name, cfg, spp in (("naive", "scenes/config3_icosphere.toml", 4), ("nee", "scenes/config8_icosphere.toml", 4),
+                       ("streamed", "scenes/config6_icosphere.toml", 2)):
     scene, camera, settings = load_scene_file(cfg, device="cuda")
-    settings = dataclasses.replace(settings, spp=4)
+    settings = dataclasses.replace(settings, spp=spp)
     float(render_frame(scene, camera, settings).sum())  # builds the kernels, packs, warms up
     paths[name] = (scene, camera, settings)
 print("ready", flush=True)
@@ -70,7 +72,7 @@ def main() -> None:
         for side, proc in procs.items():
             if proc.stdout.readline().strip() != "ready":
                 raise SystemExit(f"the {side} process did not start")
-        for name in ("naive", "nee"):
+        for name in ("naive", "nee", "streamed"):
             times = {"parent": [], "change": []}
             for r in range(rounds):
                 for i, side in enumerate(("parent", "change", "change", "parent")):
