@@ -4,9 +4,9 @@
 
 Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds the four kernel sources of csrc/ from this checkout,
-   all started together, with ptxas's registers and shared memory per
-   kernel, and each kernel's launch shape at its ray tile (128 rays for K1
+2. build: nvcc builds the five kernel sources of csrc/ from this checkout
+   (the four searches and the PCG sampler's pcg.cu), all started together,
+   with ptxas's registers and shared memory per kernel, and each kernel's launch shape at its ray tile (128 rays for K1
    and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
    every precision mode's instantiation (and K3's traversal-mode kernel),
    with its HMMA and FFMA instructions, and those of every kernel entry of
@@ -224,6 +224,15 @@ and the kernels' remaining modes:
     single-phase triangle and some left undone; then the same budgeted
     search at "mixed" (K3's mode kernel on the tensor cores) against its
     plain version by the hit bar, t bit-equal where the triangle agrees;
+46. right after phase 2: the PCG sampler's three kernels (csrc/pcg.cu:
+    path keys, fold, and the draw at each width 1-4) at a frame's 640,000
+    lanes against the plain int64 route on the same card tensors and on the
+    CPU, bit for bit, with each one's device ms (CUDA events, mean of 200
+    launches cycling through 150 MB of inputs and outputs, so that none
+    finds them in L2), host ms a call, bytes bound at 3.35 TB/s, and the
+    plain route's device and host ms (mean of 5 calls); phase 5 and every
+    full frame also check the sampler's launches a frame against the count
+    its spp, bounces, estimator and roulette give;
 then the total wall time, a JSON line that summarises every kernel under
 every mode, and a JSON result line last. Lines starting "elapsed:" mark
 where the time of the run goes.
@@ -438,12 +447,14 @@ def phase_build() -> None:
                 occ = packed_intersect.launch_occupancy(name, ray_tile, precision, modes)
                 # The entries are templates on rays a thread (K1 and K3 at
                 # highest), the precision and m-tiles a warp (the four
-                # tensor-core kernels at the bf16 modes) and K3's modes:
-                # <rpt>, <p, mt>, <rpt, modes> and <p, mt, modes> in their
-                # mangled names; K2's and K4's "highest" kernels are no
-                # templates (the name's end, then the parameters).
+                # tensor-core kernels at the bf16 modes) and K3's modes and
+                # test count: <rpt>, <p, mt>, <rpt, modes, count> and
+                # <p, mt, modes, count> in their mangled names, K3's
+                # untraced instantiation (count false) here; K2's and K4's
+                # "highest" kernels are no templates (the name's end, then
+                # the parameters).
                 p = packed_intersect.PRECISIONS.index(precision)
-                modes_arg = f"Lb{int(modes)}E" if name == "closest_hit_streamed" else ""
+                modes_arg = f"Lb{int(modes)}ELb0E" if name == "closest_hit_streamed" else ""
                 if occ["route"] == "mma":
                     entry = f"{name}_mma_kernelILi{p}ELi{occ['m_tiles_per_warp']}E{modes_arg}E"
                 elif name.startswith("closest_hit"):
@@ -751,8 +762,9 @@ def profile_frame(run, trace_path: str | None = None, top: int = 0) -> dict:
     """``run()`` once under torch.profiler: its wall time, the device's busy
     time (the union of the kernel intervals), launches and idle share of
     that wall time, and the device time of each of the four kernels and of
-    all else; with ``top``, also the ``top`` costliest kernel names, and
-    with ``trace_path``, the Chrome trace written there."""
+    all else (and of the PCG sampler's kernels, which all else holds); with
+    ``top``, also the ``top`` costliest kernel names, and with
+    ``trace_path``, the Chrome trace written there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,6 +788,7 @@ def profile_frame(run, trace_path: str | None = None, top: int = 0) -> dict:
     for kname in knames:
         out[f"{kname}_ms"] = sum(v for k, v in by_name.items() if kname in k)
     out["other_device_ms"] = sum(by_name.values()) - sum(out[f"{k}_ms"] for k in knames)
+    out["pcg_ms"] = sum(v for k, v in by_name.items() if "pcg_" in k)
     out["idle_share_profiled"] = 1.0 - out["device_busy_ms"] / wall_ms if spans else None
     if top:
         out["top_kernels_ms"] = [[k[:120], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
@@ -824,19 +837,42 @@ def expect_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+def expect_pcg_launches(settings) -> int:
+    """The PCG sampler's kernel launches in one frame of ``settings``: per
+    sample the path keys, the jitter's fold and draw (spp > 1 with jitter),
+    and per bounce a fold and a draw, and one of each more for the light
+    sample (NEE and MIS) and for Russian roulette (from ``rr_start``)."""
+    if settings.rng != "pcg":
+        return 0
+    jitter = 2 if settings.jitter and settings.spp > 1 else 0
+    nee = 2 if settings.estimator in ("nee", "mis") else 0
+    rr = 0 if settings.rr_start is None else 2 * max(0, settings.bounces - settings.rr_start)
+    return settings.spp * (1 + jitter + settings.bounces * (2 + nee) + rr)
+
+
+# Each full frame's PCG launches by its label, for the summary line.
+PCG_LAUNCHES_BY_PATH: dict[str, int] = {}
+
+
 def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: int = 3, profiled: bool = False) -> dict:
-    """A path at full size: launches of each kernel in one frame (the counts
-    set to 0 just before it), a finite image, frame time; optionally one more
-    frame under the profiler."""
+    """A path at full size: launches of each kernel and of the PCG sampler in
+    one frame (the counts set to 0 just before it) against their expected
+    counts, a finite image, frame time; optionally one more frame under the
+    profiler."""
     device = scene.v0.device
     for k in KERNELS.values():
         k["counter"].launches = 0
+    pcg_before = PcgSampler.launches
     img = render_frame(scene, camera, settings)
     _sync(device)
     launches = {name: k["counter"].launches for name, k in KERNELS.items()}
+    pcg_launches = PcgSampler.launches - pcg_before
     mean = img.mean().item()
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
+    if pcg_launches != expect_pcg_launches(settings):
+        raise AssertionError(f"{label}: {pcg_launches} PCG launches, expected {expect_pcg_launches(settings)}")
+    PCG_LAUNCHES_BY_PATH[label] = pcg_launches
     if tuple(img.shape) != (settings.height, settings.width, 3):
         raise AssertionError(f"{label}: full frame has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not 0.0 < mean < 10.0:
@@ -849,8 +885,8 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
         times.append(time.perf_counter() - t0)
     frame_s = statistics.median(times)
     rays = settings.width * settings.height * settings.spp * settings.bounces
-    out = {"launches": launches, "image_mean": mean, "frame_s": frame_s, "frame_s_all": times,
-           "rays_per_s": rays / frame_s}
+    out = {"launches": launches, "pcg_launches": pcg_launches, "image_mean": mean, "frame_s": frame_s,
+           "frame_s_all": times, "rays_per_s": rays / frame_s}
     if profiled:
         out["profile"] = profile_frame(lambda: float(render_frame(scene, camera, settings, seed=999).sum()))
     shadow = " (shadow rays not counted)" if settings.estimator != "naive" else ""
@@ -860,6 +896,95 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
         flush=True,
     )
     return out
+
+
+# A config 3 stand-in frame's lanes (800x800): the width of every sampler
+# call of its camera rays and of each bounce before compaction.
+PCG_LANES = 640_000
+# The bytes of input copies a timed loop of phase 46 cycles through, and of
+# the outputs it keeps alive: three times the H100's 50 MB L2, so each launch
+# reads its inputs from device memory and writes its outputs to fresh lines,
+# as a frame's launches do.
+PCG_ROTATE_BYTES = 150_000_000
+
+
+def _device_and_host_ms(fn, reps: int) -> tuple[float, float]:
+    """Mean device ms a call of ``fn()`` (CUDA events around ``reps`` calls,
+    after a warm-up) and mean host ms a call over the same loop. The loop is
+    queued behind a ~0.1 s sleep on the device, so the events time the
+    calls' device work back to back and the host times its own dispatch,
+    never waiting for the device (keep ``reps`` calls' launches under the
+    launch queue's ~1,000)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def rotating(call, x: torch.Tensor):
+    """``call`` as a function of no arguments that takes the next of enough
+    copies of ``x`` to fill PCG_ROTATE_BYTES each time, and keeps that many
+    of its results alive, so no launch finds its input or output in L2. The
+    results are made once here (one call a copy), so the timed calls take
+    their outputs from the allocator's cache."""
+    copies = [x.clone() for _ in range(max(2, -(-PCG_ROTATE_BYTES // (x.numel() * x.element_size()))))]
+    outs, i = [call(c) for c in copies], [0]
+
+    def step():
+        k = i[0] % len(copies)
+        outs[k] = call(copies[k])
+        i[0] += 1
+
+    return step
+
+
+def phase_pcg(device) -> list:
+    """Phase 46: the PCG sampler's kernels against the plain int64 route at
+    PCG_LANES lanes, bit for bit on the card and against the CPU, timed with
+    their inputs and outputs in device memory (``rotating``)."""
+    from gpupathtracer_tpu_torch.ops import sampling
+
+    pixels = torch.arange(PCG_LANES, device=device)
+    key_data = prng_key_data(1234)
+    keys = PcgSampler.path_keys(key_data, pixels, 3)
+    folded = PcgSampler.fold(keys, 0xA11A)
+    seed, sample = int(keys[0, 0]), 3
+    cases = [("path_keys", lambda p: PcgSampler.path_keys(key_data, p, sample), pixels,
+              lambda: sampling._path_keys_plain(pixels, seed, sample),
+              lambda: PcgSampler.path_keys(key_data, pixels.cpu(), sample), 8 + 32),
+             ("fold", lambda k: PcgSampler.fold(k, 0xA11A), keys, lambda: sampling._fold_plain(keys, 0xA11A),
+              lambda: PcgSampler.fold(keys.cpu(), 0xA11A), 32 + 32)]
+    for n in (1, 2, 3, 4):
+        cases.append((f"uniform n={n}", lambda k, n=n: PcgSampler.uniform(k, n), folded,
+                      partial(sampling._uniform_plain, folded, n), partial(PcgSampler.uniform, folded.cpu(), n),
+                      32 + 4 * n))
+    rows = []
+    for name, kernel, x, plain, cpu, lane_bytes in cases:
+        got, on_card, want = kernel(x), plain(), cpu()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, on_card) and torch.equal(got.cpu(), want)):
+            raise AssertionError(f"pcg {name}: the kernel's output differs from the plain route's")
+        step = rotating(kernel, x)
+        before = PcgSampler.launches
+        ms, host_ms = _device_and_host_ms(step, 200)
+        if PcgSampler.launches - before != 201:
+            raise AssertionError(f"pcg {name}: {PcgSampler.launches - before} launches in 201 calls")
+        plain_ms, plain_host_ms = _device_and_host_ms(plain, 5)
+        b = bound(0, PCG_LANES * lane_bytes)
+        rows.append({"name": f"pcg {name}", "lanes": PCG_LANES, "ms": ms, "host_ms": host_ms,
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+                     "plain_ms": plain_ms, "plain_host_ms": plain_host_ms, "exact": True})
+    print(f"pcg kernels (csrc/pcg.cu) at {PCG_LANES} lanes, bit-equal to the plain route: {json.dumps(rows)}",
+          flush=True)
+    return rows
 
 
 def many_lights_scene(device):
@@ -2228,6 +2353,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    pcg_rows = phase_pcg(device)
     phase_native_build()
 
     elapsed("naive path")
@@ -2470,6 +2596,8 @@ def main() -> None:
     summary.append(kernel_summary(
         "closest_hit_streamed", [k3_modes["done_check"]], k3_modes["launches"],
         {"K3 traversal mode cases": k3_modes["launches"]}, label="closest_hit_streamed (budget, subtiles, fresh)"))
+    summary += [{**r, "route": "cuda", "source": "gpupathtracer_tpu_torch/csrc/pcg.cu", "replaces": None,
+                 "launches_by_path": dict(PCG_LAUNCHES_BY_PATH)} for r in pcg_rows]
     mask_rows = {"closest_hit": k1_mask_row, "occluded": k2_mask_row, "closest_hit_streamed": k3_mask_row,
                  "occluded_streamed": k4_mask_row}
     print(json.dumps({"mask_mode_checks": {k: {f: r[f] for f in ("ms", "max_abs_err", "bound_ms")}

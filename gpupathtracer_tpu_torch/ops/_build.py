@@ -1,13 +1,14 @@
 """Builds and loads the port's CUDA kernel libraries.
 
-Each kernel source in ``csrc/`` (``closest_hit.cu``, ``occlusion.cu``,
-``closest_hit_streamed.cu``, ``occlusion_streamed.cu``; all include
-``stream_stage.cuh``, which includes ``decision.cuh``) has a plain C
+Each kernel source in ``csrc/`` (the searches ``closest_hit.cu``,
+``occlusion.cu``, ``closest_hit_streamed.cu``, ``occlusion_streamed.cu``,
+which all include ``stream_stage.cuh``, which includes ``decision.cuh``; and
+the PCG sampler's ``pcg.cu``, which includes neither) has a plain C
 interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into its own
 shared library in ``gpupathtracer_tpu_torch/build/`` at first use, and the
 library is loaded with ``ctypes``. The file name carries a hash of the
-source, the shared headers and the flags, so an edit rebuilds. Nothing is
-built or loaded when this module is imported.
+source, the shared headers it includes and the flags, so an edit rebuilds.
+Nothing is built or loaded when this module is imported.
 
 The host library ``csrc/firefly_native.cpp`` (the OBJ parser, BVH builder
 and edge-table builder of ``native.py``) is built the same way by the host
@@ -34,23 +35,34 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# Kernel name -> its launch function's argument types: device pointers (w
-# and its bf16 operands w_hi and w_lo among them; K3 also init_t, init_i
-# and done; K1 and K3 last the test counter, null for none), then rt, nb
-# (resident) or rt, nc, bpc (streamed), then tb, ray_tile, groups, rays a
-# thread or m-tiles a warp, the precision, for K3 its traversal modes
-# (modes, budget, subtiles, fresh), then the stream.
-KERNELS = {
-    "closest_hit": [_P] * 10 + [_I] * 7 + [_P],
-    "occlusion": [_P] * 8 + [_I] * 7 + [_P],
-    "closest_hit_streamed": [_P] * 14 + [_I] * 12 + [_P],
-    "occlusion_streamed": [_P] * 9 + [_I] * 8 + [_P],
+_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+# Library name -> its launch functions -> their argument types. A search
+# has one: device pointers (w and its bf16 operands w_hi and w_lo among
+# them; K3 also init_t, init_i and done; K1 and K3 last the test counter,
+# null for none), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
+# ray_tile, groups, rays a thread or m-tiles a warp, the precision, for K3
+# its traversal modes (modes, budget, subtiles, fresh), then the stream.
+# The PCG sampler's ``pcg.cu`` has three: input and output pointers, the
+# lane count, the seed, sample and stream words as unsigned 32-bit ints or
+# the draw's word count, then the stream.
+LAUNCHES = {
+    "closest_hit": {"closest_hit_launch": [_P] * 10 + [_I] * 7 + [_P]},
+    "occlusion": {"occlusion_launch": [_P] * 8 + [_I] * 7 + [_P]},
+    "closest_hit_streamed": {"closest_hit_streamed_launch": [_P] * 14 + [_I] * 12 + [_P]},
+    "occlusion_streamed": {"occlusion_streamed_launch": [_P] * 9 + [_I] * 8 + [_P]},
+    "pcg": {
+        "pcg_path_keys_launch": [_P, _P, _I64, _U32, _U32, _P],
+        "pcg_fold_launch": [_P, _P, _I64, _U32, _P],
+        "pcg_uniform_launch": [_P, _P, _I64, _I, _P],
+    },
 }
-# Every library also exports ``<name>_occupancy``: resident CTAs per SM at
-# a launch shape, -1 if the kernel does not take it. It takes the launch's
-# ray_tile, groups, rays a thread or m-tiles a warp, precision (and for K3
-# modes) ints; here, their count.
+PCG = "pcg"
+# The searches, which include HEADERS, also export ``<name>_occupancy``:
+# resident CTAs per SM at a launch shape, -1 if the kernel does not take it.
+# It takes the launch's ray_tile, groups, rays a thread or m-tiles a warp,
+# precision (and for K3 modes) ints; here, their count. ``pcg.cu`` includes
+# none of HEADERS, so it builds in seconds and an edit to the searches does
+# not rebuild it.
 OCCUPANCY = {"closest_hit": 4, "occlusion": 4, "closest_hit_streamed": 5, "occlusion_streamed": 4}
 
 
@@ -79,13 +91,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [source(name)] + HEADERS:
+    for path in [source(name)] + (HEADERS if name in OCCUPANCY else []):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(names=tuple(KERNELS)) -> dict[str, str]:
+def build(names=tuple(LAUNCHES)) -> dict[str, str]:
     """Compile the named kernel libraries into ``BUILD_DIR``, one ``nvcc``
     per source, all started together. Returns ptxas's resource report
     (registers, shared memory, spills) per name; raises if any build fails."""
@@ -128,15 +140,17 @@ def library(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build((name,))
     lib = ctypes.CDLL(path)
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = KERNELS[name]
-    launch.restype = ctypes.c_int
+    for fn, argtypes in LAUNCHES[name].items():
+        launch = getattr(lib, fn)
+        launch.argtypes = argtypes
+        launch.restype = ctypes.c_int
+    if name in OCCUPANCY:
+        occupancy = getattr(lib, f"{name}_occupancy")
+        occupancy.argtypes = [_I] * OCCUPANCY[name]
+        occupancy.restype = ctypes.c_int
     errstr = getattr(lib, f"{name}_error_string")
     errstr.argtypes = [ctypes.c_int]
     errstr.restype = ctypes.c_char_p
-    occupancy = getattr(lib, f"{name}_occupancy")
-    occupancy.argtypes = [_I] * OCCUPANCY[name]
-    occupancy.restype = ctypes.c_int
     return lib
 
 

@@ -13,6 +13,15 @@ values in [0, 2^32). Every add is masked back to 32 bits, products are
 formed from 16-bit halves so no int64 product overflows, and every shift
 acts on non-negative values, so ``>>`` is a logical shift.
 
+On CUDA tensors ``PcgSampler``'s ``path_keys``, ``fold`` and ``uniform``
+each launch one kernel of ``csrc/pcg.cu``, which computes the same words in
+native uint32 arithmetic, bit for bit, and raise if they cannot; each
+launch is one op of the dispatcher (``firefly_pcg::...``), so the profiler
+sees it inside the caller's spans. ``PcgSampler.launches`` counts those
+launches. On other tensors they run the
+plain int64 version below (``_path_keys_plain``, ``_fold_plain``,
+``_uniform_plain``), which the CPU tests hold against the JAX package.
+
 Every sampler's ``path_keys``, ``fold`` and ``uniform`` runs in a
 ``render.rng`` span (``utils/profiling.py``) while a profiler records.
 """
@@ -25,7 +34,7 @@ import math
 import torch
 
 from gpupathtracer_tpu_torch.core.tensors import clip, maximum
-from gpupathtracer_tpu_torch.ops import threefry
+from gpupathtracer_tpu_torch.ops import _build, threefry
 from gpupathtracer_tpu_torch.ops.threefry import mul32 as _mul32
 from gpupathtracer_tpu_torch.utils.profiling import scope
 
@@ -60,40 +69,144 @@ def prng_key_data(seed: int) -> tuple[int, int]:
     return 0, int(seed) & _M32
 
 
+def _path_keys_plain(pixel_idx: torch.Tensor, seed: int, sample: int) -> torch.Tensor:
+    r = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    return torch.stack(
+        [
+            torch.full((r,), seed, dtype=torch.int64, device=dev),
+            pixel_idx.to(torch.int64) & _M32,
+            torch.full((r,), sample, dtype=torch.int64, device=dev),
+            torch.zeros((r,), dtype=torch.int64, device=dev),
+        ],
+        dim=-1,
+    )
+
+
+def _fold_plain(keys: torch.Tensor, c: int) -> torch.Tensor:
+    stream = (_mul32(keys[..., 3], _GOLDEN) + c) & _M32
+    return torch.cat([keys[..., :3], stream[..., None]], dim=-1)
+
+
+def _uniform_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
+    return _uniform_from_bits(pcg4d(keys)[..., :n])
+
+
+@functools.cache
+def _pcg_launch(name: str):
+    """``csrc/pcg.cu``'s launch function ``pcg_<name>_launch``, built and
+    looked up once."""
+    return getattr(_build.library(_build.PCG), f"pcg_{name}_launch")
+
+
+def _check_kernel_input(x: torch.Tensor, what: str, cols: int | None) -> None:
+    """Raise unless ``x`` is what the kernels take: contiguous int64 pixel ids
+    (R,) (``cols`` None), or contiguous int64 keys (R, cols) that start on a
+    16-byte boundary, which the kernels read as 16-byte vectors."""
+    want = "(R,)" if cols is None else f"(R, {cols})"
+    shape_ok = x.dim() == 1 if cols is None else x.dim() == 2 and x.shape[1] == cols
+    if x.dtype != torch.int64 or not shape_ok:
+        raise ValueError(f"the PCG kernels take {what} as int64 {want}, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"the PCG kernels take contiguous {what}")
+    if cols is not None and x.data_ptr() % 16:
+        raise ValueError(f"the PCG kernels take {what} that start on a 16-byte boundary")
+
+
+def _launch(name: str, x: torch.Tensor, out: torch.Tensor, *words) -> torch.Tensor:
+    """Launch ``pcg_<name>_launch`` over the R lanes of input ``x`` into
+    ``out`` on the current stream of their device; raise if CUDA refused it.
+    Nothing is launched for R = 0."""
+    r = x.shape[0]
+    if r == 0:
+        return out
+    dev = x.device
+    fn = _pcg_launch(name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        err = fn(x.data_ptr(), out.data_ptr(), r, *words, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(x.data_ptr(), out.data_ptr(), r, *words, stream)
+    if err != 0:
+        msg = _build.library(_build.PCG).pcg_error_string(err).decode()
+        raise RuntimeError(f"PCG {name} kernel launch failed: CUDA error {err} ({msg})")
+    PcgSampler.launches += 1
+    return out
+
+
+def _path_keys_launch(pixel_idx: torch.Tensor, seed: int, sample: int) -> torch.Tensor:
+    _check_kernel_input(pixel_idx, "pixel ids", None)
+    out = torch.empty((pixel_idx.shape[0], 4), dtype=torch.int64, device=pixel_idx.device)
+    return _launch("path_keys", pixel_idx, out, seed, sample)
+
+
+def _fold_launch(keys: torch.Tensor, c: int) -> torch.Tensor:
+    _check_kernel_input(keys, "keys", 4)
+    return _launch("fold", keys, torch.empty_like(keys), c)
+
+
+def _uniform_launch(keys: torch.Tensor, n: int) -> torch.Tensor:
+    _check_kernel_input(keys, "keys", 4)
+    out = torch.empty((keys.shape[0], n), dtype=torch.float32, device=keys.device)
+    return _launch("uniform", keys, out, n)
+
+
+# Each launch runs inside an op of the dispatcher (``firefly_pcg::path_keys``,
+# ``::fold``, ``::uniform``, CUDA tensors only): torch.profiler links a
+# kernel to the op that was open when it was launched, and so to the
+# caller's spans, and a bare ctypes call opens none. The op costs a few
+# microseconds of host time a call.
+_OPS = torch.library.Library("firefly_pcg", "DEF")
+for _name, _schema, _impl in (("path_keys", "(Tensor pixel, int seed, int sample)", _path_keys_launch),
+                              ("fold", "(Tensor keys, int c)", _fold_launch),
+                              ("uniform", "(Tensor keys, int n)", _uniform_launch)):
+    _OPS.define(f"{_name}{_schema} -> Tensor")
+    _OPS.impl(_name, _impl, "CUDA")
+del _name, _schema, _impl
+_path_keys_kernel = torch.ops.firefly_pcg.path_keys.default
+_fold_kernel = torch.ops.firefly_pcg.fold.default
+_uniform_kernel = torch.ops.firefly_pcg.uniform.default
+
+
 class PcgSampler:
     """Stateless counter-based sampler: key rows are (seed, pixel, sample,
     stream) uint32 words in int64; every draw is one PCG4D evaluation.
 
     Keys are single-use: fold a fresh stream with ``fold`` before every
-    ``uniform`` call (two calls on one key return the same values)."""
+    ``uniform`` call (two calls on one key return the same values).
+
+    On CUDA tensors each call is one launch of a ``csrc/pcg.cu`` kernel,
+    which takes contiguous int64 pixel ids or (R, 4) keys and raises on
+    anything else; ``launches`` counts them. Other tensors take the plain
+    version."""
+
+    launches = 0
 
     @staticmethod
     def path_keys(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:
         hi, lo = (int(k) & _M32 for k in key_data)
         seed = (lo + (hi * 2654435761 & _M32)) & _M32
-        r = pixel_idx.shape[0]
-        dev = pixel_idx.device
-        return torch.stack(
-            [
-                torch.full((r,), seed, dtype=torch.int64, device=dev),
-                pixel_idx.to(torch.int64) & _M32,
-                torch.full((r,), int(sample_idx) & _M32, dtype=torch.int64, device=dev),
-                torch.zeros((r,), dtype=torch.int64, device=dev),
-            ],
-            dim=-1,
-        )
+        sample = int(sample_idx) & _M32
+        if pixel_idx.device.type == "cuda":
+            return _path_keys_kernel(pixel_idx, seed, sample)
+        return _path_keys_plain(pixel_idx, seed, sample)
 
     @staticmethod
     def fold(keys: torch.Tensor, c: int) -> torch.Tensor:
-        stream = (_mul32(keys[..., 3], _GOLDEN) + (int(c) & _M32)) & _M32
-        return torch.cat([keys[..., :3], stream[..., None]], dim=-1)
+        c = int(c) & _M32
+        if keys.device.type == "cuda":
+            return _fold_kernel(keys, c)
+        return _fold_plain(keys, c)
 
     @staticmethod
     def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
         """n ≤ 4 floats in [0, 1) per lane — one PCG4D evaluation of the key."""
         if not 1 <= n <= 4:
             raise ValueError("one PCG4D draw yields at most 4 words")
-        return _uniform_from_bits(pcg4d(keys)[..., :n])
+        if keys.device.type == "cuda":
+            return _uniform_kernel(keys, n)
+        return _uniform_plain(keys, n)
 
 
 def pixel_sample_key(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:

@@ -930,3 +930,123 @@ def test_streamed_modes_test_counter(device, budget, subtiles, fresh, precision,
     assert torch.equal(_bits(got[0]), _bits(bare[0])) and torch.equal(got[1], bare[1])
     assert torch.equal(got[2], bare[2])
     assert int(tests.item()) == work["lane_blocks"] * 64 > 0
+
+
+@pytest.mark.parametrize("r", [1, 129, 640_000])
+def test_pcg_kernels_equal_plain_route(device, r):
+    """The PCG sampler's kernels (csrc/pcg.cu) against the plain int64
+    version on the same inputs moved to the CPU, bit for bit: path keys with
+    seeds and sample ids near 2^32, folds with the renderer's constants and
+    2^32 - 1, and every draw width; one launch a call."""
+    from gpupathtracer_tpu_torch.ops.sampling import PcgSampler as pcg
+
+    g = torch.Generator().manual_seed(r)
+    pixels = torch.randint(-(2**40), 2**40, (r,), generator=g)
+    pixels[: min(r, 4)] = torch.tensor([0, 2**32 - 1, 2**32, -1])[: min(r, 4)]
+    random_keys = torch.randint(0, 2**32, (r, 4), generator=g, dtype=torch.int64)
+    random_keys[0] = 2**32 - 1
+    keys = [random_keys]
+    for key_data, sample in (((0, 2**32 - 1), 2**32 - 1), ((2**32 - 1, 2**32 - 2), 2**32 - 2), ((0, 1234), 0)):
+        before = pcg.launches
+        got = pcg.path_keys(key_data, pixels.to(device), sample)
+        assert pcg.launches == before + 1
+        want = pcg.path_keys(key_data, pixels, sample)
+        assert torch.equal(got.cpu(), want)
+        keys.append(want)
+    for k in keys:
+        for c in (0, 0xA11A, 0x11EE, 7919, 2**32 - 1):
+            before = pcg.launches
+            folded = pcg.fold(k.to(device), c)
+            assert pcg.launches == before + 1
+            want = pcg.fold(k, c)
+            assert torch.equal(folded.cpu(), want)
+            for n in (1, 2, 3, 4):
+                u = pcg.uniform(folded, n)
+                assert pcg.launches == before + 1 + n
+                assert u.dtype == torch.float32 and u.shape == (r, n)
+                assert torch.equal(_bits(u).cpu(), _bits(pcg.uniform(want, n)))
+
+
+def test_pcg_kernels_reject_what_they_do_not_take(device):
+    """Keys that are not contiguous int64 (R, 4), and pixel ids that are not
+    int64, raise on the card and launch nothing."""
+    from gpupathtracer_tpu_torch.ops.sampling import PcgSampler as pcg
+
+    keys = pcg.path_keys((0, 7), torch.arange(64, device=device), 1)
+    before = pcg.launches
+    bad = [torch.cat([keys, keys], dim=1)[:, :4], keys.t().contiguous().t(), keys.to(torch.int32),
+           keys[:, :3].contiguous(), keys.reshape(32, 8)]
+    for k in bad:
+        with pytest.raises(ValueError):
+            pcg.fold(k, 1)
+        with pytest.raises(ValueError):
+            pcg.uniform(k, 2)
+    with pytest.raises(ValueError):
+        pcg.path_keys((0, 7), torch.arange(64, device=device, dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        pcg.uniform(keys, 5)
+    assert pcg.launches == before
+
+
+def test_pcg_path_keys_take_unaligned_pixel_ids(device):
+    """Pixel ids are read one int64 at a time, so a contiguous slice that
+    starts off a 16-byte boundary is taken, and gives the plain route's keys."""
+    from gpupathtracer_tpu_torch.ops.sampling import PcgSampler as pcg
+
+    pixels = torch.arange(2**32 - 40, 2**32 + 25, device=device)[1:]
+    assert pixels.data_ptr() % 16 == 8
+    got = pcg.path_keys((0, 99), pixels, 5)
+    assert torch.equal(got.cpu(), pcg.path_keys((0, 99), pixels.cpu(), 5))
+
+
+def test_pcg_kernels_seen_inside_the_callers_span(device):
+    """Under torch.profiler each PCG kernel is linked to its dispatcher op
+    (``firefly_pcg::...``), which runs inside the caller's record_function
+    span: what a span's device time is summed from."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gpupathtracer_tpu_torch.ops.sampling import PcgSampler as pcg
+
+    pixels = torch.arange(4096, device=device)
+    pcg.uniform(pcg.fold(pcg.path_keys((0, 3), pixels, 1), 7), 3)  # the build and the first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("render.rng"):
+            pcg.uniform(pcg.fold(pcg.path_keys((0, 3), pixels, 1), 7), 3)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    span = next(e for e in events if e.name() == "render.rng" and e.device_type() == DeviceType.CPU)
+    ops = {e.correlation_id(): e for e in events
+           if e.device_type() == DeviceType.CPU and e.name().startswith("firefly_pcg::")}
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA and "pcg_" in e.name()]
+    assert sorted(e.name() for e in ops.values()) == ["firefly_pcg::fold", "firefly_pcg::path_keys",
+                                                      "firefly_pcg::uniform"]
+    assert len(kernels) == 3
+    for k in kernels:
+        op = ops[k.linked_correlation_id()]
+        assert op.name().removeprefix("firefly_pcg::") in k.name()
+        assert span.start_ns() <= op.start_ns() <= span.start_ns() + span.duration_ns()
+
+
+def test_pcg_kernels_frame_equals_plain_route(device, monkeypatch):
+    """A config 3 naive frame (64x64, spp 4, 4 bounces) is the same to the
+    bit with the sampler's plain int64 route patched in, and the kernel
+    route made 4 x (1 + 2 + 4 x 2) = 44 launches: the path keys, the
+    jitter's fold and draw, and each bounce's fold and draw."""
+    from gpupathtracer_tpu_torch.ops import sampling
+
+    scene, camera, settings = load_scene_file(SCENE, device=device)
+    camera = dataclasses.replace(camera, width=64, height=64)
+    settings = dataclasses.replace(settings, width=64, height=64, spp=4)
+    assert settings.bounces == 4 and settings.rng == "pcg"
+    before = sampling.PcgSampler.launches
+    got = render_frame(scene, camera, settings)
+    assert sampling.PcgSampler.launches == before + 44
+    for name in ("path_keys", "fold", "uniform"):
+        monkeypatch.setattr(sampling, f"_{name}_kernel", getattr(sampling, f"_{name}_plain"))
+    want = render_frame(scene, camera, settings)
+    torch.cuda.synchronize()
+    assert sampling.PcgSampler.launches == before + 44
+    assert torch.isfinite(got).all() and got.abs().sum() > 0
+    assert torch.equal(_bits(got), _bits(want))

@@ -45,6 +45,27 @@ def test_path_keys_fold_uniform_bit_equal(seed):
                 )
 
 
+@pytest.mark.parametrize("name", ["path_keys", "fold", "uniform"])
+def test_pcg_kernel_ops_take_card_tensors_only(name):
+    """Each PCG kernel launch is a dispatcher op with a CUDA kernel alone, so
+    the profiler links its launch to the caller's span; CPU tensors never
+    reach it."""
+    op = f"firefly_pcg::{name}"
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(op, "CUDA")
+    assert not torch._C._dispatch_has_kernel_for_dispatch_key(op, "CPU")
+    assert getattr(ts, f"_{name}_kernel") is getattr(torch.ops.firefly_pcg, name).default
+
+
+def test_pcg_calls_on_cpu_tensors_launch_nothing():
+    """CPU tensors take the plain version: no kernel is launched or built."""
+    before = ts.PcgSampler.launches
+    keys = ts.path_keys(1234, torch.arange(300), 3)
+    for c in (0, 0xA11A, 2**32 - 1):
+        for n in (1, 2, 3, 4):
+            assert ts.PcgSampler.uniform(ts.PcgSampler.fold(keys, c), n).shape == (300, n)
+    assert ts.PcgSampler.launches == before
+
+
 def test_uniform_rejects_more_than_four():
     with pytest.raises(ValueError):
         ts.PcgSampler.uniform(torch.zeros((1, 4), dtype=torch.int64), 5)

@@ -138,7 +138,7 @@ def build_variant(name: str, libs, patches) -> dict:
             mma = {e: u for e, u in cs.ptxas_usage(proc.stderr).items() if "_mma_kernel" in e}
             print(f"variant {name} {lib}: {json.dumps(mma)}", flush=True)
             loaded = ctypes.CDLL(so)
-            getattr(loaded, f"{lib}_launch").argtypes = _build.KERNELS[lib]
+            getattr(loaded, f"{lib}_launch").argtypes = _build.LAUNCHES[lib][f"{lib}_launch"]
             getattr(loaded, f"{lib}_error_string").restype = ctypes.c_char_p
             loaded_libs[lib] = loaded
         return loaded_libs

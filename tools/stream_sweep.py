@@ -170,7 +170,7 @@ def two_stage_libraries(names) -> dict:
             subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, os.path.join(out, "csrc", f"{name}.cu")],
                            check=True)
             lib = ctypes.CDLL(so)
-            getattr(lib, f"{name}_launch").argtypes = _build.KERNELS[name]
+            getattr(lib, f"{name}_launch").argtypes = _build.LAUNCHES[name][f"{name}_launch"]
             getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
             libs[name] = lib
         return libs
