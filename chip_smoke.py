@@ -447,18 +447,20 @@ def phase_build() -> None:
                 occ = packed_intersect.launch_occupancy(name, ray_tile, precision, modes)
                 # The entries are templates on rays a thread (K1 and K3 at
                 # highest), the precision and m-tiles a warp (the four
-                # tensor-core kernels at the bf16 modes) and K3's modes and
-                # test count: <rpt>, <p, mt>, <rpt, modes, count> and
-                # <p, mt, modes, count> in their mangled names, K3's
-                # untraced instantiation (count false) here; K2's and K4's
-                # "highest" kernels are no templates (the name's end, then
-                # the parameters).
+                # tensor-core kernels at the bf16 modes), K3's modes and
+                # K3's and K4's test count: <rpt>, <p, mt>,
+                # <rpt, modes, count>, <p, mt, modes, count>, <count> and
+                # <p, mt, count> in their mangled names, the untraced
+                # instantiations (count false) here; K2's "highest" kernel
+                # is no template (the name's end, then the parameters).
                 p = packed_intersect.PRECISIONS.index(precision)
-                modes_arg = f"Lb{int(modes)}ELb0E" if name == "closest_hit_streamed" else ""
+                modes_arg = {"closest_hit_streamed": f"Lb{int(modes)}ELb0E", "occlusion_streamed": "Lb0E"}.get(name, "")
                 if occ["route"] == "mma":
                     entry = f"{name}_mma_kernelILi{p}ELi{occ['m_tiles_per_warp']}E{modes_arg}E"
                 elif name.startswith("closest_hit"):
                     entry = f"{name}_kernelILi{occ['rays_per_thread']}E{modes_arg}E"
+                elif modes_arg:
+                    entry = f"{name}_kernelI{modes_arg}E"
                 else:
                     entry = f"{len(name) + 7}{name}_kernelEP"
                 occ["modes"] = modes

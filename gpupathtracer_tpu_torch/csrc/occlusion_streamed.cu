@@ -13,6 +13,12 @@
 //   w_hi, w_lo bf16 (nc*bpc, 5, tb, 8) the bf16 modes' operands, as in
 //             closest_hit_streamed.cu; HIGHEST reads w only, MIXED also
 //             w's D|num rows
+//   tests     int64 (1) or null: the (open lane, triangle column) tests of
+//             the blocks tested, added once a CTA (add_tests in
+//             stream_stage.cuh): for each tested block, the tile's lanes
+//             still open at its start (unoccluded, maxt > 0) x tb, as the
+//             plain version's count_work counts them (lane_blocks x tb); a
+//             lane occluded inside a block counts the block's tb columns
 // Output: occ int32 (rt*TR), 1 where some accepted hit has t < maxt.
 //
 // Semantics, as the TPU kernel, at each of its precisions: flags start at 0 and the tile's bound at
@@ -50,8 +56,15 @@
 // blocks chunk after chunk, so the longest tiles set the time. Small CTAs
 // (2 groups of 64 threads), more of them per SM, beat wide ones.
 //
-// The bf16 modes (occlusion_streamed_mma_kernel<P, MT>) take the tensor-core
-// route of stream_stage.cuh, as closest_hit_streamed.cu's do: `groups`
+// A lane's flag at a block's first chunk is the OR of every find before the
+// block (the ring's barrier sits between two chunks), which is the plain
+// version's flag before that block: so the count equals its count_work
+// wherever the flags agree. COUNT = true (a non-null counter, traced frames
+// only) adds the count; the instantiations without it, an untraced frame's,
+// have neither its code nor its registers.
+//
+// The bf16 modes (occlusion_streamed_mma_kernel<P, MT, COUNT>) take the
+// tensor-core route of stream_stage.cuh, as closest_hit_streamed.cu's do: `groups`
 // column groups of ray_tile / (16 MT) warps, each warp MT m-tiles of 16 rays
 // with their bf16 A fragments in registers, group g taking n-tiles g,
 // g + groups, ... of every chunk (mma_chunk_any: 15 mma.sync m16n8k8 per
@@ -75,11 +88,13 @@ namespace {
 using namespace stream;
 
 // HIGHEST (the bf16 modes take the tensor-core kernel below).
+template <bool COUNT>
 __global__ void __launch_bounds__(1024)
     occlusion_streamed_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                               const float* __restrict__ enter_blk, const float* __restrict__ feats,
                               const float* __restrict__ maxt, const float* __restrict__ w, int* __restrict__ occ_out,
-                              int nc, int bpc, int tb, int ray_tile, int groups) {
+                              unsigned long long* __restrict__ tests, int nc, int bpc, int tb, int ray_tile,
+                              int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   int* occ_shared = reinterpret_cast<int*>(smem + STAGES * STAGE_FLOAT4);  // (ray_tile,)
@@ -99,6 +114,7 @@ __global__ void __launch_bounds__(1024)
   if (g == 0) flag.store(0, cuda::std::memory_order_relaxed);
   __syncthreads();
   int occ = 0;
+  int blocks = 0;  // COUNT: blocks tested while the lane was open (group 0 owns the tile's rays)
   float bound = INFINITY;
 
   const int* tile_order = order + (size_t)tile * nc;
@@ -111,8 +127,9 @@ __global__ void __launch_bounds__(1024)
     const int c = tile_order[j];
     if (c < 0 || c >= nc) break;  // culled sentinel; unreachable while enter is +inf there
     stream_cluster(ring, w + (size_t)c * bpc * K * NS * tb, tile_enter_blk + (size_t)c * bpc, bpc, tb, bound,
-                   [&](const float4* stage, int, int, int cw4) {
+                   [&](const float4* stage, int, int c0, int cw4) {
                      occ |= flag.load(cuda::std::memory_order_relaxed);  // the other groups' finds so far
+                     if constexpr (COUNT) blocks += g == 0 && c0 == 0 && !occ && mt > 0.0f;
                      if (occ || !(mt > 0.0f)) return;
                      for (int q = g; q < cw4; q += groups) {
                        float acc[1][NS][4];
@@ -136,6 +153,7 @@ __global__ void __launch_bounds__(1024)
     bound = decision::cta_max(occ ? -INFINITY : mt, warp_max, &tile_bound);
   }
   if (g == 0) occ_out[ray] = occ;
+  if constexpr (COUNT) add_tests(tests, blocks, tb);
 }
 
 // The tensor-core kernel's launch bound: 512 threads at one m-tile a warp
@@ -147,14 +165,16 @@ constexpr int mma_max_threads() {
   return MT == 1 ? 512 : 1024;
 }
 
-// The bf16 modes on the tensor cores (see the header).
-template <int P, int MT>
+// The bf16 modes on the tensor cores (see the header), with and without
+// the count (COUNT, as the kernel above).
+template <int P, int MT, bool COUNT>
 __global__ void __launch_bounds__(mma_max_threads<MT>())
     occlusion_streamed_mma_kernel(const int* __restrict__ order, const float* __restrict__ enter,
                                   const float* __restrict__ enter_blk, const float* __restrict__ feats,
                                   const float* __restrict__ maxt, const float* __restrict__ w,
                                   const __nv_bfloat16* __restrict__ w_hi, const __nv_bfloat16* __restrict__ w_lo,
-                                  int* __restrict__ occ_out, int nc, int bpc, int tb, int ray_tile, int groups) {
+                                  int* __restrict__ occ_out, unsigned long long* __restrict__ tests, int nc, int bpc,
+                                  int tb, int ray_tile, int groups) {
   extern __shared__ float4 smem[];
   float4* ring = smem;
   int* occ_shared = reinterpret_cast<int*>(smem + STAGES * mma_stage_float4<P>());  // (ray_tile,)
@@ -188,6 +208,10 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
   for (int i = threadIdx.x; i < ray_tile; i += blockDim.x) flag(i).store(0, cuda::std::memory_order_relaxed);
   __syncthreads();
   float bound = INFINITY;
+  // COUNT: blocks tested while each of the thread's rays was open (group 0,
+  // a quad's first thread, owns the rays).
+  int blocks = 0;
+  const bool owner = g == 0 && (lane & 3) == 0;
 
   const int* tile_order = order + (size_t)tile * nc;
   const float* tile_enter = enter + (size_t)tile * nc;
@@ -200,12 +224,13 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
     if (c < 0 || c >= nc) break;  // culled sentinel; unreachable while enter is +inf there
     walk_cluster<mma_stage_float4<P>()>(
         ring, [&](float4* stage, int b, int c0) { fetch_chunk_mma<P>(stage, w, w_hi, w_lo, c * bpc + b, tb, c0); },
-        tile_enter_blk + (size_t)c * bpc, bpc, tb, bound, [&](const float4* stage, int, int, int cw4) {
+        tile_enter_blk + (size_t)c * bpc, bpc, tb, bound, [&](const float4* stage, int, int c0, int cw4) {
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {  // the other groups' finds so far
               occ[m][h] |= flag(lane_of[m][h]).load(cuda::std::memory_order_relaxed) != 0;
+              if constexpr (COUNT) blocks += owner && c0 == 0 && !occ[m][h] && mt[m][h] > 0.0f;
             }
           }
           mma_chunk_any<P, MT>(a, stage, g, groups, 4 * cw4, lane, mt, occ);
@@ -240,6 +265,7 @@ __global__ void __launch_bounds__(mma_max_threads<MT>())
       for (int h = 0; h < 2; ++h) occ_out[tile * ray_tile + lane_of[m][h]] = occ[m][h];
     }
   }
+  if constexpr (COUNT) add_tests(tests, blocks, tb);
 }
 
 template <int P>
@@ -247,19 +273,20 @@ size_t smem_bytes(int ray_tile) {
   return (P == HIGHEST ? RING_BYTES : mma_ring_bytes<P>()) + (size_t)ray_tile * sizeof(int);
 }
 
-// f(kernel, threads) for the kernel at precision P: at HIGHEST the FMA
-// kernel (per = 1 ray a thread), at the bf16 modes the tensor-core kernel of
-// per m-tiles a warp (1 or 2); `invalid` for a shape it does not take.
-template <int P, typename F>
+// f(kernel, threads) for the kernel at precision P, with or without the
+// count: at HIGHEST the FMA kernel (per = 1 ray a thread), at the bf16 modes
+// the tensor-core kernel of per m-tiles a warp (1 or 2); `invalid` for a
+// shape it does not take.
+template <int P, bool COUNT, typename F>
 int with_kernel(int ray_tile, int groups, int per, int invalid, F&& f) {
   if constexpr (P == HIGHEST) {
     if (per == 1 && ring_threads<1>(ray_tile, groups, 1024))
-      return f(occlusion_streamed_kernel, ring_threads<1>(ray_tile, groups, 1024));
+      return f(occlusion_streamed_kernel<COUNT>, ring_threads<1>(ray_tile, groups, 1024));
   } else {
     if (per == 1 && mma_threads<1>(ray_tile, groups, mma_max_threads<1>()))
-      return f(occlusion_streamed_mma_kernel<P, 1>, mma_threads<1>(ray_tile, groups, mma_max_threads<1>()));
+      return f(occlusion_streamed_mma_kernel<P, 1, COUNT>, mma_threads<1>(ray_tile, groups, mma_max_threads<1>()));
     if (per == 2 && mma_threads<2>(ray_tile, groups, mma_max_threads<2>()))
-      return f(occlusion_streamed_mma_kernel<P, 2>, mma_threads<2>(ray_tile, groups, mma_max_threads<2>()));
+      return f(occlusion_streamed_mma_kernel<P, 2, COUNT>, mma_threads<2>(ray_tile, groups, mma_max_threads<2>()));
   }
   return invalid;
 }
@@ -275,24 +302,27 @@ extern "C" {
 // at the bf16 modes `groups` column groups of ray_tile / (16 per) warps,
 // per = m-tiles of 16 rays a warp (1 or 2), with at most 512 (1) or 1024 (2)
 // threads. Anything else returns cudaErrorInvalidValue. w_hi and w_lo are
-// read only at the bf16 modes. The caller checks shapes, types, alignment
-// (tb % 4 == 0; w, w_hi and w_lo on a 16-byte boundary) and ray_tile.
+// read only at the bf16 modes. `tests` (null: no count) takes the tests of
+// the blocks tested (see the header). The caller checks shapes, types,
+// alignment (tb % 4 == 0; w, w_hi and w_lo on a 16-byte boundary) and
+// ray_tile.
 int occlusion_streamed_launch(const void* order, const void* enter, const void* enter_blk, const void* feats,
-                              const void* maxt, const void* w, const void* w_hi, const void* w_lo, void* occ, int rt,
-                              int nc, int bpc, int tb, int ray_tile, int groups, int per, int precision,
-                              void* stream) {
+                              const void* maxt, const void* w, const void* w_hi, const void* w_lo, void* occ,
+                              void* tests, int rt, int nc, int bpc, int tb, int ray_tile, int groups, int per,
+                              int precision, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   return with_precision(precision, invalid, [&](auto p) {
     constexpr int P = decltype(p)::value;
-    return with_kernel<P>(ray_tile, groups, per, invalid, [&](auto kernel, int threads) {
+    auto launch = [&](auto kernel, int threads) {
       // The triangle operands: w of the FMA kernel (HIGHEST), w, w_hi and
       // w_lo of the tensor-core one.
       auto with_operands = [&](auto... operands) {
         return launch_ring(kernel, rt, threads, smem_bytes<P>(ray_tile), s, static_cast<const int*>(order),
                            static_cast<const float*>(enter), static_cast<const float*>(enter_blk),
                            static_cast<const float*>(feats), static_cast<const float*>(maxt), operands...,
-                           static_cast<int*>(occ), nc, bpc, tb, ray_tile, groups);
+                           static_cast<int*>(occ), static_cast<unsigned long long*>(tests), nc, bpc, tb, ray_tile,
+                           groups);
       };
       const auto wf = static_cast<const float*>(w);
       if constexpr (P == HIGHEST) {
@@ -300,16 +330,19 @@ int occlusion_streamed_launch(const void* order, const void* enter, const void* 
       } else {
         return with_operands(wf, static_cast<const __nv_bfloat16*>(w_hi), static_cast<const __nv_bfloat16*>(w_lo));
       }
-    });
+    };
+    return tests ? with_kernel<P, true>(ray_tile, groups, per, invalid, launch)
+                 : with_kernel<P, false>(ray_tile, groups, per, invalid, launch);
   });
 }
 
 // CTAs resident per SM at the launch shape of these arguments (as
-// occlusion_streamed_launch takes them), or -1 if it is not one.
+// occlusion_streamed_launch takes them; without the count), or -1 if it is
+// not one.
 int occlusion_streamed_occupancy(int ray_tile, int groups, int per, int precision) {
   return with_precision(precision, -1, [&](auto p) {
     constexpr int P = decltype(p)::value;
-    return with_kernel<P>(ray_tile, groups, per, -1, [&](auto kernel, int threads) {
+    return with_kernel<P, false>(ray_tile, groups, per, -1, [&](auto kernel, int threads) {
       return ring_occupancy(kernel, threads, smem_bytes<P>(ray_tile));
     });
   });

@@ -38,8 +38,8 @@ NVCC_FLAGS = [
 _P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
 # Library name -> its launch functions -> their argument types. A search
 # has one: device pointers (w and its bf16 operands w_hi and w_lo among
-# them; K3 also init_t, init_i and done; K1 and K3 last the test counter,
-# null for none), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
+# them; K3 also init_t, init_i and done; K1, K3 and K4 last the test
+# counter, null for none), then rt, nb (resident) or rt, nc, bpc (streamed), then tb,
 # ray_tile, groups, rays a thread or m-tiles a warp, the precision, for K3
 # its traversal modes (modes, budget, subtiles, fresh), then the stream.
 # The PCG sampler's ``pcg.cu`` has three: input and output pointers, the
@@ -49,7 +49,7 @@ LAUNCHES = {
     "closest_hit": {"closest_hit_launch": [_P] * 10 + [_I] * 7 + [_P]},
     "occlusion": {"occlusion_launch": [_P] * 8 + [_I] * 7 + [_P]},
     "closest_hit_streamed": {"closest_hit_streamed_launch": [_P] * 14 + [_I] * 12 + [_P]},
-    "occlusion_streamed": {"occlusion_streamed_launch": [_P] * 9 + [_I] * 8 + [_P]},
+    "occlusion_streamed": {"occlusion_streamed_launch": [_P] * 10 + [_I] * 8 + [_P]},
     "pcg": {
         "pcg_path_keys_launch": [_P, _P, _I64, _U32, _U32, _P],
         "pcg_fold_launch": [_P, _P, _I64, _U32, _P],

@@ -39,12 +39,14 @@ with a per-lane ``done`` flag, and the straggler regroup in
 ``intersect_packed`` that resumes the undone lanes in fresh tiles. They
 change the work, never the hits.
 
-The closest-hit searches take a test counter, ``tests`` (an int64 tensor
-of one element, or None): they add to it the (live lane, triangle column)
-tests they compute, the kernels on the device and the plain versions from
-their ``count_work`` count. ``intersect_packed`` passes the traced frame's
-(``utils.profiling.frame_tests``) and opens the ``render.schedule`` and
-``render.search.*`` spans.
+The closest-hit searches and the streamed any-hit search take a test
+counter, ``tests`` (an int64 tensor of one element, or None): they add to
+it the (live lane, triangle column) tests they compute, the kernels on the
+device and the plain versions from their ``count_work`` count.
+``intersect_packed`` passes the traced frame's closest-hit counter
+(``utils.profiling.frame_tests``), ``intersect_packed_occluded`` on the
+streamed route its any-hit counter (``frame_anyhit_tests``); both open the
+``render.schedule`` and ``render.search.*`` spans.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
 from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
-from gpupathtracer_tpu_torch.utils.profiling import frame_tests, scope
+from gpupathtracer_tpu_torch.utils.profiling import frame_anyhit_tests, frame_tests, scope
 
 DEFAULT_RAY_TILE = 128
 INF = float("inf")
@@ -1010,11 +1012,14 @@ def occluded_reference(
 
 
 def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE,
-                      precision: str = "highest"):
+                      precision: str = "highest", tests=None):
     """Any-hit search of every ray tile along its cluster schedule (the
     streamed route): int32 flags as ``occluded`` gives them, with the
     schedule inputs of ``closest_hit_streamed`` and the decision product at
-    ``precision``.
+    ``precision``. ``tests`` (int64 (1,) on the rays' device, or None)
+    takes the (open lane, triangle column) tests of the blocks tested: for
+    each tested (tile, block), the tile's lanes still open at its start
+    (unoccluded, maxt > 0) x tb, the plain version's ``lane_blocks`` x tb.
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/occlusion_streamed.cu``, at ``launch_shape``) and raises
@@ -1025,13 +1030,15 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     """
     precision = resolve_precision(precision)
     _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt", enter_blk=enter_blk)
+    _check_tests(tests, feats)
     dev = _kernel_device(feats, "occluded_streamed")
     if dev is None:
-        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile, precision=precision)
+        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile, precision=precision,
+                                           tests=tests)
     occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
     _launch(
         "occluded_streamed", "occlusion_streamed", dev,
-        (order, enter, enter_blk, feats, maxt, *_kernel_operands(w, precision), occ), w,
+        (order, enter, enter_blk, feats, maxt, *_kernel_operands(w, precision), occ, tests), w,
         (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
     )
     occluded_streamed.launches += 1
@@ -1043,7 +1050,7 @@ occluded_streamed.launches = 0
 
 def occluded_streamed_reference(
     order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE, count_work: bool = False,
-    precision: str = "highest",
+    precision: str = "highest", tests=None,
 ):
     """Plain PyTorch version of ``occluded_streamed``, as the TPU kernel
     ``_kernel_occlusion_streamed`` runs: flags start at 0 and the tile's
@@ -1056,7 +1063,8 @@ def occluded_streamed_reference(
 
     ``count_work=True`` also returns ``{"blocks": tested (tile, block)
     pairs, "lane_blocks": the sum over them of the tile's lanes that still
-    need testing (unoccluded, maxt > 0)}``."""
+    need testing (unoccluded, maxt > 0)}``; ``tests`` takes ``lane_blocks``
+    x tb."""
     _check_f32_matmul(feats, "occluded_streamed_reference")
     precision = resolve_precision(precision)
     nb, _, five_tb = w.shape
@@ -1071,6 +1079,7 @@ def occluded_streamed_reference(
     bound = torch.full((rt,), INF, dtype=torch.float32, device=dev)
     running = torch.ones((rt,), dtype=torch.bool, device=dev)
     per_call = max(1, _REFERENCE_PAIRS // (ray_tile * five_tb))
+    counting = count_work or tests is not None
     blocks = lane_blocks = 0
     for j in range(nc):
         running &= enter[:, j] < bound
@@ -1084,13 +1093,15 @@ def occluded_streamed_reference(
         for b in range(bpc):
             go = enter_blk[tiles, first + b] < start
             ti, blk = tiles[go], first[go] + b
-            if count_work:
+            if counting:
                 blocks += ti.numel()
                 lane_blocks += int((~occ[ti] & (mt[ti] > 0)).sum())
             for c0 in range(0, ti.numel(), per_call):
                 tc = ti[c0 : c0 + per_call]
                 occ[tc] |= _blocked(ft[tc], mt[tc], w, blk[c0 : c0 + per_call], tb, precision)
         bound[tiles] = torch.where(occ[tiles], -INF, mt[tiles]).amax(dim=1)
+    if tests is not None:
+        tests += lane_blocks * tb
     out = occ.reshape(-1).to(torch.int32)
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
 
@@ -1272,9 +1283,12 @@ def intersect_packed_occluded(
     some accepted hit has t in (EPSILON, ``max_t``). ``max_t = 0`` marks
     lanes that need no test; they report False. The route, the ray tile,
     ``plain`` and ``precision`` as in ``intersect_packed``; the rays and
-    cutoffs are detached."""
+    cutoffs are detached. On the streamed route a traced frame's any-hit
+    counter (``utils.profiling.frame_anyhit_tests``) takes the tests of the
+    blocks tested; the resident route counts none."""
     o, d, max_t = o.detach(), d.detach(), max_t.detach()
     precision = resolve_precision(precision)
+    count = {}
     if is_resident(packed):
         search = occluded_reference if plain else occluded
         with scope("render.schedule"):
@@ -1282,10 +1296,11 @@ def intersect_packed_occluded(
     else:
         search = occluded_streamed_reference if plain else occluded_streamed
         ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
+        count["tests"] = frame_anyhit_tests()
         with scope("render.schedule"):
             inputs = prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile)
     with scope("render.search.any"):
-        return search(*inputs, ray_tile, precision=precision)[: o.shape[0]] > 0
+        return search(*inputs, ray_tile, precision=precision, **count)[: o.shape[0]] > 0
 
 
 def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir", precision: str | None = None):

@@ -426,44 +426,45 @@ def make_bounce_fn(
         u = sampler.uniform(kb, 3)
 
         if nee:
-            # Next-event estimation: a point on an emitter, picked by area,
-            # and a shadow ray to it; adds
-            # throughput · (albedo/π) · Le · cosθ_x·cosθ_y / r² · A_total.
-            ul = sampler.uniform(sampler.fold(kb, 0x11EE), 3)
-            pick = torch.searchsorted(light_cdf, ul[:, 0] * total_light_area, right=True)
-            pick = torch.clamp(pick, 0, scene.num_triangles - 1)
-            su = torch.sqrt(ul[:, 1])
-            b1 = su * (1.0 - ul[:, 2])
-            b2 = su * ul[:, 2]
-            rows = lambda x: x.index_select(0, pick)
-            y = rows(scene.v0) + b1[:, None] * rows(scene.e1) + b2[:, None] * rows(scene.e2)
-            # Missed lanes' resolved points are meaningless and may be huge.
-            x = torch.where(found[:, None], attrs.point, o)
-            wi_raw = y - x
-            dist2 = maximum((wi_raw * wi_raw).sum(dim=-1), 1e-12)
-            dist = torch.sqrt(dist2)
-            wi = wi_raw / dist[:, None]
-            cos_x = (n_shade * wi).sum(dim=-1)
-            cos_y = absolute((rows(scene.gn) * wi).sum(dim=-1))  # two-sided lights
-            # Visible iff nothing lies before the sampled point; the relative
-            # epsilon keeps the light triangle out of its own shadow test.
-            # Visibility is discrete: the shadow ray and its cutoff carry no
-            # gradient (the JAX package detaches the same three).
-            cutoff = dist.detach() * (1.0 - 1e-3)
-            shadow_o = (x + RAY_OFFSET * n_shade).detach()
-            lit = ~masked_occluded(shadow_o, wi.detach(), cutoff, found & is_diffuse)
-            light_mat = scene.mat_id[pick]
-            m = scene.materials
-            le_y = m.emissive_color.index_select(0, light_mat) * m.intensity.index_select(0, light_mat)[:, None]
-            geom = maximum(cos_x, 0.0) * cos_y / dist2 * total_light_area
-            contrib = throughput * (albedo / math.pi) * le_y * geom[:, None]
-            if mis:
-                # Balance heuristic against the cosine BSDF sampler.
-                pdf_light = dist2 / maximum(cos_y * total_light_area, 1e-12)
-                pdf_bsdf = maximum(cos_x, 0.0) / math.pi
-                contrib = contrib * (pdf_light / maximum(pdf_light + pdf_bsdf, 1e-12))[:, None]
-            use = found & is_diffuse & lit & (total_light_area > 0)
-            radiance = radiance + torch.where(use[:, None], contrib, 0.0)
+            with scope("render.nee"):
+                # Next-event estimation: a point on an emitter, picked by area,
+                # and a shadow ray to it; adds
+                # throughput · (albedo/π) · Le · cosθ_x·cosθ_y / r² · A_total.
+                ul = sampler.uniform(sampler.fold(kb, 0x11EE), 3)
+                pick = torch.searchsorted(light_cdf, ul[:, 0] * total_light_area, right=True)
+                pick = torch.clamp(pick, 0, scene.num_triangles - 1)
+                su = torch.sqrt(ul[:, 1])
+                b1 = su * (1.0 - ul[:, 2])
+                b2 = su * ul[:, 2]
+                rows = lambda x: x.index_select(0, pick)
+                y = rows(scene.v0) + b1[:, None] * rows(scene.e1) + b2[:, None] * rows(scene.e2)
+                # Missed lanes' resolved points are meaningless and may be huge.
+                x = torch.where(found[:, None], attrs.point, o)
+                wi_raw = y - x
+                dist2 = maximum((wi_raw * wi_raw).sum(dim=-1), 1e-12)
+                dist = torch.sqrt(dist2)
+                wi = wi_raw / dist[:, None]
+                cos_x = (n_shade * wi).sum(dim=-1)
+                cos_y = absolute((rows(scene.gn) * wi).sum(dim=-1))  # two-sided lights
+                # Visible iff nothing lies before the sampled point; the relative
+                # epsilon keeps the light triangle out of its own shadow test.
+                # Visibility is discrete: the shadow ray and its cutoff carry no
+                # gradient (the JAX package detaches the same three).
+                cutoff = dist.detach() * (1.0 - 1e-3)
+                shadow_o = (x + RAY_OFFSET * n_shade).detach()
+                lit = ~masked_occluded(shadow_o, wi.detach(), cutoff, found & is_diffuse)
+                light_mat = scene.mat_id[pick]
+                m = scene.materials
+                le_y = m.emissive_color.index_select(0, light_mat) * m.intensity.index_select(0, light_mat)[:, None]
+                geom = maximum(cos_x, 0.0) * cos_y / dist2 * total_light_area
+                contrib = throughput * (albedo / math.pi) * le_y * geom[:, None]
+                if mis:
+                    # Balance heuristic against the cosine BSDF sampler.
+                    pdf_light = dist2 / maximum(cos_y * total_light_area, 1e-12)
+                    pdf_bsdf = maximum(cos_x, 0.0) / math.pi
+                    contrib = contrib * (pdf_light / maximum(pdf_light + pdf_bsdf, 1e-12))[:, None]
+                use = found & is_diffuse & lit & (total_light_area > 0)
+                radiance = radiance + torch.where(use[:, None], contrib, 0.0)
 
         # The scatter selects, innermost first over the present types; each
         # type overrides its own lanes, and lanes that do not scatter keep

@@ -9,6 +9,8 @@ Counterpart of ``gpupathtracer_tpu/utils/profiling.py``:
   annotation on the profiler's own clock, with ``args`` (ints) as its
   recorded inputs.
 - ``frame(seed, device)``: what ``render_frame`` records of each frame.
+- ``frame_tests()``, ``frame_anyhit_tests()``: the traced frame's two
+  test counters, which the searches add to;
 - ``frame_records()``: those records, the one place that reads the frames'
   counters back.
 - ``force(x)``: waits for ``x`` by reading one of its values.
@@ -35,14 +37,19 @@ the one it names; a span's device time includes its children's):
   hits they give;
 - ``render.search.any``: the any-hit launch;
 - ``render.shade``: hit attributes, materials, emission, next-event
-  estimation (its shadow rays' spans inside), scatter and roulette, in a
-  bounce;
+  estimation, scatter and roulette, in a bounce;
+- ``render.nee``: next-event estimation, in ``render.shade``: the light
+  pick, the shadow ray and its search (the compaction, schedule and search
+  spans of the shadow rays inside);
 - ``render.rng``: a path sampler's key, fold or uniform draw, in a frame or
   in ``render.shade``.
 
-A traced frame also carries a test counter (``frame_tests``): the closest-
-hit searches add the (live lane, triangle column) tests they computed to it
-on the device, and nothing is read back during the frame.
+A traced frame also carries two test counters, and nothing is read back
+during the frame: ``frame_tests``, to which the closest-hit searches add
+the (live lane, triangle column) tests they computed on the device (NEE's
+shadow rays of bounce 0, a thresholded closest hit, among them), and
+``frame_anyhit_tests``, to which the streamed any-hit search (K4) adds the
+(open lane, triangle column) tests of the blocks it tested.
 """
 
 from __future__ import annotations
@@ -117,7 +124,15 @@ class _Frame:
     seed: int
     start_s: float  # time.perf_counter() at render_frame's entry
     end_s: float = float("nan")  # and at its return
-    tests: torch.Tensor | None = None  # traced frames: the test counter, int64 (1,)
+    counters: torch.Tensor | None = None  # traced frames: int64 (2,), the closest-hit and any-hit tests
+
+    @property
+    def tests(self) -> torch.Tensor | None:
+        return None if self.counters is None else self.counters[0:1]
+
+    @property
+    def anyhit_tests(self) -> torch.Tensor | None:
+        return None if self.counters is None else self.counters[1:2]
 
 
 _frames = collections.deque(maxlen=FRAME_RING)
@@ -130,11 +145,11 @@ def frame(seed: int, device):
     """One ``render_frame`` call: the ``render.frame`` span with the seed,
     and a record of its host start and return (always: two clock reads),
     kept among the newest ``FRAME_RING`` of its kind. A traced frame also
-    gets its test counter on ``device``, zeroed by one fill, which
-    ``frame_tests`` hands to the searches."""
+    gets its two test counters on ``device``, zeroed by one fill, which
+    ``frame_tests`` and ``frame_anyhit_tests`` hand to the searches."""
     rec = _Frame(seed=int(seed), start_s=time.perf_counter())
     if tracing():
-        rec.tests = torch.zeros(1, dtype=torch.int64, device=device)
+        rec.counters = torch.zeros(2, dtype=torch.int64, device=device)
     outer = getattr(_active, "frame", None)
     _active.frame = rec
     try:
@@ -143,7 +158,7 @@ def frame(seed: int, device):
     finally:
         _active.frame = outer
     rec.end_s = time.perf_counter()
-    (_frames if rec.tests is None else _traced_frames).append(rec)
+    (_frames if rec.counters is None else _traced_frames).append(rec)
 
 
 def frame_tests() -> torch.Tensor | None:
@@ -155,16 +170,29 @@ def frame_tests() -> torch.Tensor | None:
     return None if rec is None else rec.tests
 
 
+def frame_anyhit_tests() -> torch.Tensor | None:
+    """The any-hit test counter of the traced frame being rendered on this
+    thread, as ``frame_tests``: the streamed any-hit search adds to it the
+    (open lane, triangle column) tests of the blocks it tested; None
+    outside a traced frame."""
+    rec = getattr(_active, "frame", None)
+    return None if rec is None else rec.anyhit_tests
+
+
 def frame_records() -> list[dict]:
     """The records of the newest ``FRAME_RING`` untraced and the newest
     ``FRAME_RING`` traced frames, oldest first: ``seed``, ``start_s`` and
     ``end_s`` (``time.perf_counter()`` at ``render_frame``'s entry and
-    return), and ``tests``, the frame's test count (None for an untraced
-    frame). Reading a count waits for its frame's device work: call this
-    after the frames, not inside one."""
+    return), ``tests`` and ``anyhit_tests``, the frame's closest-hit and
+    any-hit test counts (None for an untraced frame). Reading a count waits
+    for its frame's device work: call this after the frames, not inside
+    one."""
     records = sorted([*_frames, *_traced_frames], key=lambda r: r.start_s)
-    return [{"seed": r.seed, "start_s": r.start_s, "end_s": r.end_s,
-             "tests": None if r.tests is None else int(r.tests.item())} for r in records]
+    out = []
+    for r in records:
+        tests, anyhit = (None, None) if r.counters is None else r.counters.tolist()
+        out.append({"seed": r.seed, "start_s": r.start_s, "end_s": r.end_s, "tests": tests, "anyhit_tests": anyhit})
+    return out
 
 
 def force(x) -> float:

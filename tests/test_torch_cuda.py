@@ -932,6 +932,33 @@ def test_streamed_modes_test_counter(device, budget, subtiles, fresh, precision,
     assert int(tests.item()) == work["lane_blocks"] * 64 > 0
 
 
+@pytest.mark.parametrize("precision", ["highest", "high", "mixed", "default"])
+def test_anyhit_test_counter_on_the_nee_shadow_rays(device, precision):
+    """K4 on the config 6 stand-in's bounce-1 shadow rays under NEE, as the
+    render casts them: the counter changes no flag, and it equals the plain
+    version's lane_blocks x tb where the flags agree (at "highest" they
+    agree on all but a few of 640,000 lanes, K4's table row in PERF.md; a
+    lane whose flag differs moves the count by the blocks it walks, a few
+    hundred of the ~10^5 open lane-blocks)."""
+    import chip_smoke
+
+    scene, camera, settings = load_scene_file(chip_smoke.STREAM_SCENE, device=device)
+    settings = dataclasses.replace(settings, estimator="nee")
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary)
+    args = chip_smoke.nee_shadow_inputs(scene, camera, settings, packed, packed2, "occluded_streamed_reference")
+    tests = torch.zeros(1, dtype=torch.int64, device=device)
+    occ = tpi.occluded_streamed(*args, precision=precision, tests=tests)
+    bare = tpi.occluded_streamed(*args, precision=precision)
+    ref, work = tpi.occluded_streamed_reference(*args, precision=precision, count_work=True)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, bare)
+    want = work["lane_blocks"] * packed2.tri_block
+    differ = int((occ != ref).sum())
+    assert want > 0 and (int(tests.item()) == want if differ == 0 else
+                         abs(int(tests.item()) - want) <= 1e-3 * want), (int(tests.item()), want, differ)
+
+
 @pytest.mark.parametrize("r", [1, 129, 640_000])
 def test_pcg_kernels_equal_plain_route(device, r):
     """The PCG sampler's kernels (csrc/pcg.cu) against the plain int64

@@ -98,9 +98,14 @@ def test_nee_shadow_rays_search_any_in_shade(small):
         render_frame(scene, camera, settings, seed=3, device="cpu")
     spans = [e for e in prof.profiler.kineto_results.events() if e.name().startswith("render.")]
     anyhit = [e for e in spans if e.name() == "render.search.any"]
+    nee = [e for e in spans if e.name() == "render.nee"]
     # Bounce 0 thresholds a closest hit; the later bounces search the second pack.
     assert len(anyhit) == settings.bounces - 1
-    assert {_parent(e, spans) for e in anyhit} == {"render.shade"}
+    # Every bounce samples a light inside its shade span, the shadow rays'
+    # search inside that.
+    assert len(nee) == settings.bounces
+    assert {_parent(e, spans) for e in anyhit} == {"render.nee"}
+    assert {_parent(e, spans) for e in nee} == {"render.shade"}
 
 
 def test_untraced_frame_opens_no_span_and_allocates_no_counter(small, monkeypatch):
