@@ -4,8 +4,9 @@
 
 Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds the five kernel sources of csrc/ from this checkout
-   (the four searches and the PCG sampler's pcg.cu), all started together,
+2. build: nvcc builds the six kernel sources of csrc/ from this checkout
+   (the four searches, the PCG sampler's pcg.cu and the naive shade step's
+   shade.cu), all started together,
    with ptxas's registers and shared memory per kernel, and each kernel's launch shape at its ray tile (128 rays for K1
    and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
    every precision mode's instantiation (and K3's traversal-mode kernel),
@@ -232,7 +233,16 @@ and the kernels' remaining modes:
     finds them in L2), host ms a call, bytes bound at 3.35 TB/s, and the
     plain route's device and host ms (mean of 5 calls); phase 5 and every
     full frame also check the sampler's launches a frame against the count
-    its spp, bounces, estimator and roulette give;
+    its spp, bounces, estimator and roulette give, and the shade kernel's
+    against one a bounce of each sample where the frame takes it;
+47. right after phase 46: the naive shade step's kernel (csrc/shade.cu) on
+    the 640,000 lanes of bounce 1 of the config 3 and config 6 stand-ins,
+    against the ops route on the same hits, bit for bit, with its device
+    ms (CUDA events, mean of 200 launches cycling through 150 MB of inputs
+    and outputs), host ms a call, bytes bound at 3.35 TB/s and registers,
+    and both routes' render.shade spans split by the profiler (host ms,
+    device ms and device ops a call, mean of 5) and their untraced wall ms
+    a bounce (mean of 20 back to back);
 then the total wall time, a JSON line that summarises every kernel under
 every mode, and a JSON result line last. Lines starting "elapsed:" mark
 where the time of the run goes.
@@ -270,7 +280,7 @@ from gpupathtracer_tpu_torch.models.camera import generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.materials import BxdfType
 from gpupathtracer_tpu_torch.models.obj import MeshData
 from gpupathtracer_tpu_torch.models.scene import build_scene, mesh_spec, plane_spec, sphere_spec
-from gpupathtracer_tpu_torch.ops import _build, packed_intersect
+from gpupathtracer_tpu_torch.ops import _build, packed_intersect, shade
 from gpupathtracer_tpu_torch.ops.compaction import compact_rays, compact_rays_coherent
 from gpupathtracer_tpu_torch.ops.packed_intersect import (
     DEFAULT_RAY_TILE,
@@ -290,11 +300,14 @@ from gpupathtracer_tpu_torch.ops.packed_intersect import (
 )
 from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import PcgSampler, prng_key_data
+from gpupathtracer_tpu_torch.render import integrator
 from gpupathtracer_tpu_torch.render.integrator import (
     IntegratorOptions,
     init_path_state,
     light_table,
     make_bounce_fn,
+    make_intersect_fn,
+    shade_route,
 )
 from gpupathtracer_tpu_torch.render.film import to_u8
 from gpupathtracer_tpu_torch.render.live import live_view
@@ -427,9 +440,14 @@ def ptxas_usage(report: str) -> dict:
     return usage
 
 
+# ptxas's report of each library phase_build built, by name.
+BUILD_REPORTS: dict[str, str] = {}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     reports = _build.build()
+    BUILD_REPORTS.update(reports)
     for name in reports:
         _build.library(name)
     dt = time.perf_counter() - t0
@@ -839,21 +857,40 @@ def expect_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
-def expect_pcg_launches(settings) -> int:
+def frame_shade_fused(scene, settings) -> bool:
+    """Whether a frame of ``settings`` on ``scene``, with no input that
+    requires a gradient, shades through the fused kernel
+    (``integrator.shade_route`` on the settings ``render_frame`` narrows)."""
+    opts = renderer._integrator_options(narrow_settings(scene, settings))
+    return shade_route(opts, scene.v0.device) == "fused"
+
+
+def expect_pcg_launches(settings, fused: bool = False) -> int:
     """The PCG sampler's kernel launches in one frame of ``settings``: per
     sample the path keys, the jitter's fold and draw (spp > 1 with jitter),
-    and per bounce a fold and a draw, and one of each more for the light
-    sample (NEE and MIS) and for Russian roulette (from ``rr_start``)."""
+    and on the ops route per bounce a fold and a draw, and one of each more
+    for the light sample (NEE and MIS) and for Russian roulette (from
+    ``rr_start``). A ``fused`` frame's shade kernel draws the bounces' own."""
     if settings.rng != "pcg":
         return 0
     jitter = 2 if settings.jitter and settings.spp > 1 else 0
+    if fused:
+        return settings.spp * (1 + jitter)
     nee = 2 if settings.estimator in ("nee", "mis") else 0
     rr = 0 if settings.rr_start is None else 2 * max(0, settings.bounces - settings.rr_start)
     return settings.spp * (1 + jitter + settings.bounces * (2 + nee) + rr)
 
 
-# Each full frame's PCG launches by its label, for the summary line.
+def expect_shade_launches(settings, fused: bool) -> int:
+    """The shade kernel's launches in one frame: one a bounce of each
+    sample where the frame takes it."""
+    return settings.spp * settings.bounces if fused else 0
+
+
+# Each full frame's PCG and shade-kernel launches by its label, for the
+# summary line.
 PCG_LAUNCHES_BY_PATH: dict[str, int] = {}
+SHADE_LAUNCHES_BY_PATH: dict[str, int] = {}
 
 
 def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: int = 3, profiled: bool = False) -> dict:
@@ -864,17 +901,24 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     device = scene.v0.device
     for k in KERNELS.values():
         k["counter"].launches = 0
-    pcg_before = PcgSampler.launches
+    pcg_before, shade_before = PcgSampler.launches, shade.naive_shade.launches
     img = render_frame(scene, camera, settings)
     _sync(device)
     launches = {name: k["counter"].launches for name, k in KERNELS.items()}
     pcg_launches = PcgSampler.launches - pcg_before
+    shade_launches = shade.naive_shade.launches - shade_before
     mean = img.mean().item()
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
-    if pcg_launches != expect_pcg_launches(settings):
-        raise AssertionError(f"{label}: {pcg_launches} PCG launches, expected {expect_pcg_launches(settings)}")
+    fused = frame_shade_fused(scene, settings)
+    if pcg_launches != expect_pcg_launches(settings, fused):
+        raise AssertionError(f"{label}: {pcg_launches} PCG launches, expected "
+                             f"{expect_pcg_launches(settings, fused)}")
+    if shade_launches != expect_shade_launches(settings, fused):
+        raise AssertionError(f"{label}: {shade_launches} shade launches, expected "
+                             f"{expect_shade_launches(settings, fused)}")
     PCG_LAUNCHES_BY_PATH[label] = pcg_launches
+    SHADE_LAUNCHES_BY_PATH[label] = shade_launches
     if tuple(img.shape) != (settings.height, settings.width, 3):
         raise AssertionError(f"{label}: full frame has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not 0.0 < mean < 10.0:
@@ -887,7 +931,8 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
         times.append(time.perf_counter() - t0)
     frame_s = statistics.median(times)
     rays = settings.width * settings.height * settings.spp * settings.bounces
-    out = {"launches": launches, "pcg_launches": pcg_launches, "image_mean": mean, "frame_s": frame_s,
+    out = {"launches": launches, "pcg_launches": pcg_launches, "shade_launches": shade_launches,
+           "image_mean": mean, "frame_s": frame_s,
            "frame_s_all": times, "rays_per_s": rays / frame_s}
     if profiled:
         out["profile"] = profile_frame(lambda: float(render_frame(scene, camera, settings, seed=999).sum()))
@@ -986,6 +1031,106 @@ def phase_pcg(device) -> list:
                      "plain_ms": plain_ms, "plain_host_ms": plain_host_ms, "exact": True})
     print(f"pcg kernels (csrc/pcg.cu) at {PCG_LANES} lanes, bit-equal to the plain route: {json.dumps(rows)}",
           flush=True)
+    return rows
+
+
+# Bytes a lane of the shade step moves once: it reads o, d, throughput and
+# radiance (48), alive and hit (2), its row index (8) and key (32), and
+# writes o, d, throughput and radiance (48), alive and prev_nee (2) and
+# prev_pdf (4); and a scene row it gathers: v0, e1, e2 (36) and mat_id (8).
+SHADE_READ_BYTES, SHADE_WRITE_BYTES = 48 + 2 + 8 + 32, 48 + 2 + 4
+SHADE_ROW_BYTES = 36 + 8
+SHADE_INPUTS = ("o", "d", "throughput", "radiance", "alive", "keys")
+
+
+def shade_inputs(path, device):
+    """A stand-in's scene, its integrator options as render_frame narrows
+    them, and sample 1's path state before bounce 1 over the camera's
+    640,000 lanes (bounce 0 uncompacted, as the render runs it), with that
+    bounce's closest hits."""
+    scene, camera, settings = load_scene_file(path, device=device)
+    settings = dataclasses.replace(narrow_settings(scene, settings), spp=4)
+    opts = renderer._integrator_options(settings)
+    packed = pack_scene(scene, tri_block=settings.tri_block)
+    pixels = torch.arange(settings.width * settings.height, device=device)
+    o, d, keys = renderer.sample_rays(camera, pixels, settings, prng_key_data(1234), 1)
+    state = make_bounce_fn(scene, opts, packed=packed)(init_path_state(o, d, keys), 0, compact_now=False)
+    hit = make_intersect_fn(scene, opts, packed=packed)(state.o, state.d, alive=state.alive)
+    return scene, opts, state, hit
+
+
+def _wall_ms(step, state, reps: int = 20) -> float:
+    """Host ms a bounce of ``step`` (its search a fixed answer) over
+    ``reps`` calls back to back, untraced, to the device's end: the host's
+    dispatch where it exceeds the device's work."""
+    step(state, 1, compact_now=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, 1, compact_now=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_shade(device) -> list:
+    """Phase 47: the naive shade step's kernel (csrc/shade.cu) on bounce 1
+    of the config 3 and config 6 stand-ins, against the ops route on the
+    same hits, bit for bit; its device ms with its inputs and outputs in
+    device memory (``rotating``'s rule), both routes' render.shade spans
+    split by the profiler, and both routes' untraced wall ms a bounce."""
+    floats = ("o", "d", "throughput", "radiance", "prev_pdf")
+    ops_route = lambda *args: "ops"
+    rows = []
+    for label, path in (("config3", SCENE), ("config6", STREAM_SCENE)):
+        scene, opts, state, hit = shade_inputs(path, device)
+        lanes = state.d.shape[0]
+        if shade_route(opts, state.d.device) != "fused":
+            raise AssertionError(f"shade {label}: the naive frame does not take the fused route")
+        step = make_bounce_fn(scene, opts, intersect_fn=lambda o, d, alive=None, hit=hit: hit)
+        run = lambda: [step(state, 1, compact_now=False) for _ in range(5)]
+        fused = step(state, 1, compact_now=False)
+        integrator.shade_route = ops_route
+        try:
+            ops = step(state, 1, compact_now=False)
+            ops_split = span_times(run, ["render.shade"])["render.shade"]
+            ops_wall_ms = _wall_ms(step, state)
+        finally:
+            integrator.shade_route = shade_route
+        fused_split = span_times(run, ["render.shade"])["render.shade"]
+        fused_wall_ms = _wall_ms(step, state)
+        torch.cuda.synchronize()
+        same = [torch.equal(fused.alive, ops.alive), torch.equal(fused.prev_nee, ops.prev_nee)]
+        same += [torch.equal(getattr(fused, f).view(torch.int32), getattr(ops, f).view(torch.int32)) for f in floats]
+        if not all(same):
+            raise AssertionError(f"shade {label}: the kernel's next state differs from the ops route's: {same}")
+        per_copy = lanes * SHADE_READ_BYTES
+        copies = [({f: getattr(state, f).clone() for f in SHADE_INPUTS}, hit.tri.clone(), hit.hit.clone())
+                  for _ in range(max(2, -(-PCG_ROTATE_BYTES // per_copy)))]
+        call = lambda c: shade.naive_shade(c[0]["o"], c[0]["d"], c[0]["throughput"], c[0]["radiance"],
+                                           c[0]["alive"], integrator.Hit(t=hit.t, tri=c[1], hit=c[2]), c[0]["keys"],
+                                           scene, opts.background, 1, True, True, False, False)
+        outs, i = [call(c) for c in copies], [0]
+
+        def timed():
+            k = i[0] % len(copies)
+            outs[k] = call(copies[k])
+            i[0] += 1
+
+        before = shade.naive_shade.launches
+        ms, host_ms = _device_and_host_ms(timed, 200)
+        if shade.naive_shade.launches - before != 201:
+            raise AssertionError(f"shade {label}: {shade.naive_shade.launches - before} launches in 201 calls")
+        rows_read = int(torch.unique(hit.tri.clamp(min=0)).numel())
+        b = bound(0, lanes * (SHADE_READ_BYTES + SHADE_WRITE_BYTES) + rows_read * SHADE_ROW_BYTES)
+        per_call = lambda t: {"host_ms": t["host_s"] * 1e3 / t["count"], "device_ms": t["device_s"] * 1e3 / t["count"],
+                              "device_ops": t["device_ops"] / t["count"]}
+        rows.append({"name": f"shade naive {label}", "lanes": lanes, "live": int(state.alive.sum()),
+                     "rows_read": rows_read, "ms": ms, "host_ms": host_ms, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+                     "fused_span": per_call(fused_split), "ops_span": per_call(ops_split),
+                     "fused_wall_ms": fused_wall_ms, "ops_wall_ms": ops_wall_ms,
+                     "ptxas": ptxas_usage(BUILD_REPORTS.get(_build.SHADE, "")), "exact": True})
+    print(f"shade kernel (csrc/shade.cu) at bounce 1, bit-equal to the ops route: {json.dumps(rows)}", flush=True)
     return rows
 
 
@@ -2356,6 +2501,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     pcg_rows = phase_pcg(device)
+    shade_rows = phase_shade(device)
     phase_native_build()
 
     elapsed("naive path")
@@ -2600,6 +2746,8 @@ def main() -> None:
         {"K3 traversal mode cases": k3_modes["launches"]}, label="closest_hit_streamed (budget, subtiles, fresh)"))
     summary += [{**r, "route": "cuda", "source": "gpupathtracer_tpu_torch/csrc/pcg.cu", "replaces": None,
                  "launches_by_path": dict(PCG_LAUNCHES_BY_PATH)} for r in pcg_rows]
+    summary += [{**r, "route": "cuda", "source": "gpupathtracer_tpu_torch/csrc/shade.cu", "replaces": None,
+                 "launches_by_path": dict(SHADE_LAUNCHES_BY_PATH)} for r in shade_rows]
     mask_rows = {"closest_hit": k1_mask_row, "occluded": k2_mask_row, "closest_hit_streamed": k3_mask_row,
                  "occluded_streamed": k4_mask_row}
     print(json.dumps({"mask_mode_checks": {k: {f: r[f] for f in ("ms", "max_abs_err", "bound_ms")}

@@ -12,7 +12,8 @@
 // of an (R, 4) int64 tensor. All arithmetic is on uint32_t and wraps mod
 // 2^32, which is what the plain version's masked int64 arithmetic computes,
 // so the words are the same bit for bit; (word >> 8) to float times 2^-24 is
-// exact, so the draws are too.
+// exact, so the draws are too. The word functions are pcg.cuh's, which the
+// fused shade step (shade.cu) includes too.
 //   pcg_path_keys   pixel int64 (R) -> keys (R, 4): (seed, pixel & M32, sample, 0)
 //   pcg_fold        keys (R, 4) -> keys (R, 4): words 0-2 copied, word 3 =
 //                   word3 * 0x9E3779B9 + c
@@ -33,32 +34,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pcg.cuh"
+
 namespace {
 
+using firefly_pcg::fold_stream;
+using firefly_pcg::pcg4d;
+using firefly_pcg::unit;
+using firefly_pcg::Words;
+
 constexpr int THREADS = 256;
-constexpr uint32_t GOLDEN = 0x9E3779B9u;  // the fold's odd multiplier
-
-__device__ __forceinline__ uint4 pcg4d(uint4 v) {
-  v.x = v.x * 1664525u + 1013904223u;
-  v.y = v.y * 1664525u + 1013904223u;
-  v.z = v.z * 1664525u + 1013904223u;
-  v.w = v.w * 1664525u + 1013904223u;
-  v.x += v.y * v.w;
-  v.y += v.z * v.x;
-  v.z += v.x * v.y;
-  v.w += v.y * v.z;
-  v.x ^= v.x >> 16;
-  v.y ^= v.y >> 16;
-  v.z ^= v.z >> 16;
-  v.w ^= v.w >> 16;
-  v.x += v.y * v.w;
-  v.y += v.z * v.x;
-  v.z += v.x * v.y;
-  v.w += v.y * v.z;
-  return v;
-}
-
-__device__ __forceinline__ float unit(uint32_t w) { return __uint2float_rn(w >> 8) * 0x1p-24f; }
 
 __device__ __forceinline__ int64_t lane() {
   return static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
@@ -80,7 +65,7 @@ __global__ void __launch_bounds__(THREADS)
   if (i >= r) return;
   const ulonglong2 a = in[2 * i];
   ulonglong2 b = in[2 * i + 1];
-  b.y = static_cast<uint32_t>(b.y) * GOLDEN + c;
+  b.y = fold_stream(static_cast<uint32_t>(b.y), c);
   out[2 * i] = a;
   out[2 * i + 1] = b;
 }
@@ -92,8 +77,8 @@ __global__ void __launch_bounds__(THREADS)
   if (i >= r) return;
   const ulonglong2 a = keys[2 * i];
   const ulonglong2 b = keys[2 * i + 1];
-  const uint4 v = pcg4d(make_uint4(static_cast<uint32_t>(a.x), static_cast<uint32_t>(a.y),
-                                   static_cast<uint32_t>(b.x), static_cast<uint32_t>(b.y)));
+  const Words v = pcg4d(Words{static_cast<uint32_t>(a.x), static_cast<uint32_t>(a.y), static_cast<uint32_t>(b.x),
+                               static_cast<uint32_t>(b.y)});
   if constexpr (N == 4) {
     reinterpret_cast<float4*>(out)[i] = make_float4(unit(v.x), unit(v.y), unit(v.z), unit(v.w));
   } else if constexpr (N == 2) {

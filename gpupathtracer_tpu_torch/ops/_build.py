@@ -2,13 +2,14 @@
 
 Each kernel source in ``csrc/`` (the searches ``closest_hit.cu``,
 ``occlusion.cu``, ``closest_hit_streamed.cu``, ``occlusion_streamed.cu``,
-which all include ``stream_stage.cuh``, which includes ``decision.cuh``; and
-the PCG sampler's ``pcg.cu``, which includes neither) has a plain C
-interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into its own
-shared library in ``gpupathtracer_tpu_torch/build/`` at first use, and the
-library is loaded with ``ctypes``. The file name carries a hash of the
-source, the shared headers it includes and the flags, so an edit rebuilds.
-Nothing is built or loaded when this module is imported.
+which all include ``stream_stage.cuh``, which includes ``decision.cuh``; the
+PCG sampler's ``pcg.cu`` and the naive shade step's ``shade.cu``, which both
+include ``pcg.cuh``) has a plain C interface. ``nvcc`` compiles it for
+Hopper (``sm_90a``) into its own shared library in
+``gpupathtracer_tpu_torch/build/`` at first use, and the library is loaded
+with ``ctypes``. The file name carries a hash of the source, the shared
+headers it includes and the flags, so an edit rebuilds. Nothing is built or
+loaded when this module is imported.
 
 The host library ``csrc/firefly_native.cpp`` (the OBJ parser, BVH builder
 and edge-table builder of ``native.py``) is built the same way by the host
@@ -29,13 +30,14 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 HEADERS = [os.path.join(CSRC, "decision.cuh"), os.path.join(CSRC, "stream_stage.cuh")]
+PCG_HEADER = os.path.join(CSRC, "pcg.cuh")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+_P, _I, _I64, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
 # Library name -> its launch functions -> their argument types. A search
 # has one: device pointers (w and its bf16 operands w_hi and w_lo among
 # them; K3 also init_t, init_i and done; K1, K3 and K4 last the test
@@ -44,7 +46,9 @@ _P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uin
 # its traversal modes (modes, budget, subtiles, fresh), then the stream.
 # The PCG sampler's ``pcg.cu`` has three: input and output pointers, the
 # lane count, the seed, sample and stream words as unsigned 32-bit ints or
-# the draw's word count, then the stream.
+# the draw's word count, then the stream. The shade step's ``shade.cu`` has
+# one: o and its row stride, 18 more input and 7 output pointers, the lane
+# count, the background's three floats, the bounce, the flags, the stream.
 LAUNCHES = {
     "closest_hit": {"closest_hit_launch": [_P] * 10 + [_I] * 7 + [_P]},
     "occlusion": {"occlusion_launch": [_P] * 8 + [_I] * 7 + [_P]},
@@ -55,15 +59,23 @@ LAUNCHES = {
         "pcg_fold_launch": [_P, _P, _I64, _U32, _P],
         "pcg_uniform_launch": [_P, _P, _I64, _I, _P],
     },
+    "shade": {"shade_naive_launch": [_P, _I64] + [_P] * 25 + [_I64, _F, _F, _F, _U32, _I, _P]},
 }
 PCG = "pcg"
+SHADE = "shade"
 # The searches, which include HEADERS, also export ``<name>_occupancy``:
 # resident CTAs per SM at a launch shape, -1 if the kernel does not take it.
 # It takes the launch's ray_tile, groups, rays a thread or m-tiles a warp,
-# precision (and for K3 modes) ints; here, their count. ``pcg.cu`` includes
-# none of HEADERS, so it builds in seconds and an edit to the searches does
-# not rebuild it.
+# precision (and for K3 modes) ints; here, their count. ``pcg.cu`` and
+# ``shade.cu`` include none of HEADERS, so they build in seconds and an edit
+# to the searches does not rebuild them.
 OCCUPANCY = {"closest_hit": 4, "occlusion": 4, "closest_hit_streamed": 5, "occlusion_streamed": 4}
+# The shared headers each library includes, and the flags it adds to
+# NVCC_FLAGS: the shade step is built without contracting a product and a
+# sum into one fused multiply-add, so that each float operation rounds as
+# the torch op it replaces does.
+INCLUDES = {**{name: HEADERS for name in OCCUPANCY}, PCG: [PCG_HEADER], SHADE: [PCG_HEADER]}
+EXTRA_FLAGS = {SHADE: ["-fmad=false"]}
 
 
 HOST_SOURCE = os.path.join(CSRC, "firefly_native.cpp")
@@ -89,9 +101,13 @@ def _nvcc() -> str:
     return path
 
 
+def flags(name: str) -> list[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [source(name)] + (HEADERS if name in OCCUPANCY else []):
+    h = hashlib.sha256(" ".join(flags(name)).encode())
+    for path in [source(name)] + INCLUDES.get(name, []):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -109,7 +125,7 @@ def build(names=tuple(LAUNCHES)) -> dict[str, str]:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, source(name)],
+                [nvcc, *flags(name), "-Xptxas", "-v", "-o", tmp, source(name)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
             jobs[name] = (proc, tmp)

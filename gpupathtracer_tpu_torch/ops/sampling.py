@@ -18,7 +18,9 @@ each launch one kernel of ``csrc/pcg.cu``, which computes the same words in
 native uint32 arithmetic, bit for bit, and raise if they cannot; each
 launch is one op of the dispatcher (``firefly_pcg::...``), so the profiler
 sees it inside the caller's spans. ``PcgSampler.launches`` counts those
-launches. On other tensors they run the
+launches. The fused shade step (``ops/shade.py``) draws a bounce's
+words inline with the same word functions (``csrc/pcg.cuh``), outside these
+calls. On other tensors they run the
 plain int64 version below (``_path_keys_plain``, ``_fold_plain``,
 ``_uniform_plain``), which the CPU tests hold against the JAX package.
 

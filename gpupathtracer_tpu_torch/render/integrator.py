@@ -38,6 +38,14 @@ builds the BVH and hands ``accel/bvh.intersect_bvh`` in as a custom
 intersect function; ``make_intersect_fn`` raises ValueError for it, as the
 JAX package's does. ``rng`` picks the PCG or the threefry sampler
 (``ops/sampling.py``).
+
+The shade step has two routes, which ``shade_route`` picks from what a call
+can observe: "fused" runs it as one launch of a CUDA kernel
+(``ops/shade.py``) where the tensors are on the card, nothing that enters
+it requires a gradient, the estimator is naive, the sampler PCG and the
+materials diffuse or emitter, untextured; "ops" runs the torch ops below,
+which carry gradients and serve every other call, and of which the kernel
+computes the same numbers.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from gpupathtracer_tpu_torch.ops.sampling import (
     reflect,
     refract,
 )
+from gpupathtracer_tpu_torch.ops.shade import naive_shade
 from gpupathtracer_tpu_torch.utils.profiling import scope
 
 # Offset along the oriented normal when spawning secondary and shadow rays.
@@ -80,6 +89,10 @@ _UNPACKED_INTERSECTORS = ("brute", "bvh")
 _ESTIMATORS = ("naive", "nee", "mis")
 _SORT_KEYS = ("dir", "origin")
 _COMPACT_MODES = ("permute", "mask", "hybrid")
+# The material types the fused shade step implements.
+FUSED_MATERIALS = frozenset((BxdfType.EMITTER, BxdfType.DIFFUSE))
+# The shade step's routes; a render.shade span records its route's index.
+SHADE_ROUTES = ("ops", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +202,25 @@ def make_occlusion_fn(
         return h.hit & (h.t < mt)
 
     return threshold
+
+
+def shade_route(options: IntegratorOptions, device: torch.device, inputs=()) -> str:
+    """The route of a bounce's shade step: "fused", one launch of the naive
+    shade kernel (``ops/shade.py``), where the call's tensors are on
+    ``device`` = CUDA, none of ``inputs`` (the tensors the shading reads,
+    None ignored) requires a gradient while grad mode is on, the estimator
+    is naive, the sampler PCG, every type of the material set diffuse or
+    emitter and the call not textured; else "ops", the torch ops of the
+    step, which carry gradients, shadow rays and every material."""
+    if device.type != "cuda":
+        return "ops"
+    if options.estimator != "naive" or options.rng != "pcg" or options.textured:
+        return "ops"
+    if not set(options.material_set) <= FUSED_MATERIALS:
+        return "ops"
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
+        return "ops"
+    return "fused"
 
 
 def light_table(scene: TriangleScene):
@@ -325,6 +357,10 @@ def make_bounce_fn(
     nee = options.estimator in ("nee", "mis") and has_emit and has_diffuse
     mis = options.estimator == "mis" and nee
     textured = options.textured and has_diffuse
+    mats = scene.materials
+    scene_inputs = (scene.v0, scene.e1, scene.e2, mats.albedo, mats.emissive_color, mats.intensity)
+    if options.use_shading_normals:
+        scene_inputs += (scene.n0, scene.n1, scene.n2)
 
     if nee:
         occlude = make_occlusion_fn(scene, options, intersect_fn, packed=packed, use_kernel=occlusion_kernel)
@@ -365,13 +401,29 @@ def make_bounce_fn(
             return occ[inv] & mask
 
     def bounce(state: PathState, bounce_idx: int, compact_now: bool = True) -> PathState:
-        # Made before the search is queued: on the card this copy from host
-        # memory returns only once the work queued before it has run, and
-        # after the search it would hold the host back for the search's time.
-        background = torch.tensor(options.background, dtype=torch.float32, device=state.o.device)
+        route = shade_route(options, state.o.device, (state.o, state.d, state.throughput, state.radiance,
+                                                      *scene_inputs))
+        # The ops route's background, made before the search is queued: on
+        # the card this copy from host memory returns only once the work
+        # queued before it has run, and after the search it would hold the
+        # host back for the search's time. The fused route takes three floats.
+        if route == "ops":
+            background = torch.tensor(options.background, dtype=torch.float32, device=state.o.device)
         hit = masked_intersect(state.o, state.d, state.alive, compact_now)
-        with scope("render.shade"):
+        with scope("render.shade", SHADE_ROUTES.index(route)):
+            if route == "fused":
+                return shade_fused(state, hit, bounce_idx)
             return shade(state, hit, bounce_idx, background)
+
+    def shade_fused(state: PathState, hit: Hit, bounce_idx: int) -> PathState:
+        """``shade`` for the naive estimator in one kernel launch."""
+        roulette = options.rr_start is not None and bounce_idx >= options.rr_start
+        o, d, throughput, radiance, alive, prev_nee, prev_pdf = naive_shade(
+            state.o, state.d, state.throughput, state.radiance, state.alive, hit, state.keys, scene,
+            options.background, bounce_idx, has_emit, has_diffuse, options.use_shading_normals, roulette,
+        )
+        return PathState(o=o, d=d, throughput=throughput, radiance=radiance, alive=alive, prev_nee=prev_nee,
+                         prev_pdf=prev_pdf, keys=state.keys)
 
     def shade(state: PathState, hit: Hit, bounce_idx: int, background: torch.Tensor) -> PathState:
         """The bounce after its closest hit: emission, light samples and

@@ -37,12 +37,14 @@ the one it names; a span's device time includes its children's):
   hits they give;
 - ``render.search.any``: the any-hit launch;
 - ``render.shade``: hit attributes, materials, emission, next-event
-  estimation, scatter and roulette, in a bounce;
+  estimation, scatter and roulette, in a bounce; its recorded input is the
+  route it took (``integrator.SHADE_ROUTES``: 0 the torch ops, 1 the fused
+  kernel, which draws the bounce's PCG words itself);
 - ``render.nee``: next-event estimation, in ``render.shade``: the light
   pick, the shadow ray and its search (the compaction, schedule and search
   spans of the shadow rays inside);
 - ``render.rng``: a path sampler's key, fold or uniform draw, in a frame or
-  in ``render.shade``.
+  in the ops route's ``render.shade``.
 
 A traced frame also carries two test counters, and nothing is read back
 during the frame: ``frame_tests``, to which the closest-hit searches add

@@ -1058,22 +1058,214 @@ def test_pcg_kernels_seen_inside_the_callers_span(device):
 
 def test_pcg_kernels_frame_equals_plain_route(device, monkeypatch):
     """A config 3 naive frame (64x64, spp 4, 4 bounces) is the same to the
-    bit with the sampler's plain int64 route patched in, and the kernel
-    route made 4 x (1 + 2 + 4 x 2) = 44 launches: the path keys, the
-    jitter's fold and draw, and each bounce's fold and draw."""
-    from gpupathtracer_tpu_torch.ops import sampling
+    bit with the sampler's plain int64 route and the shade step's ops route
+    patched in. The kernel route made 4 x (1 + 2) = 12 PCG launches, the
+    path keys and the jitter's fold and draw, and 4 x 4 = 16 shade
+    launches, which draw each bounce's fold and draw inline."""
+    from gpupathtracer_tpu_torch.ops import sampling, shade
+    from gpupathtracer_tpu_torch.render import integrator
 
     scene, camera, settings = load_scene_file(SCENE, device=device)
     camera = dataclasses.replace(camera, width=64, height=64)
     settings = dataclasses.replace(settings, width=64, height=64, spp=4)
     assert settings.bounces == 4 and settings.rng == "pcg"
-    before = sampling.PcgSampler.launches
+    before, shades = sampling.PcgSampler.launches, shade.naive_shade.launches
     got = render_frame(scene, camera, settings)
-    assert sampling.PcgSampler.launches == before + 44
+    assert sampling.PcgSampler.launches == before + 12
+    assert shade.naive_shade.launches == shades + 16
     for name in ("path_keys", "fold", "uniform"):
         monkeypatch.setattr(sampling, f"_{name}_kernel", getattr(sampling, f"_{name}_plain"))
+    monkeypatch.setattr(integrator, "shade_route", lambda *args: "ops")
     want = render_frame(scene, camera, settings)
     torch.cuda.synchronize()
-    assert sampling.PcgSampler.launches == before + 44
+    assert sampling.PcgSampler.launches == before + 12
+    assert shade.naive_shade.launches == shades + 16
     assert torch.isfinite(got).all() and got.abs().sum() > 0
     assert torch.equal(_bits(got), _bits(want))
+
+
+# The fused naive shade step (csrc/shade.cu, ops/shade.py).
+
+_SHADE_LANES = 640_000
+_SHADE_FIELDS = ("o", "d", "throughput", "radiance", "prev_pdf")
+
+
+def _ordered(x):
+    """float32 bits as integers in the floats' order (-0 and +0 both 0), so
+    that a difference of two is their distance in ulps."""
+    i = x.view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def _shade_setup(device, path, bounce_idx, rr_start):
+    """A config's scene, its integrator options (material set narrowed as
+    render_frame narrows it, roulette from ``rr_start``) and the path state
+    of sample 1 of its 800x800 camera's 640,000 lanes before bounce
+    ``bounce_idx``, with that bounce's closest hits."""
+    from gpupathtracer_tpu_torch.ops.sampling import prng_key_data
+    from gpupathtracer_tpu_torch.render import integrator
+    from gpupathtracer_tpu_torch.render.renderer import _integrator_options, narrow_settings, sample_rays
+
+    scene, camera, settings = load_scene_file(path, device=device)
+    settings = dataclasses.replace(narrow_settings(scene, settings), spp=4)
+    assert settings.width * settings.height == _SHADE_LANES and set(settings.material_set) == {0, 1}
+    opts = dataclasses.replace(_integrator_options(settings), rr_start=rr_start)
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    o, d, keys = sample_rays(camera, torch.arange(_SHADE_LANES, device=device), settings, prng_key_data(1234), 1)
+    state = integrator.init_path_state(o, d, keys)
+    step = integrator.make_bounce_fn(scene, opts, packed=packed)
+    for b in range(bounce_idx):
+        state = step(state, b, compact_now=b > 0)
+    hit = integrator.make_intersect_fn(scene, opts, packed=packed)(state.o, state.d, alive=state.alive)
+    return scene, opts, state, hit
+
+
+@pytest.mark.parametrize("rr_start", [None, 0], ids=["no-roulette", "roulette"])
+@pytest.mark.parametrize("bounce_idx", [0, 2])
+@pytest.mark.parametrize("config", ["config3", "config6"])
+def test_fused_shade_step_equals_ops_route(device, config, bounce_idx, rr_start, monkeypatch):
+    """One shade step at 640,000 lanes of the config 3 and config 6
+    stand-ins, through the kernel and through the ops route on the same
+    hits: one launch, ``alive``, ``prev_nee`` and the keys exact, and every
+    float output bit-equal (the kernel rounds each operation as the torch op
+    it replaces, csrc/shade.cu)."""
+    from gpupathtracer_tpu_torch.ops import shade
+    from gpupathtracer_tpu_torch.render import integrator
+
+    import chip_smoke
+
+    path = chip_smoke.SCENE if config == "config3" else chip_smoke.STREAM_SCENE
+    scene, opts, state, hit = _shade_setup(device, path, bounce_idx, rr_start)
+    assert integrator.shade_route(opts, state.o.device) == "fused"
+    step = integrator.make_bounce_fn(scene, opts, intersect_fn=lambda o, d, alive=None: hit)
+    before = shade.naive_shade.launches
+    got = step(state, bounce_idx, compact_now=False)
+    assert shade.naive_shade.launches == before + 1
+    monkeypatch.setattr(integrator, "shade_route", lambda *args: "ops")
+    want = step(state, bounce_idx, compact_now=False)
+    torch.cuda.synchronize()
+    assert shade.naive_shade.launches == before + 1
+    assert got.keys is state.keys
+    assert torch.equal(got.alive, want.alive) and torch.equal(got.prev_nee, want.prev_nee)
+    assert 0 < int(got.alive.sum()) < _SHADE_LANES
+    for name in _SHADE_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        ulps = (_ordered(a) - _ordered(b)).abs()
+        assert torch.equal(_bits(a), _bits(b)), (name, int((ulps > 0).sum()), int(ulps.max()))
+
+
+def _small_frame(path, device, size=64, **changes):
+    scene, camera, settings = load_scene_file(path, device=device)
+    camera = dataclasses.replace(camera, width=size, height=size)
+    return scene, camera, dataclasses.replace(settings, width=size, height=size, **changes)
+
+
+@pytest.mark.parametrize("config,spp,shades,pcg_launches", [("config3", 4, 16, 12), ("config6", 2, 8, 6)])
+def test_fused_shade_launches_a_frame(device, config, spp, shades, pcg_launches):
+    """A naive frame makes one shade launch a bounce of each sample (4 x 4
+    for config 3 at spp 4, 2 x 4 for config 6 at spp 2) and leaves the PCG
+    sampler's kernels the path keys and the jitter's fold and draw."""
+    from gpupathtracer_tpu_torch.ops import sampling, shade
+
+    import chip_smoke
+
+    scene, camera, settings = _small_frame(chip_smoke.SCENE if config == "config3" else chip_smoke.STREAM_SCENE,
+                                           device, spp=spp)
+    assert settings.bounces == 4
+    before, pcg_before = shade.naive_shade.launches, sampling.PcgSampler.launches
+    img = render_frame(scene, camera, settings)
+    torch.cuda.synchronize()
+    assert shade.naive_shade.launches == before + shades
+    assert sampling.PcgSampler.launches == pcg_before + pcg_launches
+    assert torch.isfinite(img).all() and img.abs().sum() > 0
+
+
+@pytest.mark.parametrize("case", ["grad-leaves", "nee"])
+def test_fused_shade_bypassed(device, case):
+    """A c3-grad-style frame (``v0`` and the albedo as leaves that require
+    gradients) and an NEE frame run the ops route: no shade launch, the PCG
+    sampler's 44 launches of a config 3 frame at spp 4 (the NEE frame's
+    light draws add two a bounce), and the albedo gets its gradient (the
+    naive radiance does not depend on ``v0``). Under no_grad the leaves'
+    frame takes the kernel."""
+    from gpupathtracer_tpu_torch.ops import sampling, shade
+
+    scene, camera, settings = _small_frame(SCENE, device, spp=4)
+    if case == "nee":
+        settings = dataclasses.replace(settings, estimator="nee")
+    else:
+        v0 = scene.v0.detach().clone().requires_grad_()
+        albedo = scene.materials.albedo.detach().clone().requires_grad_()
+        scene = dataclasses.replace(scene, v0=v0, materials=dataclasses.replace(scene.materials, albedo=albedo))
+    before, pcg_before = shade.naive_shade.launches, sampling.PcgSampler.launches
+    img = render_frame(scene, camera, settings)
+    torch.cuda.synchronize()
+    assert shade.naive_shade.launches == before
+    assert sampling.PcgSampler.launches == pcg_before + (44 if case != "nee" else 44 + 4 * 4 * 2)
+    if case != "nee":
+        (g_albedo,) = torch.autograd.grad(img.square().mean(), (albedo,))
+        assert torch.isfinite(g_albedo).all() and g_albedo.abs().sum() > 0
+    with torch.no_grad():
+        render_frame(scene, camera, settings)
+    assert shade.naive_shade.launches == before + (16 if case != "nee" else 0)
+
+
+def test_fused_shade_span_records_its_route(device):
+    """Under the profiler each render.shade span of a naive frame records
+    the fused route (input 1, ``integrator.SHADE_ROUTES``) and holds the
+    kernel; an NEE frame's record the ops route (input 0)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpupathtracer_tpu_torch.render.integrator import SHADE_ROUTES
+
+    scene, camera, settings = _small_frame(SCENE, device, spp=4)
+    render_frame(scene, camera, settings)  # the build and the packs
+    for estimator, route in (("naive", "fused"), ("nee", "ops")):
+        st = dataclasses.replace(settings, estimator=estimator)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            render_frame(scene, camera, st)
+            torch.cuda.synchronize()
+        spans = [e for e in prof.events() if e.name == "render.shade" and e.device_type == DeviceType.CPU]
+        assert len(spans) == 16
+        assert all(list(e.concrete_inputs) == [SHADE_ROUTES.index(route)] for e in spans)
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and "shade_naive_kernel" in e.name()]
+        assert len(kernels) == (16 if route == "fused" else 0)
+
+
+def test_fused_frame_against_ops_route_frame(device, monkeypatch):
+    """A config 3 frame at 800x800 and spp 4 through the kernel against the
+    same frame through the ops route: no pixel off by more than 1e-4 beyond
+    the share of c3-render's sound readings against the reference (2.58e-5,
+    PERF.md section 2); the frames are bit-equal, as each step is."""
+    from gpupathtracer_tpu_torch.render import integrator
+
+    scene, camera, settings = load_scene_file(SCENE, device=device)
+    settings = dataclasses.replace(settings, spp=4)
+    got = render_frame(scene, camera, settings, seed=77)
+    monkeypatch.setattr(integrator, "shade_route", lambda *args: "ops")
+    want = render_frame(scene, camera, settings, seed=77)
+    torch.cuda.synchronize()
+    diverged = ((got - want).abs().amax(dim=-1) > 1e-4).double().mean().item()
+    assert diverged <= 2.58e-5
+    assert torch.equal(_bits(got), _bits(want)), int(((got != want).any(dim=-1)).sum())
+
+
+def test_fused_shade_kernel_rejects_what_it_does_not_take(device):
+    """Inputs of another dtype, shape or layout raise before any launch."""
+    from gpupathtracer_tpu_torch.ops import shade
+
+    scene, opts, state, hit = _shade_setup(device, SCENE, 0, None)
+    args = dict(o=state.o, d=state.d, throughput=state.throughput, radiance=state.radiance, alive=state.alive,
+                tri=hit.tri, hit=hit.hit, keys=state.keys, v0=scene.v0, e1=scene.e1, e2=scene.e2, n0=None, n1=None,
+                n2=None, mat_id=scene.mat_id, mat_type=scene.materials.type, albedo=scene.materials.albedo,
+                emissive=scene.materials.emissive_color, intensity=scene.materials.intensity)
+    bad = {"d": state.d.t().contiguous().t(), "throughput": state.throughput.double(), "alive": state.alive.int(),
+           "tri": hit.tri.int(), "keys": state.keys[:, :3].contiguous(), "albedo": scene.materials.albedo[:, :2],
+           "o": state.o[::2]}
+    before = shade.naive_shade.launches
+    for name, x in bad.items():
+        with pytest.raises(ValueError):
+            shade._naive_kernel(**{**args, name: x}, bg_r=0.0, bg_g=0.0, bg_b=0.0, bounce=0, flags=3)
+    assert shade.naive_shade.launches == before

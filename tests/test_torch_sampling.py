@@ -85,3 +85,53 @@ def test_warps_match_jax():
     want = np.asarray(js.local_to_world(jnp.asarray(want), jnp.asarray(n)))
     got = ts.local_to_world(torch.as_tensor(got), torch.as_tensor(n)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+
+
+_HEADER_SHIM = r"""
+#include "pcg.cuh"
+using namespace firefly_pcg;
+extern "C" void words(const uint32_t* k, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    const Words v = pcg4d(Words{k[4 * i], k[4 * i + 1], k[4 * i + 2], k[4 * i + 3]});
+    out[4 * i] = v.x; out[4 * i + 1] = v.y; out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
+  }
+}
+extern "C" void fold(const uint32_t* k, uint32_t c, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = fold_stream(k[4 * i + 3], c);
+}
+extern "C" void units(const uint32_t* w, float* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = unit(w[i]);
+}
+"""
+
+
+def test_pcg_header_words_equal_plain_route(tmp_path):
+    """``csrc/pcg.cuh``, the one definition of the PCG4D words that the
+    sampler's kernels (``csrc/pcg.cu``, bit-equal to the plain route on the
+    card) and the fused shade step include, built here by the host C++
+    compiler: its mixing, fold and draw give the plain int64 route's
+    numbers on the stream constants of a render."""
+    import ctypes
+    import subprocess
+
+    from gpupathtracer_tpu_torch.ops import _build
+
+    src, lib = tmp_path / "shim.cpp", tmp_path / "libshim.so"
+    src.write_text(_HEADER_SHIM)
+    subprocess.run([_build.HOST_CXX, "-std=c++17", "-O2", "-fPIC", "-shared", "-I", _build.CSRC, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, timeout=120)
+    shim = ctypes.CDLL(str(lib))
+    rng = np.random.default_rng(20)
+    keys = rng.integers(0, 2**32, size=(4096, 4), dtype=np.uint64).astype(np.uint32)
+    keys[:3] = [[0, 0, 0, 0], [2**32 - 1] * 4, [1234, 7, 3, 0]]
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    mixed = np.empty_like(keys)
+    shim.words(ptr(keys), ptr(mixed), ctypes.c_long(len(keys)))
+    np.testing.assert_array_equal(mixed.astype(np.int64), ts.pcg4d(_u32(keys)).numpy())
+    for c in STREAMS + [2**32 - 1]:
+        stream = np.empty(len(keys), np.uint32)
+        shim.fold(ptr(keys), ctypes.c_uint32(c), ptr(stream), ctypes.c_long(len(keys)))
+        np.testing.assert_array_equal(stream.astype(np.int64), ts._fold_plain(_u32(keys), c)[:, 3].numpy())
+    draws = np.empty(mixed.shape, np.float32)
+    shim.units(ptr(mixed), ptr(draws), ctypes.c_long(mixed.size))
+    np.testing.assert_array_equal(draws, ts._uniform_plain(_u32(keys), 4).numpy())
