@@ -289,7 +289,6 @@ from gpupathtracer_tpu_torch.ops.packed_intersect import (
     closest_hit_reference,
     closest_hit_streamed,
     closest_hit_streamed_reference,
-    is_resident,
     occluded,
     occluded_reference,
     occluded_streamed,
@@ -329,22 +328,22 @@ KERNELS = {
     "closest_hit": {
         "source": "gpupathtracer_tpu_torch/csrc/closest_hit.cu",
         "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:496",
-        "counter": closest_hit,
+        "library": "closest_hit",
     },
     "occluded": {
         "source": "gpupathtracer_tpu_torch/csrc/occlusion.cu",
         "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:882",
-        "counter": occluded,
+        "library": "occlusion",
     },
     "closest_hit_streamed": {
         "source": "gpupathtracer_tpu_torch/csrc/closest_hit_streamed.cu",
         "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:647",
-        "counter": closest_hit_streamed,
+        "library": "closest_hit_streamed",
     },
     "occluded_streamed": {
         "source": "gpupathtracer_tpu_torch/csrc/occlusion_streamed.cu",
         "replaces": "gpupathtracer_tpu/ops/pallas_intersect.py:960",
-        "counter": occluded_streamed,
+        "library": "occlusion_streamed",
     },
 }
 
@@ -534,8 +533,9 @@ def phase_live_zeros(label: str, packed) -> None:
     resident route, padded to whole clusters on the streamed one) is exactly
     zero outside LIVE_SLOTS and finite everywhere (they read only the live
     slots); checked on the pack's device, once per pack."""
-    route = "resident" if is_resident(packed) else "streamed"
-    w = packed.w if route == "resident" else packed_intersect._stream_pack(packed)[0].w
+    way = packed_intersect.route(packed.w.shape[0], packed.tri_block)
+    route = "streamed" if way.streamed else "resident"
+    w = packed_intersect._pad_blocks(packed, way.bpc).w if way.streamed else packed.w
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
     row = {"blocks": nb, "tri_block": tb, "slots_outside": K * NSCALARS - len(LIVE_SLOTS),
            "nonzero_outside": int((packed_intersect.outside_live_slots(w) != 0).sum()),
@@ -690,7 +690,7 @@ def phase_kernel_check(label: str, o, d, packed, plain_reps: int | None = None) 
 
 def phase_streamed_check(label: str, o, d, packed, rows_exact: bool = False, plain_reps: int | None = None) -> dict:
     """K3 against closest_hit_streamed_reference at its main-path shapes."""
-    if is_resident(packed):
+    if not packed_intersect.route(packed.w.shape[0], packed.tri_block).streamed:
         raise AssertionError(f"the streamed check needs a pack past the resident budget ({label})")
     args = prepare_rays_streamed(o, d, packed) + (STREAM_RAY_TILE,)
     return hit_check("closest_hit_streamed", label, closest_hit_streamed, closest_hit_streamed_reference, args, packed,
@@ -900,13 +900,13 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     profiler."""
     device = scene.v0.device
     for k in KERNELS.values():
-        k["counter"].launches = 0
-    pcg_before, shade_before = PcgSampler.launches, shade.naive_shade.launches
+        _build.launch_counts[k["library"]] = 0
+    pcg_before, shade_before = _build.launch_counts[_build.PCG], _build.launch_counts[_build.SHADE]
     img = render_frame(scene, camera, settings)
     _sync(device)
-    launches = {name: k["counter"].launches for name, k in KERNELS.items()}
-    pcg_launches = PcgSampler.launches - pcg_before
-    shade_launches = shade.naive_shade.launches - shade_before
+    launches = {name: _build.launch_counts[k["library"]] for name, k in KERNELS.items()}
+    pcg_launches = _build.launch_counts[_build.PCG] - pcg_before
+    shade_launches = _build.launch_counts[_build.SHADE] - shade_before
     mean = img.mean().item()
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
@@ -1020,10 +1020,10 @@ def phase_pcg(device) -> list:
         if not (torch.equal(got, on_card) and torch.equal(got.cpu(), want)):
             raise AssertionError(f"pcg {name}: the kernel's output differs from the plain route's")
         step = rotating(kernel, x)
-        before = PcgSampler.launches
+        before = _build.launch_counts[_build.PCG]
         ms, host_ms = _device_and_host_ms(step, 200)
-        if PcgSampler.launches - before != 201:
-            raise AssertionError(f"pcg {name}: {PcgSampler.launches - before} launches in 201 calls")
+        if _build.launch_counts[_build.PCG] - before != 201:
+            raise AssertionError(f"pcg {name}: {_build.launch_counts[_build.PCG] - before} launches in 201 calls")
         plain_ms, plain_host_ms = _device_and_host_ms(plain, 5)
         b = bound(0, PCG_LANES * lane_bytes)
         rows.append({"name": f"pcg {name}", "lanes": PCG_LANES, "ms": ms, "host_ms": host_ms,
@@ -1116,10 +1116,10 @@ def phase_shade(device) -> list:
             outs[k] = call(copies[k])
             i[0] += 1
 
-        before = shade.naive_shade.launches
+        before = _build.launch_counts[_build.SHADE]
         ms, host_ms = _device_and_host_ms(timed, 200)
-        if shade.naive_shade.launches - before != 201:
-            raise AssertionError(f"shade {label}: {shade.naive_shade.launches - before} launches in 201 calls")
+        if _build.launch_counts[_build.SHADE] - before != 201:
+            raise AssertionError(f"shade {label}: {_build.launch_counts[_build.SHADE] - before} launches in 201 calls")
         rows_read = int(torch.unique(hit.tri.clamp(min=0)).numel())
         b = bound(0, lanes * (SHADE_READ_BYTES + SHADE_WRITE_BYTES) + rows_read * SHADE_ROW_BYTES)
         per_call = lambda t: {"host_ms": t["host_s"] * 1e3 / t["count"], "device_ms": t["device_s"] * 1e3 / t["count"],
@@ -1181,12 +1181,12 @@ def phase_light_cdf(device) -> None:
 
 
 def _launch_counts() -> dict:
-    return {name: k["counter"].launches for name, k in KERNELS.items()}
+    return {name: _build.launch_counts[k["library"]] for name, k in KERNELS.items()}
 
 
 def _reset_launches() -> None:
     for k in KERNELS.values():
-        k["counter"].launches = 0
+        _build.launch_counts[k["library"]] = 0
 
 
 def phase_grad_check(label: str, scene, camera, settings, expect: dict) -> dict:

@@ -15,6 +15,9 @@ The host library ``csrc/firefly_native.cpp`` (the OBJ parser, BVH builder
 and edge-table builder of ``native.py``) is built the same way by the host
 C++ compiler (``build_host``), with ``-ffp-contract=off`` so that no sum is
 fused into a multiply-add the Python builders do not make.
+
+Every kernel launch of the port goes through ``launch``, which counts it in
+``launch_counts``, and every tensor a kernel takes is checked by ``check``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -70,6 +75,8 @@ SHADE = "shade"
 # ``shade.cu`` include none of HEADERS, so they build in seconds and an edit
 # to the searches does not rebuild them.
 OCCUPANCY = {"closest_hit": 4, "occlusion": 4, "closest_hit_streamed": 5, "occlusion_streamed": 4}
+# Kernel launches made so far in this process, by library (``launch``).
+launch_counts = dict.fromkeys(LAUNCHES, 0)
 # The shared headers each library includes, and the flags it adds to
 # NVCC_FLAGS: the shade step is built without contracting a product and a
 # sum into one fused multiply-add, so that each float operation rounds as
@@ -168,6 +175,44 @@ def library(name: str) -> ctypes.CDLL:
     errstr.argtypes = [ctypes.c_int]
     errstr.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call launch function ``fn`` of kernel library ``name`` with ``args``
+    (a tensor passes its data pointer, None a null pointer) and the current
+    stream of ``device``, making ``device`` current for the call if it is
+    not; count the launch in ``launch_counts[name]``. Raises RuntimeError
+    with the library's message if CUDA refused the launch."""
+    lib = library(name)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
+    launch_counts[name] += 1
+
+
+def check(kernel: str, x: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, device=None,
+          aligned: bool = False) -> None:
+    """Raise ValueError unless ``x`` is what ``kernel`` takes as ``what``: a
+    contiguous ``dtype`` tensor of ``shape`` (a None entry: any size), on
+    ``device`` unless that is None, starting on a 16-byte boundary if
+    ``aligned`` (the kernels read such tensors in 16-byte pieces)."""
+    if x.dtype != dtype or x.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, x.shape)):
+        want = str(tuple("N" if s is None else s for s in shape)).replace("'", "")
+        raise ValueError(f"{kernel}: {what} must be {str(dtype).removeprefix('torch.')} {want}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {what} must be contiguous")
+    if device is not None and x.device != device:
+        raise ValueError(f"{kernel}: every tensor must be on {device}, {what} is on {x.device}")
+    if aligned and x.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {what} must start on a 16-byte boundary")
 
 
 def host_library_path() -> str:

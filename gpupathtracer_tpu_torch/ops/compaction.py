@@ -13,11 +13,25 @@ from __future__ import annotations
 
 import torch
 
-from gpupathtracer_tpu_torch.ops.packed_intersect import _morton_codes
-
 # A parked ray: far outside any practical scene, pointing further away.
 DEAD_ORIGIN = (3.0e7, 3.0e7, 3.0e7)
 DEAD_DIR = (0.577350269, 0.577350269, 0.577350269)
+
+
+def morton_codes(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """10-bit-per-axis Morton codes (30 bits, in int64) of ``points`` (N, 3)
+    in the box [lo, hi]: the sort key of the packed rows and of the rays."""
+    span = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((points - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):  # interleave 10 bits with 2-bit gaps
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
 
 
 def partition_alive(alive: torch.Tensor):
@@ -72,14 +86,14 @@ def compact_rays_coherent(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
         raise ValueError(f"unknown sort key {key_mode!r}")
     od, dd = o.detach(), d.detach()
     octant = (dd[:, 0] < 0).long() + 2 * (dd[:, 1] < 0).long() + 4 * (dd[:, 2] < 0).long()
-    dm = _morton_codes(dd, dd.new_full((3,), -1.0), dd.new_full((3,), 1.0))
+    dm = morton_codes(dd, dd.new_full((3,), -1.0), dd.new_full((3,), 1.0))
     # nanmin / nanmax over the live origins.
     use = alive[:, None] & ~torch.isnan(od)
     lo = torch.where(use, od, torch.inf).amin(dim=0)
     hi = torch.where(use, od, -torch.inf).amax(dim=0)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     hi = torch.where(torch.isfinite(hi), hi, 1.0)
-    om = _morton_codes(od, lo, hi)
+    om = morton_codes(od, lo, hi)
     dead = (~alive).long() << 31
     if key_mode == "origin":
         key = dead | (octant << 28) | ((om >> 15) << 13) | (dm >> 17)

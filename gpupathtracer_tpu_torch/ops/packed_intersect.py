@@ -9,10 +9,12 @@ For each tile of ``ray_tile`` rays an interval frustum test culls blocks and
 lower-bounds the hit distance into each survivor (``tile_block_mask``);
 ``plan_block_order`` sorts the survivors front to back.
 
-Two routes, chosen per pack as the JAX package chooses them: a pack of at
-most ``RESIDENT_BUDGET_BYTES`` takes the resident route, a larger one the
-streamed route. The streamed route pads the blocks to a multiple of ``bpc``
-(blocks per cluster, about ``CLUSTER_TARGET_BYTES`` each), schedules whole
+Two routes, chosen per pack as the JAX package chooses them (``route``, which
+the renderer's sort autos also follow): a pack of at most
+``RESIDENT_BUDGET_BYTES`` takes the resident route, a larger one the
+streamed route. ``prepare`` makes a search's inputs on either route. The
+streamed route pads the blocks to a multiple of ``bpc`` (blocks per
+cluster, about ``CLUSTER_TARGET_BYTES`` each), schedules whole
 clusters front to back, skips single blocks inside a cluster by their own
 entry bound, and uses ``STREAM_RAY_TILE``-ray tiles unless the caller pins a
 width. Four searches walk the schedules with early exit:
@@ -23,10 +25,12 @@ width. Four searches walk the schedules with early exit:
   (``csrc/occlusion_streamed.cu``): whether any accepted hit lies before a
   per-ray cutoff ``max_t`` (shadow rays; no division).
 
-On a CUDA tensor each launches its kernel; on a CPU tensor it runs its plain
-PyTorch version (the same name with ``_reference``). All four kernels read
-only the ``LIVE_SLOTS`` of ``w`` (``ops/plucker.py``), so every wrapper takes
-only the ``w`` of a pack marked ``live_slots_only``, on every device:
+On a CUDA tensor each launches its kernel (through ``_build.launch``, which
+counts the launches by library); on a CPU tensor it runs its plain PyTorch
+version (the same name with ``_reference``); one body, ``_search``, serves
+all four. All four kernels read only the ``LIVE_SLOTS`` of ``w``
+(``ops/plucker.py``), so every wrapper takes only the ``w`` of a pack
+marked ``live_slots_only``, on every device:
 ``pack_scene`` marks its packs, and ``mark_live_slots`` marks a pack built
 elsewhere (one carried from the JAX package) once it has checked the zeros.
 
@@ -52,12 +56,14 @@ streamed route its any-hit counter (``frame_anyhit_tests``); both open the
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from gpupathtracer_tpu_torch.core.tensors import TensorCache, to_device
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import _build
+from gpupathtracer_tpu_torch.ops.compaction import morton_codes, partition_alive
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
 from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
 from gpupathtracer_tpu_torch.utils.profiling import frame_anyhit_tests, frame_tests, scope
@@ -295,21 +301,6 @@ def mark_live_slots(packed: PackedScene) -> PackedScene:
     return dataclasses.replace(packed, live_slots_only=True)
 
 
-def _morton_codes(centroids: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """10-bit-per-axis Morton codes (30 bits, in int64)."""
-    span = torch.clamp(hi - lo, min=1e-12)
-    q = torch.clamp((centroids - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
-
-    def spread(x):  # interleave 10 bits with 2-bit gaps
-        x = (x | (x << 16)) & 0x030000FF
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-
-    return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
-
-
 # Pack cache: repeated frames pack the same scene tensors; keyed on the five
 # tensors the pack reads and tri_block.
 _PACK_CACHE = TensorCache(size=4)
@@ -369,7 +360,7 @@ def _pack_rows(a2, b2, c2, tri_map, tri_block: int) -> PackedScene:
     hi = torch.where(lf, cent, -INF).amax(dim=0)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     hi = torch.where(torch.isfinite(hi), hi, 0.0)
-    codes = torch.where(live_row, _morton_codes(cent, lo, hi), 0xFFFFFFFF)
+    codes = torch.where(live_row, morton_codes(cent, lo, hi), 0xFFFFFFFF)
     order = torch.argsort(codes, stable=True)
     a2, b2, c2 = a2[order], b2[order], c2[order]
     tri_map = tri_map[order]
@@ -483,16 +474,26 @@ def plan_block_order(mask: torch.Tensor, enter: torch.Tensor):
     return order.to(torch.int32), enter_sorted
 
 
-def is_resident(packed: PackedScene) -> bool:
-    """Whether the pack takes the resident route (the JAX package's rule)."""
-    return packed.w.numel() * 4 <= RESIDENT_BUDGET_BYTES
+class Route(NamedTuple):
+    """A pack's route (``route``)."""
+
+    streamed: bool
+    bpc: int  # blocks a cluster of the streamed route
+    ray_tile: int
 
 
-def _plan_stream_shape(nb: int, tri_block: int) -> int:
-    """Blocks per cluster of the streamed route: as many as fit in
-    ``CLUSTER_TARGET_BYTES`` (at least 1, at most ``nb``)."""
+def route(blocks: int, tri_block: int, ray_tile: int = DEFAULT_RAY_TILE) -> Route:
+    """The route of a pack of ``blocks`` blocks of ``tri_block`` rows, by
+    the JAX package's rule, with ``RESIDENT_BUDGET_BYTES`` and
+    ``CLUSTER_TARGET_BYTES`` read at call time: a pack of more than
+    ``RESIDENT_BUDGET_BYTES`` is streamed, in tiles of ``STREAM_RAY_TILE``
+    rays unless ``ray_tile`` is not the default. ``bpc`` is the blocks of
+    about ``CLUSTER_TARGET_BYTES`` that a cluster of the streamed route
+    holds (at least 1, at most ``blocks``), given on either route."""
     block_bytes = K * NSCALARS * tri_block * 4
-    return min(max(1, CLUSTER_TARGET_BYTES // block_bytes), max(nb, 1))
+    streamed = blocks * block_bytes > RESIDENT_BUDGET_BYTES
+    bpc = min(max(1, CLUSTER_TARGET_BYTES // block_bytes), max(blocks, 1))
+    return Route(streamed, bpc, STREAM_RAY_TILE if streamed and ray_tile == DEFAULT_RAY_TILE else ray_tile)
 
 
 def _pad_blocks(packed: PackedScene, bpc: int) -> PackedScene:
@@ -545,44 +546,41 @@ def cluster_schedule(mask: torch.Tensor, enter: torch.Tensor, bpc: int):
     return order, enter_sorted, enter_blk
 
 
-def _check_inputs(order, enter, feats, lanes, w, ray_tile: int, lanes_name: str = "alive", enter_blk=None) -> None:
-    """Raise on anything the kernels do not take. ``lanes`` is the per-ray
-    input after ``feats``: ``alive`` int32 for the closest hit, ``maxt``
-    float32 for the any hit. With ``enter_blk`` (the streamed searches) the
-    schedule has one column per cluster of ``nb // order.shape[1]`` blocks.
-    ``w`` must be a ``live_slots_only`` pack's, on every device (a host-side
-    check: nothing synchronises)."""
+def _check_inputs(spec: _Search, schedule, feats, lanes, w, ray_tile: int, tests) -> None:
+    """Raise on anything the kernel of ``spec`` does not take. ``schedule``
+    is ``(order, enter)``, or for the streamed searches ``(order, enter,
+    enter_blk)`` with one column per cluster of ``nb // order.shape[1]``
+    blocks; ``lanes`` is the per-ray input after ``feats`` (``spec.lanes``:
+    ``alive`` int32 for the closest hit, ``maxt`` float32 for the any hit);
+    ``tests`` is None or int64 (1,). ``w`` must be a
+    ``live_slots_only`` pack's, on every device (a host-side check: nothing
+    synchronises)."""
     if w.dim() != 3 or w.shape[1] != K or w.shape[2] % NSCALARS:
         raise ValueError(f"w must be (nb, {K}, {NSCALARS}*tb), got {tuple(w.shape)}")
     nb, tb = w.shape[0], w.shape[2] // NSCALARS
     if feats.dim() != 2 or feats.shape[1] != K or feats.shape[0] % ray_tile:
         raise ValueError(f"feats must be (rt*{ray_tile}, {K}), got {tuple(feats.shape)}")
     rt = feats.shape[0] // ray_tile
+    order, enter, *enter_blk = schedule
     nsched = nb
-    if enter_blk is not None:
+    if enter_blk:
         nsched = order.shape[1] if order.dim() == 2 else 0
         if nsched == 0 or nb % nsched:
             raise ValueError(f"order must have one column per cluster of the {nb} blocks, got {tuple(order.shape)}")
-    lanes_dtype = torch.float32 if lanes_name == "maxt" else torch.int32
-    expect = {
-        "order": (order, torch.int32, (rt, nsched)),
-        "enter": (enter, torch.float32, (rt, nsched)),
-        "feats": (feats, torch.float32, (rt * ray_tile, K)),
-        lanes_name: (lanes, lanes_dtype, (rt * ray_tile,)),
-        "w": (w, torch.float32, (nb, K, NSCALARS * tb)),
-    }
-    if enter_blk is not None:
-        expect["enter_blk"] = (enter_blk, torch.float32, (rt, nb))
     if not _live_slots_only(w):
         raise ValueError("the packed searches read only LIVE_SLOTS of w: w must be the w of a live_slots_only "
                          "pack (pack_scene's, padded or moved, or one marked by mark_live_slots), unedited since")
-    for name, (x, dtype, shape) in expect.items():
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != feats.device:
-            raise ValueError(f"{name} is on {x.device}, feats on {feats.device}")
+    lanes_name, lanes_dtype = spec.lanes
+    expect = [("order", order, torch.int32, (rt, nsched)), ("enter", enter, torch.float32, (rt, nsched)),
+              *(("enter_blk", x, torch.float32, (rt, nb)) for x in enter_blk),
+              ("feats", feats, torch.float32, (rt * ray_tile, K)), (lanes_name, lanes, lanes_dtype, (rt * ray_tile,)),
+              ("w", w, torch.float32, (nb, K, NSCALARS * tb))]
+    if tests is not None:
+        expect.append(("tests", tests, torch.int64, (1,)))
+    for what, x, dtype, shape in expect:
+        # The kernels copy w and its bf16 operands (_kernel_operands' fresh
+        # allocations) in 16-byte pieces.
+        _build.check(spec.library, x, what, dtype, shape, feats.device, aligned=x is w)
     if rt == 0 or nb == 0:
         raise ValueError("the packed search needs at least one ray tile and one block")
     if ray_tile % 32 or not 32 <= ray_tile <= 1024:
@@ -600,75 +598,6 @@ def _kernel_device(feats, name: str) -> torch.device | None:
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {dev.type}")
     return dev
-
-
-def _launch(name: str, library: str, dev: torch.device, tensors, w, schedule_ints, ray_tile: int,
-            precision: str, mode_ints=()) -> None:
-    """Launch ``<library>_launch`` on the current stream of ``dev`` with the
-    tensors' device pointers (None passes a null pointer), the ints of the
-    schedule (rt, nb for the resident searches; rt, nc, bpc for the
-    streamed ones), tb, the launch shape for ``ray_tile``, the precision and
-    ``mode_ints`` (K3's traversal modes); raise if CUDA refused it."""
-    # The kernels copy w and its bf16 operands in 16-byte pieces;
-    # _kernel_operands makes the operands fresh allocations, so checking w does.
-    if w.data_ptr() % 16:
-        raise ValueError("w must start on a 16-byte boundary for the kernels")
-    ints = (tuple(schedule_ints) + (w.shape[2] // NSCALARS,) + _shape_ints(library, ray_tile, precision)
-            + tuple(mode_ints))
-    lib = _build.library(library)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"{library}_launch")(
-            *(None if t is None else t.data_ptr() for t in tensors), *ints,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        msg = getattr(lib, f"{library}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-
-
-def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest",
-                tests=None):
-    """Closest hit of every ray tile along its schedule: ``(best_t, best_i)``,
-    (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1),
-    with the decision product at ``precision`` (``PRECISIONS``). ``tests``
-    (int64 (1,) on the rays' device, or None) takes the (live lane, triangle
-    column) tests computed: the blocks each tile computed x its live lanes
-    x tb, the plain version's ``lane_blocks`` x tb.
-
-    On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit.cu``, at ``launch_shape``) and raises if it cannot;
-    on CPU tensors it runs ``closest_hit_reference``. The kernel reads only
-    the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
-    ``live_slots_only`` pack (``pack_scene``'s, or one marked by
-    ``mark_live_slots``); any other raises, on every device.
-    ``closest_hit.launches`` counts kernel launches.
-    """
-    precision = resolve_precision(precision)
-    _check_inputs(order, enter, feats, alive, w, ray_tile)
-    _check_tests(tests, feats)
-    dev = _kernel_device(feats, "closest_hit")
-    if dev is None:
-        return closest_hit_reference(order, enter, feats, alive, w, ray_tile, precision=precision, tests=tests)
-    best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
-    best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch(
-        "closest_hit", "closest_hit", dev,
-        (order, enter, feats, alive, *_kernel_operands(w, precision), best_t, best_i, tests),
-        w, (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
-    )
-    closest_hit.launches += 1
-    return best_t, best_i
-
-
-closest_hit.launches = 0
-
-
-def _check_tests(tests, feats) -> None:
-    """Raise unless ``tests`` is None or an int64 tensor of one element on
-    the rays' device."""
-    if tests is not None and (tests.dtype != torch.int64 or tests.shape != (1,) or tests.device != feats.device):
-        raise ValueError(f"tests must be int64 (1,) on {feats.device}, got {tests.dtype} {tuple(tests.shape)} "
-                         f"on {tests.device}")
 
 
 # Pairs (ray x column) the plain versions evaluate per batched matmul; bounds
@@ -772,72 +701,12 @@ def _check_stream_modes(feats, ray_tile: int, init_t, init_i, budget, subtiles: 
     if (init_t is None) != (init_i is None):
         raise ValueError("init_t and init_i seed the lanes together: give both or neither")
     if init_t is not None:
-        for name, x, dtype in (("init_t", init_t, torch.float32), ("init_i", init_i, torch.int32)):
-            if x.dtype != dtype or tuple(x.shape) != (feats.shape[0],) or not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous {dtype} ({feats.shape[0]},), got {x.dtype} {tuple(x.shape)}")
-            if x.device != feats.device:
-                raise ValueError(f"{name} is on {x.device}, feats on {feats.device}")
+        for what, x, dtype in (("init_t", init_t, torch.float32), ("init_i", init_i, torch.int32)):
+            _build.check("closest_hit_streamed", x, what, dtype, (feats.shape[0],), feats.device)
     if budget is not None and budget < 1:
         raise ValueError(f"budget must be None or at least 1, got {budget}")
     if subtiles < 1 or ray_tile % subtiles:
         raise ValueError(f"subtiles must divide ray_tile {ray_tile}, got {subtiles}")
-
-
-def closest_hit_streamed(
-    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, precision: str = "highest",
-    init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1, fresh: bool = False,
-    with_done: bool = False, tests=None,
-):
-    """Closest hit of every ray tile along its cluster schedule (the streamed
-    route): ``(best_t, best_i)`` as ``closest_hit`` gives them, and the
-    tests computed added to ``tests`` as there. ``order`` and
-    ``enter`` are (rt, nc), ``enter_blk`` (rt, nb) and ``w`` (nb, K, 5·tb)
-    with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
-
-    The traversal modes of the JAX package's ``_kernel_streamed``: live
-    lanes start from ``init_t``/``init_i`` (both or neither; BIG and -1 by
-    default), dead lanes from -inf and ``init_i``; a tile visits at most
-    ``budget`` clusters; ``subtiles`` > 1 gates each block on the running
-    worst of each group of ray_tile / subtiles lanes, ``fresh`` on the
-    tile's running worst. ``with_done=True`` also returns ``done``, int32
-    (R_pad,): 1 where the lane's result is final (the schedule ran out, or
-    its best_t is at most the entry bound of the next unvisited cluster).
-
-    On CUDA tensors this launches the hand-written kernel
-    (``csrc/closest_hit_streamed.cu``, at ``launch_shape``; the mode
-    instantiation when any mode is asked for) and raises if it cannot; on
-    CPU tensors it runs ``closest_hit_streamed_reference``. The kernel reads
-    only the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
-    ``live_slots_only`` pack (``pack_scene``'s, padded by ``_pad_blocks``
-    or moved by ``to``); any other raises, on every device.
-    ``closest_hit_streamed.launches`` counts kernel launches.
-    """
-    precision = resolve_precision(precision)
-    _check_inputs(order, enter, feats, alive, w, ray_tile, enter_blk=enter_blk)
-    _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
-    _check_tests(tests, feats)
-    modes = dict(init_t=init_t, init_i=init_i, budget=budget, subtiles=subtiles, fresh=fresh, with_done=with_done,
-                 tests=tests)
-    dev = _kernel_device(feats, "closest_hit_streamed")
-    if dev is None:
-        return closest_hit_streamed_reference(order, enter, enter_blk, feats, alive, w, ray_tile,
-                                              precision=precision, **modes)
-    best_t = torch.empty(feats.shape[0], dtype=torch.float32, device=dev)
-    best_i = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    any_mode = init_t is not None or budget is not None or subtiles > 1 or fresh or with_done
-    done = torch.empty(feats.shape[0], dtype=torch.int32, device=dev) if any_mode else None
-    _launch(
-        "closest_hit_streamed", "closest_hit_streamed", dev,
-        (order, enter, enter_blk, feats, alive, init_t, init_i, *_kernel_operands(w, precision), best_t,
-         best_i, done, tests),
-        w, (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
-        (int(any_mode), budget or 0, subtiles, int(fresh)),
-    )
-    closest_hit_streamed.launches += 1
-    return (best_t, best_i, done) if with_done else (best_t, best_i)
-
-
-closest_hit_streamed.launches = 0
 
 
 def closest_hit_streamed_reference(
@@ -943,35 +812,6 @@ def closest_hit_streamed_reference(
     return out + ({"blocks": blocks, "lane_blocks": lane_blocks},) if count_work else out
 
 
-def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest"):
-    """Any-hit search of every ray tile along its schedule: an int32 flag
-    (R_pad,), 1 where some accepted hit has t < ``maxt`` (lanes with
-    ``maxt = 0`` are never tested and report 0), with the decision product
-    at ``precision``.
-
-    On CUDA tensors this launches the hand-written kernel
-    (``csrc/occlusion.cu``, at ``launch_shape``) and raises if it cannot; on
-    CPU tensors it runs ``occluded_reference``. The kernel reads only the
-    ``LIVE_SLOTS`` of ``w``, as ``closest_hit``. ``occluded.launches`` counts
-    kernel launches.
-    """
-    precision = resolve_precision(precision)
-    _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt")
-    dev = _kernel_device(feats, "occluded")
-    if dev is None:
-        return occluded_reference(order, enter, feats, maxt, w, ray_tile, precision=precision)
-    occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch(
-        "occluded", "occlusion", dev, (order, enter, feats, maxt, *_kernel_operands(w, precision), occ), w,
-        (feats.shape[0] // ray_tile, w.shape[0]), ray_tile, precision,
-    )
-    occluded.launches += 1
-    return occ
-
-
-occluded.launches = 0
-
-
 def occluded_reference(
     order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, count_work: bool = False,
     precision: str = "highest",
@@ -1009,43 +849,6 @@ def occluded_reference(
             occ[ti] |= _blocked(ft[ti], mt[ti], w, order[ti, j].long(), tb, precision)
     out = occ.reshape(-1).to(torch.int32)
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
-
-
-def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE,
-                      precision: str = "highest", tests=None):
-    """Any-hit search of every ray tile along its cluster schedule (the
-    streamed route): int32 flags as ``occluded`` gives them, with the
-    schedule inputs of ``closest_hit_streamed`` and the decision product at
-    ``precision``. ``tests`` (int64 (1,) on the rays' device, or None)
-    takes the (open lane, triangle column) tests of the blocks tested: for
-    each tested (tile, block), the tile's lanes still open at its start
-    (unoccluded, maxt > 0) x tb, the plain version's ``lane_blocks`` x tb.
-
-    On CUDA tensors this launches the hand-written kernel
-    (``csrc/occlusion_streamed.cu``, at ``launch_shape``) and raises
-    if it cannot; on CPU tensors it runs ``occluded_streamed_reference``.
-    The kernel reads only the ``LIVE_SLOTS`` of ``w``, as
-    ``closest_hit_streamed``. ``occluded_streamed.launches`` counts kernel
-    launches.
-    """
-    precision = resolve_precision(precision)
-    _check_inputs(order, enter, feats, maxt, w, ray_tile, lanes_name="maxt", enter_blk=enter_blk)
-    _check_tests(tests, feats)
-    dev = _kernel_device(feats, "occluded_streamed")
-    if dev is None:
-        return occluded_streamed_reference(order, enter, enter_blk, feats, maxt, w, ray_tile, precision=precision,
-                                           tests=tests)
-    occ = torch.empty(feats.shape[0], dtype=torch.int32, device=dev)
-    _launch(
-        "occluded_streamed", "occlusion_streamed", dev,
-        (order, enter, enter_blk, feats, maxt, *_kernel_operands(w, precision), occ, tests), w,
-        (feats.shape[0] // ray_tile, order.shape[1], w.shape[0] // order.shape[1]), ray_tile, precision,
-    )
-    occluded_streamed.launches += 1
-    return occ
-
-
-occluded_streamed.launches = 0
 
 
 def occluded_streamed_reference(
@@ -1106,84 +909,229 @@ def occluded_streamed_reference(
     return (out, {"blocks": blocks, "lane_blocks": lane_blocks}) if count_work else out
 
 
-def _padded_rays(o, d, lanes, ray_tile: int):
-    """``(o, d, feats, lanes, pad)`` padded to a ``ray_tile`` multiple; padded
-    lanes carry o = 0, d = (1, 1, 1) and lane value 0."""
+@dataclasses.dataclass(frozen=True)
+class _Search:
+    """What sets one of the four packed searches apart: its kernel library,
+    the name and dtype of its per-ray input, the dtypes of its (R_pad,)
+    outputs, whether it takes the test counter, whether it takes K3's
+    traversal modes (and then may return ``done``), and the name of its
+    plain version, which is looked up in this module when it is called, so
+    that a caller may patch it."""
+
+    library: str
+    lanes: tuple
+    outputs: tuple
+    counts: bool
+    modes: bool
+    plain: str
+
+
+_CLOSEST_HIT = _Search("closest_hit", ("alive", torch.int32), (torch.float32, torch.int32), True, False,
+                       "closest_hit_reference")
+_CLOSEST_HIT_STREAMED = _Search("closest_hit_streamed", ("alive", torch.int32), (torch.float32, torch.int32), True,
+                                True, "closest_hit_streamed_reference")
+_OCCLUDED = _Search("occlusion", ("maxt", torch.float32), (torch.int32,), False, False, "occluded_reference")
+_OCCLUDED_STREAMED = _Search("occlusion_streamed", ("maxt", torch.float32), (torch.int32,), True, False,
+                             "occluded_streamed_reference")
+
+
+def _search(spec: _Search, schedule: tuple, feats, lanes, w, ray_tile: int, precision: str, tests=None,
+            init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1, fresh: bool = False,
+            with_done: bool = False):
+    """The body of the four searches: check the inputs, then run the plain
+    version on CPU tensors, or launch the kernel of ``spec`` on CUDA
+    tensors, on ``schedule`` (``(order, enter)``, or ``(order, enter,
+    enter_blk)`` streamed). The traversal modes are K3's."""
+    precision = resolve_precision(precision)
+    _check_inputs(spec, schedule, feats, lanes, w, ray_tile, tests)
+    counter = {"tests": tests} if spec.counts else {}
+    modes = {}
+    if spec.modes:
+        _check_stream_modes(feats, ray_tile, init_t, init_i, budget, subtiles)
+        modes = dict(init_t=init_t, init_i=init_i, budget=budget, subtiles=subtiles, fresh=fresh, with_done=with_done)
+    dev = _kernel_device(feats, spec.library)
+    if dev is None:
+        return globals()[spec.plain](*schedule, feats, lanes, w, ray_tile, precision=precision, **modes, **counter)
+    out = [torch.empty(feats.shape[0], dtype=dtype, device=dev) for dtype in spec.outputs]
+    any_mode = init_t is not None or budget is not None or subtiles > 1 or fresh or with_done
+    seeds, mode_ints = (), ()
+    if spec.modes:
+        out.append(torch.empty(feats.shape[0], dtype=torch.int32, device=dev) if any_mode else None)  # done
+        seeds, mode_ints = (init_t, init_i), (int(any_mode), budget or 0, subtiles, int(fresh))
+    rt, nb, nsched = feats.shape[0] // ray_tile, w.shape[0], schedule[0].shape[1]
+    shape = (rt, nb) if len(schedule) == 2 else (rt, nsched, nb // nsched)
+    _build.launch(spec.library, f"{spec.library}_launch", dev, *schedule, feats, lanes, *seeds,
+                  *_kernel_operands(w, precision), *out, *counter.values(), *shape, w.shape[2] // NSCALARS,
+                  *_shape_ints(spec.library, ray_tile, precision), *mode_ints)
+    if spec.modes and not with_done:
+        out.pop()
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def closest_hit(order, enter, feats, alive, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest",
+                tests=None):
+    """Closest hit of every ray tile along its schedule: ``(best_t, best_i)``,
+    (R_pad,) float32 and int32 (packed row, -1 on miss; dead lanes -inf/-1),
+    with the decision product at ``precision`` (``PRECISIONS``). ``tests``
+    (int64 (1,) on the rays' device, or None) takes the (live lane, triangle
+    column) tests computed: the blocks each tile computed x its live lanes
+    x tb, the plain version's ``lane_blocks`` x tb.
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/closest_hit.cu``, at ``launch_shape``) and raises if it cannot;
+    on CPU tensors it runs ``closest_hit_reference``. The kernel reads only
+    the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
+    ``live_slots_only`` pack (``pack_scene``'s, or one marked by
+    ``mark_live_slots``); any other raises, on every device.
+    """
+    return _search(_CLOSEST_HIT, (order, enter), feats, alive, w, ray_tile, precision, tests)
+
+
+def closest_hit_streamed(
+    order, enter, enter_blk, feats, alive, w, ray_tile: int = STREAM_RAY_TILE, precision: str = "highest",
+    init_t=None, init_i=None, budget: int | None = None, subtiles: int = 1, fresh: bool = False,
+    with_done: bool = False, tests=None,
+):
+    """Closest hit of every ray tile along its cluster schedule (the streamed
+    route): ``(best_t, best_i)`` as ``closest_hit`` gives them, and the
+    tests computed added to ``tests`` as there. ``order`` and
+    ``enter`` are (rt, nc), ``enter_blk`` (rt, nb) and ``w`` (nb, K, 5·tb)
+    with nb a multiple of nc (``cluster_schedule``, ``_pad_blocks``).
+
+    The traversal modes of the JAX package's ``_kernel_streamed``: live
+    lanes start from ``init_t``/``init_i`` (both or neither; BIG and -1 by
+    default), dead lanes from -inf and ``init_i``; a tile visits at most
+    ``budget`` clusters; ``subtiles`` > 1 gates each block on the running
+    worst of each group of ray_tile / subtiles lanes, ``fresh`` on the
+    tile's running worst. ``with_done=True`` also returns ``done``, int32
+    (R_pad,): 1 where the lane's result is final (the schedule ran out, or
+    its best_t is at most the entry bound of the next unvisited cluster).
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/closest_hit_streamed.cu``, at ``launch_shape``; the mode
+    instantiation when any mode is asked for) and raises if it cannot; on
+    CPU tensors it runs ``closest_hit_streamed_reference``. The kernel reads
+    only the ``LIVE_SLOTS`` of ``w``, so ``w`` must be the w of a
+    ``live_slots_only`` pack (``pack_scene``'s, padded by ``_pad_blocks``
+    or moved by ``to``); any other raises, on every device.
+    """
+    return _search(_CLOSEST_HIT_STREAMED, (order, enter, enter_blk), feats, alive, w, ray_tile, precision, tests,
+                   init_t, init_i, budget, subtiles, fresh, with_done)
+
+
+def occluded(order, enter, feats, maxt, w, ray_tile: int = DEFAULT_RAY_TILE, precision: str = "highest"):
+    """Any-hit search of every ray tile along its schedule: an int32 flag
+    (R_pad,), 1 where some accepted hit has t < ``maxt`` (lanes with
+    ``maxt = 0`` are never tested and report 0), with the decision product
+    at ``precision``.
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/occlusion.cu``, at ``launch_shape``) and raises if it cannot; on
+    CPU tensors it runs ``occluded_reference``. The kernel reads only the
+    ``LIVE_SLOTS`` of ``w``, as ``closest_hit``.
+    """
+    return _search(_OCCLUDED, (order, enter), feats, maxt, w, ray_tile, precision)
+
+
+def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = STREAM_RAY_TILE,
+                      precision: str = "highest", tests=None):
+    """Any-hit search of every ray tile along its cluster schedule (the
+    streamed route): int32 flags as ``occluded`` gives them, with the
+    schedule inputs of ``closest_hit_streamed`` and the decision product at
+    ``precision``. ``tests`` (int64 (1,) on the rays' device, or None)
+    takes the (open lane, triangle column) tests of the blocks tested: for
+    each tested (tile, block), the tile's lanes still open at its start
+    (unoccluded, maxt > 0) x tb, the plain version's ``lane_blocks`` x tb.
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/occlusion_streamed.cu``, at ``launch_shape``) and raises
+    if it cannot; on CPU tensors it runs ``occluded_streamed_reference``.
+    The kernel reads only the ``LIVE_SLOTS`` of ``w``, as
+    ``closest_hit_streamed``.
+    """
+    return _search(_OCCLUDED_STREAMED, (order, enter, enter_blk), feats, maxt, w, ray_tile, precision, tests)
+
+
+def prepare(o, d, lanes, packed: PackedScene, way: Route, any_hit: bool = False):
+    """A search's inputs for rays (R, 3) with unit directions on the route
+    ``way``: ``(o, d, packed, inputs)``, with the rays padded to a multiple
+    of ``way.ray_tile`` and, on the streamed route, the pack's blocks padded
+    to whole clusters of ``way.bpc``; ``inputs`` are the search's leading
+    arguments, ``(order, enter, feats, lanes, w)`` on the resident route and
+    ``(order, enter, enter_blk, feats, lanes, w)`` on the streamed one.
+    ``lanes`` is the closest hit's live mask (R,) bool (None: every lane is
+    live; int32 in ``inputs``), or with ``any_hit`` the cutoffs ``max_t``
+    (R,) (float32 in ``inputs``). The tile frustums follow the live lanes,
+    or the lanes with ``max_t`` > 0. Padded lanes carry o = 0, d = (1, 1, 1)
+    and lane value 0: dead, or never tested."""
+    if way.streamed:
+        packed = _pad_blocks(packed, way.bpc)
+    everyone = lanes is None and not any_hit
+    if any_hit:
+        lanes = lanes.to(torch.float32)
+    elif everyone:
+        lanes = torch.ones((o.shape[0],), dtype=torch.int32, device=o.device)
+    else:
+        lanes = lanes.to(torch.int32)
     feats = pack_rays(o, d)
-    pad = (-o.shape[0]) % ray_tile
+    pad = (-o.shape[0]) % way.ray_tile
     if pad:
         feats = torch.cat([feats, feats.new_zeros((pad, K))])
         o = torch.cat([o, o.new_zeros((pad, 3))])
         d = torch.cat([d, d.new_ones((pad, 3))])
         lanes = torch.cat([lanes, lanes.new_zeros((pad,))])
-    return o, d, feats, lanes, pad
+    lanes = lanes.contiguous()
+    mask, enter = tile_block_mask(o, d, packed, way.ray_tile, alive=None if everyone and not pad else lanes > 0)
+    schedule = cluster_schedule(mask, enter, way.bpc) if way.streamed else plan_block_order(mask, enter)
+    return o, d, packed, (*schedule, feats, lanes, packed.w)
 
 
-def _alive_lanes(o, d, alive, ray_tile: int):
-    """The closest-hit lane inputs: ``(o, d, feats, alive_i, cull_alive)``,
-    where ``cull_alive`` is the live mask the tile frustums follow (None
-    when every lane is live)."""
-    alive_i = (
-        torch.ones((o.shape[0],), dtype=torch.int32, device=o.device)
-        if alive is None
-        else alive.to(torch.int32)
-    )
-    o, d, feats, alive_i, pad = _padded_rays(o, d, alive_i, ray_tile)
-    return o, d, feats, alive_i, None if alive is None and not pad else alive_i > 0
-
-
-def _stream_pack(packed: PackedScene):
-    """``(padded pack, bpc)`` of the streamed route."""
-    bpc = _plan_stream_shape(packed.w.shape[0], packed.tri_block)
-    return _pad_blocks(packed, bpc), bpc
+def _streamed(packed: PackedScene, ray_tile: int) -> Route:
+    """The streamed route of ``packed`` at ``ray_tile``, whatever its size."""
+    return Route(True, route(packed.w.shape[0], packed.tri_block).bpc, ray_tile)
 
 
 def prepare_rays(o, d, packed: PackedScene, alive=None, ray_tile: int = DEFAULT_RAY_TILE):
-    """The closest-hit inputs of the resident route for rays (R, 3) with
-    unit directions: ``(order, enter, feats, alive_i)``, padded to a
-    ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and are dead."""
-    o, d, feats, alive_i, cull = _alive_lanes(o, d, alive, ray_tile)
-    mask, enter = tile_block_mask(o, d, packed, ray_tile, alive=cull)
-    order, enter_sorted = plan_block_order(mask, enter)
-    return order, enter_sorted, feats, alive_i
-
-
-def _prepare_streamed(o, d, packed: PackedScene, alive, ray_tile: int):
-    """``(padded pack, bpc, o, d, inputs)`` of the streamed closest hit, with
-    ``o``, ``d`` padded and ``inputs`` as ``prepare_rays_streamed`` gives
-    them."""
-    padded, bpc = _stream_pack(packed)
-    o, d, feats, alive_i, cull = _alive_lanes(o, d, alive, ray_tile)
-    mask, enter = tile_block_mask(o, d, padded, ray_tile, alive=cull)
-    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
-    return padded, bpc, o, d, (order, enter_sorted, enter_blk, feats, alive_i, padded.w)
+    """``prepare``'s closest-hit inputs on the resident route, without w:
+    ``(order, enter, feats, alive_i)``."""
+    return prepare(o, d, alive, packed, Route(False, 0, ray_tile))[-1][:-1]
 
 
 def prepare_rays_streamed(o, d, packed: PackedScene, alive=None, ray_tile: int = STREAM_RAY_TILE):
-    """The closest-hit inputs of the streamed route: ``(order, enter,
-    enter_blk, feats, alive_i, w)``, with the pack's blocks padded to whole
-    clusters (``w`` is the padded pack's)."""
-    return _prepare_streamed(o, d, packed, alive, ray_tile)[-1]
+    """``prepare``'s closest-hit inputs on the streamed route: ``(order,
+    enter, enter_blk, feats, alive_i, w)``, ``w`` the padded pack's."""
+    return prepare(o, d, alive, packed, _streamed(packed, ray_tile))[-1]
 
 
-def _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile: int, **modes):
+def prepare_shadow_rays(o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE):
+    """``prepare``'s any-hit inputs on the resident route, without w:
+    ``(order, enter, feats, maxt)``."""
+    return prepare(o, d, max_t, packed, Route(False, 0, ray_tile), any_hit=True)[-1][:-1]
+
+
+def prepare_shadow_rays_streamed(o, d, max_t, packed: PackedScene, ray_tile: int = STREAM_RAY_TILE):
+    """``prepare``'s any-hit inputs on the streamed route: ``(order, enter,
+    enter_blk, feats, maxt, w)``."""
+    return prepare(o, d, max_t, packed, _streamed(packed, ray_tile), any_hit=True)[-1]
+
+
+def _regroup_stragglers(search, prepared, way: Route, best_t, best_i, done, **modes):
     """Phase 2 of the two-phase streamed search, as the JAX package's
     ``intersect_pallas`` runs it: the live lanes that phase 1 left undone
     are packed densely into fresh tiles (a stable partition, which keeps
     the caller's coherence order), scheduled anew and resumed from their
     partial hits with no cluster cap; tiles of finished lanes cull
-    everything. Returns the merged ``(best_t, best_i)``."""
-    from gpupathtracer_tpu_torch.ops.compaction import partition_alive
-
-    padded, bpc, o, d, (_, _, _, feats, alive_i, w) = prepared
+    everything. ``prepared`` is ``prepare``'s. Returns the merged
+    ``(best_t, best_i)``."""
+    o, d, padded, (_, _, _, feats, alive_i, w) = prepared
     with scope("render.schedule"):
         undone = (alive_i > 0) & (done == 0)
         perm, inv = partition_alive(undone)
         und_p = undone[perm]
-        mask, enter = tile_block_mask(o[perm], d[perm], padded, ray_tile, alive=und_p)
-        order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
+        mask, enter = tile_block_mask(o[perm], d[perm], padded, way.ray_tile, alive=und_p)
+        order, enter_sorted, enter_blk = cluster_schedule(mask, enter, way.bpc)
     with scope("render.search.closest"):
-        bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, ray_tile,
+        bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, way.ray_tile,
                           init_t=torch.where(und_p, best_t[perm], -INF), init_i=best_i[perm], **modes)
         return torch.where(undone, bt2[inv], best_t), torch.where(undone, bi2[inv], best_i)
 
@@ -1203,9 +1151,8 @@ def intersect_packed(
     """Closest hit of rays (R, 3) against the packed scene; ``d`` must be
     unit directions. ``tri`` holds scene rows (``tri_map`` applied).
 
-    The pack's size picks the route (``is_resident``); the streamed route
-    tiles rays by ``STREAM_RAY_TILE`` unless ``ray_tile`` is not the
-    default, and runs the traversal modes of ``STREAM_PHASE1_BUDGET``,
+    The pack's size picks the route and the ray tile (``route``); the
+    streamed route runs the traversal modes of ``STREAM_PHASE1_BUDGET``,
     ``STREAM_SUBTILES`` (where it divides the tile) and
     ``STREAM_FRESH_WORST``: with a budget, the lanes phase 1 leaves undone
     are regrouped and resumed (``_regroup_stragglers``). ``alive`` (R,)
@@ -1222,57 +1169,25 @@ def intersect_packed(
     o, d = o.detach(), d.detach()
     precision = resolve_precision(precision)
     tests = frame_tests()
-    if is_resident(packed):
-        search = closest_hit_reference if plain else closest_hit
-        with scope("render.schedule"):
-            order, enter, feats, alive_i = prepare_rays(o, d, packed, alive, ray_tile)
-        with scope("render.search.closest"):
-            best_t, best_i = search(order, enter, feats, alive_i, packed.w, ray_tile, precision=precision,
-                                    tests=tests)
-            return _hits(best_t, best_i, packed, o.shape[0])
-    search = closest_hit_streamed_reference if plain else closest_hit_streamed
-    ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-    modes = {"precision": precision, "fresh": STREAM_FRESH_WORST,
-             "subtiles": STREAM_SUBTILES if ray_tile % max(STREAM_SUBTILES, 1) == 0 else 1, "tests": tests}
+    way = route(packed.w.shape[0], packed.tri_block, ray_tile)
     with scope("render.schedule"):
-        prepared = _prepare_streamed(o, d, packed, alive, ray_tile)
-    if STREAM_PHASE1_BUDGET > 0:
+        prepared = prepare(o, d, alive, packed, way)
+    modes = {"precision": precision, "tests": tests}
+    search = closest_hit_reference if plain else closest_hit
+    if way.streamed:
+        search = closest_hit_streamed_reference if plain else closest_hit_streamed
+        modes.update(fresh=STREAM_FRESH_WORST,
+                     subtiles=STREAM_SUBTILES if way.ray_tile % max(STREAM_SUBTILES, 1) == 0 else 1)
+    if way.streamed and STREAM_PHASE1_BUDGET > 0:
         with scope("render.search.closest"):
-            best_t, best_i, done = search(*prepared[-1], ray_tile, budget=STREAM_PHASE1_BUDGET, with_done=True,
+            best_t, best_i, done = search(*prepared[-1], way.ray_tile, budget=STREAM_PHASE1_BUDGET, with_done=True,
                                           **modes)
-        best_t, best_i = _regroup_stragglers(search, prepared, best_t, best_i, done, ray_tile, **modes)
+        best_t, best_i = _regroup_stragglers(search, prepared, way, best_t, best_i, done, **modes)
         with scope("render.search.closest"):
             return _hits(best_t, best_i, packed, o.shape[0])
     with scope("render.search.closest"):
-        best_t, best_i = search(*prepared[-1], ray_tile, **modes)
+        best_t, best_i = search(*prepared[-1], way.ray_tile, **modes)
         return _hits(best_t, best_i, packed, o.shape[0])
-
-
-def _shadow_lanes(o, d, max_t, ray_tile: int):
-    o, d, feats, maxt, _ = _padded_rays(o, d, max_t.to(torch.float32), ray_tile)
-    return o, d, feats, maxt.contiguous()
-
-
-def prepare_shadow_rays(o, d, max_t, packed: PackedScene, ray_tile: int = DEFAULT_RAY_TILE):
-    """The any-hit inputs of the resident route for rays (R, 3) with unit
-    directions and cutoffs ``max_t`` (R,): ``(order, enter, feats, maxt)``,
-    padded to a ``ray_tile`` multiple. Padded lanes carry d = (1, 1, 1) and
-    ``max_t = 0``; lanes with ``max_t = 0`` are left out of the tile
-    frustums."""
-    o, d, feats, maxt = _shadow_lanes(o, d, max_t, ray_tile)
-    mask, enter = tile_block_mask(o, d, packed, ray_tile, alive=maxt > 0)
-    order, enter_sorted = plan_block_order(mask, enter)
-    return order, enter_sorted, feats, maxt
-
-
-def prepare_shadow_rays_streamed(o, d, max_t, packed: PackedScene, ray_tile: int = STREAM_RAY_TILE):
-    """The any-hit inputs of the streamed route: ``(order, enter, enter_blk,
-    feats, maxt, w)``, as ``prepare_rays_streamed`` builds them."""
-    padded, bpc = _stream_pack(packed)
-    o, d, feats, maxt = _shadow_lanes(o, d, max_t, ray_tile)
-    mask, enter = tile_block_mask(o, d, padded, ray_tile, alive=maxt > 0)
-    order, enter_sorted, enter_blk = cluster_schedule(mask, enter, bpc)
-    return order, enter_sorted, enter_blk, feats, maxt, padded.w
 
 
 def intersect_packed_occluded(
@@ -1288,19 +1203,14 @@ def intersect_packed_occluded(
     blocks tested; the resident route counts none."""
     o, d, max_t = o.detach(), d.detach(), max_t.detach()
     precision = resolve_precision(precision)
-    count = {}
-    if is_resident(packed):
-        search = occluded_reference if plain else occluded
-        with scope("render.schedule"):
-            inputs = prepare_shadow_rays(o, d, max_t, packed, ray_tile) + (packed.w,)
-    else:
-        search = occluded_streamed_reference if plain else occluded_streamed
-        ray_tile = STREAM_RAY_TILE if ray_tile == DEFAULT_RAY_TILE else ray_tile
-        count["tests"] = frame_anyhit_tests()
-        with scope("render.schedule"):
-            inputs = prepare_shadow_rays_streamed(o, d, max_t, packed, ray_tile)
+    way = route(packed.w.shape[0], packed.tri_block, ray_tile)
+    search, count = (occluded_reference if plain else occluded), {}
+    if way.streamed:
+        search, count = (occluded_streamed_reference if plain else occluded_streamed), {"tests": frame_anyhit_tests()}
+    with scope("render.schedule"):
+        inputs = prepare(o, d, max_t, packed, way, any_hit=True)[-1]
     with scope("render.search.any"):
-        return search(*inputs, ray_tile, precision=precision, **count)[: o.shape[0]] > 0
+        return search(*inputs, way.ray_tile, precision=precision, **count)[: o.shape[0]] > 0
 
 
 def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "dir", precision: str | None = None):
@@ -1323,8 +1233,8 @@ def make_sorted_intersect(intersect_fn, packed: PackedScene, key_mode: str = "di
         o, d = o.detach(), d.detach()
         with scope("render.compact"):
             octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-            dm = _morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
-            om = _morton_codes(o, lo, hi)
+            dm = morton_codes(d, d.new_full((3,), -1.0), d.new_full((3,), 1.0))
+            om = morton_codes(o, lo, hi)
             if key_mode == "origin":
                 key = (octant << 28) | ((om >> 15) << 13) | (dm >> 17)
             else:

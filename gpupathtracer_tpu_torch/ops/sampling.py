@@ -17,8 +17,8 @@ On CUDA tensors ``PcgSampler``'s ``path_keys``, ``fold`` and ``uniform``
 each launch one kernel of ``csrc/pcg.cu``, which computes the same words in
 native uint32 arithmetic, bit for bit, and raise if they cannot; each
 launch is one op of the dispatcher (``firefly_pcg::...``), so the profiler
-sees it inside the caller's spans. ``PcgSampler.launches`` counts those
-launches. The fused shade step (``ops/shade.py``) draws a bounce's
+sees it inside the caller's spans. ``_build.launch_counts["pcg"]`` counts
+those launches. The fused shade step (``ops/shade.py``) draws a bounce's
 words inline with the same word functions (``csrc/pcg.cuh``), outside these
 calls. On other tensors they run the
 plain int64 version below (``_path_keys_plain``, ``_fold_plain``,
@@ -94,64 +94,28 @@ def _uniform_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
     return _uniform_from_bits(pcg4d(keys)[..., :n])
 
 
-@functools.cache
-def _pcg_launch(name: str):
-    """``csrc/pcg.cu``'s launch function ``pcg_<name>_launch``, built and
-    looked up once."""
-    return getattr(_build.library(_build.PCG), f"pcg_{name}_launch")
-
-
-def _check_kernel_input(x: torch.Tensor, what: str, cols: int | None) -> None:
-    """Raise unless ``x`` is what the kernels take: contiguous int64 pixel ids
-    (R,) (``cols`` None), or contiguous int64 keys (R, cols) that start on a
-    16-byte boundary, which the kernels read as 16-byte vectors."""
-    want = "(R,)" if cols is None else f"(R, {cols})"
-    shape_ok = x.dim() == 1 if cols is None else x.dim() == 2 and x.shape[1] == cols
-    if x.dtype != torch.int64 or not shape_ok:
-        raise ValueError(f"the PCG kernels take {what} as int64 {want}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"the PCG kernels take contiguous {what}")
-    if cols is not None and x.data_ptr() % 16:
-        raise ValueError(f"the PCG kernels take {what} that start on a 16-byte boundary")
-
-
-def _launch(name: str, x: torch.Tensor, out: torch.Tensor, *words) -> torch.Tensor:
-    """Launch ``pcg_<name>_launch`` over the R lanes of input ``x`` into
-    ``out`` on the current stream of their device; raise if CUDA refused it.
-    Nothing is launched for R = 0."""
-    r = x.shape[0]
-    if r == 0:
-        return out
-    dev = x.device
-    fn = _pcg_launch(name)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index == torch.cuda.current_device():
-        err = fn(x.data_ptr(), out.data_ptr(), r, *words, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(x.data_ptr(), out.data_ptr(), r, *words, stream)
-    if err != 0:
-        msg = _build.library(_build.PCG).pcg_error_string(err).decode()
-        raise RuntimeError(f"PCG {name} kernel launch failed: CUDA error {err} ({msg})")
-    PcgSampler.launches += 1
+def _path_keys_launch(pixel_idx: torch.Tensor, seed: int, sample: int) -> torch.Tensor:
+    _build.check("the PCG kernels", pixel_idx, "pixel ids", torch.int64, (None,))
+    out = torch.empty((pixel_idx.shape[0], 4), dtype=torch.int64, device=pixel_idx.device)
+    if out.shape[0]:
+        _build.launch(_build.PCG, "pcg_path_keys_launch", out.device, pixel_idx, out, out.shape[0], seed, sample)
     return out
 
 
-def _path_keys_launch(pixel_idx: torch.Tensor, seed: int, sample: int) -> torch.Tensor:
-    _check_kernel_input(pixel_idx, "pixel ids", None)
-    out = torch.empty((pixel_idx.shape[0], 4), dtype=torch.int64, device=pixel_idx.device)
-    return _launch("path_keys", pixel_idx, out, seed, sample)
-
-
 def _fold_launch(keys: torch.Tensor, c: int) -> torch.Tensor:
-    _check_kernel_input(keys, "keys", 4)
-    return _launch("fold", keys, torch.empty_like(keys), c)
+    _build.check("the PCG kernels", keys, "keys", torch.int64, (None, 4), aligned=True)
+    out = torch.empty_like(keys)
+    if out.shape[0]:
+        _build.launch(_build.PCG, "pcg_fold_launch", out.device, keys, out, out.shape[0], c)
+    return out
 
 
 def _uniform_launch(keys: torch.Tensor, n: int) -> torch.Tensor:
-    _check_kernel_input(keys, "keys", 4)
+    _build.check("the PCG kernels", keys, "keys", torch.int64, (None, 4), aligned=True)
     out = torch.empty((keys.shape[0], n), dtype=torch.float32, device=keys.device)
-    return _launch("uniform", keys, out, n)
+    if out.shape[0]:
+        _build.launch(_build.PCG, "pcg_uniform_launch", out.device, keys, out, out.shape[0], n)
+    return out
 
 
 # Each launch runs inside an op of the dispatcher (``firefly_pcg::path_keys``,
@@ -180,10 +144,7 @@ class PcgSampler:
 
     On CUDA tensors each call is one launch of a ``csrc/pcg.cu`` kernel,
     which takes contiguous int64 pixel ids or (R, 4) keys and raises on
-    anything else; ``launches`` counts them. Other tensors take the plain
-    version."""
-
-    launches = 0
+    anything else. Other tensors take the plain version."""
 
     @staticmethod
     def path_keys(key_data, pixel_idx: torch.Tensor, sample_idx: int) -> torch.Tensor:

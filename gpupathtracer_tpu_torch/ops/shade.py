@@ -13,12 +13,10 @@ carries a gradient (``integrator.shade_route``); it has no backward.
 The launch runs inside an op of the dispatcher (``firefly_shade::naive``,
 CUDA tensors only), so that ``torch.profiler`` links the kernel to the
 caller's ``render.shade`` span, as the PCG sampler's launches are linked
-(``ops/sampling.py``). ``naive_shade.launches`` counts launches.
+(``ops/sampling.py``). ``_build.launch_counts["shade"]`` counts launches.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -26,72 +24,35 @@ from gpupathtracer_tpu_torch.ops import _build
 
 # The kernel's flags.
 HAS_EMIT, HAS_DIFFUSE, SHADING_NORMALS, ROULETTE = 1, 2, 4, 8
-
-
-@functools.cache
-def _shade_launch():
-    """``csrc/shade.cu``'s launch function, built and looked up once."""
-    return _build.library(_build.SHADE).shade_naive_launch
-
-
-def _check(x: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple) -> None:
-    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape``
-    (``None`` entries: any size)."""
-    ok = x.dtype == dtype and x.dim() == len(shape) and all(s is None or s == n for s, n in zip(shape, x.shape))
-    if not ok:
-        want = "(" + ", ".join("N" if s is None else str(s) for s in shape) + ")"
-        raise ValueError(f"the shade kernel takes {what} as {dtype} {want}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"the shade kernel takes contiguous {what}")
+_GEOMETRY = ("v0", "e1", "e2", "n0", "n1", "n2")
 
 
 def _naive_launch(o, d, throughput, radiance, alive, tri, hit, keys, v0, e1, e2, n0, n1, n2, mat_id, mat_type,
                   albedo, emissive, intensity, bg_r: float, bg_g: float, bg_b: float, bounce: int, flags: int):
-    r = d.shape[0]
-    f32, rows3 = torch.float32, (r, 3)
-    if o.dtype != f32 or o.shape != rows3 or o.stride(1) != 1 or o.stride(0) not in (0, 3):
-        raise ValueError("the shade kernel takes o as float32 (R, 3) with rows 0 or 3 floats apart")
-    for x, what in ((d, "d"), (throughput, "throughput"), (radiance, "radiance")):
-        _check(x, what, f32, rows3)
-    for x, what in ((alive, "alive"), (hit, "hit")):
-        _check(x, what, torch.bool, (r,))
-    _check(tri, "tri", torch.int64, (r,))
-    _check(keys, "keys", torch.int64, (r, 4))
-    if keys.data_ptr() % 16:
-        raise ValueError("the shade kernel takes keys that start on a 16-byte boundary")
-    normals = (n0, n1, n2) if flags & SHADING_NORMALS else ()
-    if any(x is None for x in normals):
+    r, dev = d.shape[0], d.device
+    f32, i64, rows3 = torch.float32, torch.int64, (r, 3)
+    if o.dtype != f32 or o.shape != rows3 or o.stride(1) != 1 or o.stride(0) not in (0, 3) or o.device != dev:
+        raise ValueError(f"the shade kernel takes o as float32 (R, 3) on {dev} with rows 0 or 3 floats apart")
+    normals = (n0, n1, n2) if flags & SHADING_NORMALS else (None, None, None)
+    if flags & SHADING_NORMALS and any(x is None for x in normals):
         raise ValueError("the shade kernel takes n0, n1 and n2 with shading normals")
-    for x, what in zip((v0, e1, e2) + normals, ("v0", "e1", "e2", "n0", "n1", "n2")):
-        _check(x, what, f32, (None, 3))
-    _check(mat_id, "mat_id", torch.int64, (v0.shape[0],))
-    _check(mat_type, "the material types", torch.int64, (None,))
     m = mat_type.shape[0]
-    _check(albedo, "the albedos", f32, (m, 3))
-    _check(emissive, "the emissive colors", f32, (m, 3))
-    _check(intensity, "the intensities", f32, (m,))
-    dev = d.device
-    tensors = (o, d, throughput, radiance, alive, tri, hit, keys, v0, e1, e2, *normals, mat_id, mat_type, albedo,
-               emissive, intensity)
-    if any(x.device != dev for x in tensors):
-        raise ValueError(f"the shade kernel takes every tensor on {dev}")
+    geometry = [(x, what, f32, (None, 3)) for x, what in zip((v0, e1, e2, *normals), _GEOMETRY) if x is not None]
+    for x, what, dtype, shape in ((d, "d", f32, rows3), (throughput, "throughput", f32, rows3),
+                                  (radiance, "radiance", f32, rows3), (alive, "alive", torch.bool, (r,)),
+                                  (hit, "hit", torch.bool, (r,)), (tri, "tri", i64, (r,)), (keys, "keys", i64, (r, 4)),
+                                  *geometry, (mat_id, "mat_id", i64, (v0.shape[0],)),
+                                  (mat_type, "the material types", i64, (None,)), (albedo, "the albedos", f32, (m, 3)),
+                                  (emissive, "the emissive colors", f32, (m, 3)),
+                                  (intensity, "the intensities", f32, (m,))):
+        _build.check("the shade kernel", x, what, dtype, shape, dev, aligned=x is keys)
     out = [torch.empty(rows3, dtype=f32, device=dev) for _ in range(4)]
     out += [torch.empty((r,), dtype=torch.bool, device=dev) for _ in range(2)]
     out.append(torch.empty((r,), dtype=f32, device=dev))
-    if r == 0:
-        return tuple(out)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    args = (ptr(o), o.stride(0), *(ptr(x) for x in (d, throughput, radiance, alive, tri, hit, keys, v0, e1, e2)),
-            *(ptr(x) if flags & SHADING_NORMALS else None for x in (n0, n1, n2)),
-            *(ptr(x) for x in (mat_id, mat_type, albedo, emissive, intensity)), *(x.data_ptr() for x in out), r,
-            bg_r, bg_g, bg_b, int(bounce) & 0xFFFFFFFF, flags)
-    fn = _shade_launch()
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = _build.library(_build.SHADE).shade_error_string(err).decode()
-        raise RuntimeError(f"shade kernel launch failed: CUDA error {err} ({msg})")
-    naive_shade.launches += 1
+    if r:
+        _build.launch(_build.SHADE, "shade_naive_launch", dev, o, o.stride(0), d, throughput, radiance, alive, tri,
+                      hit, keys, v0, e1, e2, *normals, mat_id, mat_type, albedo, emissive, intensity, *out, r, bg_r,
+                      bg_g, bg_b, int(bounce) & 0xFFFFFFFF, flags)
     return tuple(out)
 
 
@@ -125,6 +86,3 @@ def naive_shade(o, d, throughput, radiance, alive, hit, keys, scene, background,
                          hit.tri.contiguous(), hit.hit.contiguous(), keys, scene.v0, scene.e1, scene.e2, n0, n1, n2,
                          scene.mat_id, m.type, m.albedo, m.emissive_color, m.intensity, bg_r, bg_g, bg_b, bounce,
                          flags)
-
-
-naive_shade.launches = 0

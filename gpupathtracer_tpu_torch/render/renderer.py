@@ -24,7 +24,6 @@ from gpupathtracer_tpu_torch.core.tensors import TensorCache, resolve_device
 from gpupathtracer_tpu_torch.models.camera import Camera, generate_rays, generate_rays_for_pixels
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
 from gpupathtracer_tpu_torch.ops import packed_intersect
-from gpupathtracer_tpu_torch.ops.plucker import K, NSCALARS
 from gpupathtracer_tpu_torch.ops.sampling import make_sampler, prng_key_data
 from gpupathtracer_tpu_torch.render.integrator import (
     IntegratorOptions,
@@ -105,15 +104,14 @@ def narrow_settings(scene: TriangleScene, settings: RenderSettings) -> RenderSet
     """Narrow a still-default ``material_set`` to the types the scene's live
     triangles use, turn ``textured`` on when a live material uses a texture
     (never off), and resolve the sort autos as the JAX package does: the
-    primary pack's size (live rows plus two-sided duplicates, rounded up to
-    whole blocks of ``tri_block``) against ``RESIDENT_BUDGET_BYTES`` decides
+    route of the primary pack (``packed_intersect.route`` of its live rows
+    plus two-sided duplicates in whole blocks of ``tri_block``) decides
     ``sort_rays`` (on when streamed) and ``sort_key`` ("origin" when
     streamed, else "dir"). An explicit value wins."""
     if settings.sort_rays == "auto" or settings.sort_key == "auto":
         rows = int(scene.valid.sum()) + int((scene.two_sided & scene.valid).sum())
         tb = settings.tri_block
-        rows_padded = -(-rows // tb) * tb
-        streamed = rows_padded * K * NSCALARS * 4 > packed_intersect.RESIDENT_BUDGET_BYTES
+        streamed = packed_intersect.route(-(-rows // tb), tb).streamed
         if settings.sort_rays == "auto":
             settings = dataclasses.replace(settings, sort_rays=streamed)
         if settings.sort_key == "auto":

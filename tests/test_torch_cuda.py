@@ -17,6 +17,7 @@ import torch
 
 from gpupathtracer_tpu_torch.models.obj import MeshData
 from gpupathtracer_tpu_torch.models.scene import build_scene, mesh_spec, plane_spec
+from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
 from gpupathtracer_tpu_torch.render.renderer import render_frame
 from gpupathtracer_tpu_torch.utils.config import load_scene_file
@@ -58,9 +59,9 @@ def test_kernel_matches_plain_version(device, tb, ray_tile):
     packed = tpi.pack_scene(scene, tri_block=tb)
     alive = torch.rand(o.shape[0], generator=torch.Generator().manual_seed(1)) < 0.8
     args = tpi.prepare_rays(o, d, packed, alive=alive.to(device), ray_tile=ray_tile) + (packed.w, ray_tile)
-    before = tpi.closest_hit.launches
+    before = _build.launch_counts["closest_hit"]
     bt, bi = tpi.closest_hit(*args)
-    assert tpi.closest_hit.launches == before + 1
+    assert _build.launch_counts["closest_hit"] == before + 1
     rt, ri = tpi.closest_hit_reference(*args)
     torch.cuda.synchronize()
     assert (bi == ri).double().mean().item() > 0.9995
@@ -83,9 +84,9 @@ def test_occlusion_kernel_matches_plain_version(device, tb, ray_tile):
     maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
     maxt = torch.where(torch.rand(o.shape[0], generator=g).to(device) < 0.1, 0.0, maxt)
     args = tpi.prepare_shadow_rays(o, d, maxt, packed, ray_tile=ray_tile) + (packed.w, ray_tile)
-    before = tpi.occluded.launches
+    before = _build.launch_counts["occlusion"]
     occ = tpi.occluded(*args)
-    assert tpi.occluded.launches == before + 1
+    assert _build.launch_counts["occlusion"] == before + 1
     ref = tpi.occluded_reference(*args)
     torch.cuda.synchronize()
     assert occ.dtype == torch.int32
@@ -216,10 +217,10 @@ def test_nee_render_kernels_match_plain_version(device, estimator):
     scene, camera, settings = load_scene_file(NEE_SCENE, device=device)
     camera = dataclasses.replace(camera, width=64, height=64)
     settings = dataclasses.replace(settings, width=64, height=64, spp=2, estimator=estimator)
-    tpi.closest_hit.launches = tpi.occluded.launches = 0
+    _build.launch_counts["closest_hit"] = _build.launch_counts["occlusion"] = 0
     got = render_frame(scene, camera, settings)
-    assert tpi.closest_hit.launches == settings.spp * (settings.bounces + 1)
-    assert tpi.occluded.launches == settings.spp * (settings.bounces - 1)
+    assert _build.launch_counts["closest_hit"] == settings.spp * (settings.bounces + 1)
+    assert _build.launch_counts["occlusion"] == settings.spp * (settings.bounces - 1)
     want = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
     diff = (got - want).abs()
     assert torch.isfinite(got).all()
@@ -231,9 +232,9 @@ def test_render_kernel_matches_plain_version(device):
     scene, camera, settings = load_scene_file(SCENE, device=device)
     camera = dataclasses.replace(camera, width=64, height=64)
     settings = dataclasses.replace(settings, width=64, height=64, spp=2)
-    before = tpi.closest_hit.launches
+    before = _build.launch_counts["closest_hit"]
     got = render_frame(scene, camera, settings)
-    assert tpi.closest_hit.launches == before + settings.spp * settings.bounces
+    assert _build.launch_counts["closest_hit"] == before + settings.spp * settings.bounces
     want = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
     diff = (got - want).abs()
     assert torch.isfinite(got).all()
@@ -259,9 +260,9 @@ def test_streamed_kernel_matches_plain_version(device, tb, cluster_bytes, ray_ti
     packed = tpi.pack_scene(scene, tri_block=tb)
     alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(3)) < 0.8).to(device)
     args = tpi.prepare_rays_streamed(o, d, packed, alive=alive, ray_tile=ray_tile) + (ray_tile,)
-    before = tpi.closest_hit_streamed.launches
+    before = _build.launch_counts["closest_hit_streamed"]
     bt, bi = tpi.closest_hit_streamed(*args)
-    assert tpi.closest_hit_streamed.launches == before + 1
+    assert _build.launch_counts["closest_hit_streamed"] == before + 1
     rt, ri = tpi.closest_hit_streamed_reference(*args)
     torch.cuda.synchronize()
     assert (bi == ri).double().mean().item() > 0.9995
@@ -283,9 +284,9 @@ def test_streamed_occlusion_kernel_matches_plain_version(device, tb, cluster_byt
     maxt = torch.where(hit.hit, hit.t * scale, 20.0 * scale)
     maxt = torch.where(torch.rand(o.shape[0], generator=g).to(device) < 0.1, 0.0, maxt)
     args = tpi.prepare_shadow_rays_streamed(o, d, maxt, packed, ray_tile=ray_tile) + (ray_tile,)
-    before = tpi.occluded_streamed.launches
+    before = _build.launch_counts["occlusion_streamed"]
     occ = tpi.occluded_streamed(*args)
-    assert tpi.occluded_streamed.launches == before + 1
+    assert _build.launch_counts["occlusion_streamed"] == before + 1
     ref = tpi.occluded_streamed_reference(*args)
     torch.cuda.synchronize()
     assert occ.dtype == torch.int32
@@ -419,10 +420,10 @@ def test_gradients_through_kernels_match_plain_version(device, config):
         scene, camera, settings = load_scene_file(path, device=device)
         camera = dataclasses.replace(camera, width=64, height=64)
         settings = dataclasses.replace(settings, width=64, height=64, spp=2)
-    before = (tpi.closest_hit.launches, tpi.occluded.launches)
+    before = (_build.launch_counts["closest_hit"], _build.launch_counts["occlusion"])
     got = _bench_loss_grads(scene, camera, settings)
-    assert tpi.closest_hit.launches > before[0]
-    assert (tpi.occluded.launches > before[1]) == (config == "config8")
+    assert _build.launch_counts["closest_hit"] > before[0]
+    assert (_build.launch_counts["occlusion"] > before[1]) == (config == "config8")
     want = _bench_loss_grads(scene, camera, dataclasses.replace(settings, intersector="plucker"))
     for g, w in zip(got, want):
         assert torch.isfinite(g).all() and (w != 0).any()
@@ -523,7 +524,8 @@ def test_compact_mode_frames_meet_the_bar_against_permute(device, mode, change, 
     settings = dataclasses.replace(settings, width=96, height=96, spp=2, sort_rays=False, **change)
     want = render_frame(scene, camera, settings)
     got = render_frame(scene, camera, dataclasses.replace(settings, compact_mode=mode))
-    assert tpi.is_resident(tpi.pack_scene(scene, tri_block=settings.tri_block)) != streamed
+    packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+    assert tpi.route(packed.w.shape[0], packed.tri_block).streamed == streamed
     _image_bar(got, want)
 
 
@@ -544,9 +546,9 @@ def test_glass_mirror_frame_kernels_match_plain_version(device, change):
     _, camera, settings = load_scene_file(SCENE, device=device)
     camera = dataclasses.replace(camera, width=64, height=64)
     settings = dataclasses.replace(settings, width=64, height=64, spp=2, **change)
-    before = tpi.closest_hit.launches
+    before = _build.launch_counts["closest_hit"]
     got = render_frame(scene, camera, settings)
-    assert tpi.closest_hit.launches > before
+    assert _build.launch_counts["closest_hit"] > before
     want = render_frame(scene, camera, dataclasses.replace(settings, intersector="plucker"))
     assert want.mean().item() > 0.01
     _image_bar(got, want)
@@ -646,13 +648,13 @@ def test_edge_gradient_through_kernels_matches_plain_version(device):
     settings = RenderSettings(width=48, height=48, spp=4, bounces=2, tri_block=8, estimator="nee", tri_block_secondary=32)
     out = {}
     for intersector in ("auto", "plucker"):
-        before = tpi.closest_hit.launches
+        before = _build.launch_counts["closest_hit"]
         loss, g = edges.value_and_grad_with_edges(
             torch.mean, scene_fn, params, camera, dataclasses.replace(settings, intersector=intersector), table,
             threefry.PRNGKey(7, device=device), n_samples=512, trace_spp=2, shadow_edges=True, shadow_samples=512,
             camera_fn=cam_fn, device=device,
         )
-        assert (tpi.closest_hit.launches > before) == (intersector == "auto")
+        assert (_build.launch_counts["closest_hit"] > before) == (intersector == "auto")
         out[intersector] = (loss, g)
     torch.testing.assert_close(out["auto"][0], out["plucker"][0], rtol=1e-6, atol=0)
     for k in params:
@@ -713,10 +715,10 @@ def test_kernels_match_plain_version_at_each_precision(device, precision, stream
     scene, o, d = _random_scene(device, seed=21)
     packed = tpi.pack_scene(scene, tri_block=128)
     alive = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(5)) < 0.8).to(device)
-    search = tpi.closest_hit_streamed if streamed else tpi.closest_hit
-    before = search.launches
+    search = "closest_hit_streamed" if streamed else "closest_hit"
+    before = _build.launch_counts[search]
     hk = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision)
-    assert search.launches == before + 1
+    assert _build.launch_counts[search] == before + 1
     hp = tpi.intersect_packed(o, d, packed, alive=alive, precision=precision, plain=True)
     torch.cuda.synchronize()
     assert hp.hit.double().mean().item() > 0.2
@@ -740,10 +742,10 @@ def test_anyhit_kernels_match_plain_version_at_each_precision(device, precision,
     hp = tpi.intersect_packed(o, d, packed, precision=precision, plain=True)
     maxt = torch.where(hp.hit, hp.t * 1.5, 20.0)
     maxt = torch.where(torch.rand(o.shape[0], generator=torch.Generator().manual_seed(9)).to(device) < 0.1, 0.0, maxt)
-    search = tpi.occluded_streamed if streamed else tpi.occluded
-    before = search.launches
+    search = "occlusion_streamed" if streamed else "occlusion"
+    before = _build.launch_counts[search]
     ok = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision)
-    assert search.launches == before + 1
+    assert _build.launch_counts[search] == before + 1
     op = tpi.intersect_packed_occluded(o, d, maxt, packed, precision=precision, plain=True)
     torch.cuda.synchronize()
     assert (ok == op).double().mean().item() >= 0.9995 and 0.1 < op.double().mean().item() < 0.95
@@ -819,9 +821,9 @@ def test_streamed_modes_kernel_at_mixed_matches_plain_version(device, budget, su
     args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
     init = tpi.closest_hit_streamed_reference(*args, precision="mixed", budget=1)
     modes = dict(init_t=init[0], init_i=init[1], budget=budget or None, subtiles=subtiles, precision="mixed")
-    before = tpi.closest_hit_streamed.launches
+    before = _build.launch_counts["closest_hit_streamed"]
     bt, bi = tpi.closest_hit_streamed(*args, **modes)
-    assert tpi.closest_hit_streamed.launches == before + 1
+    assert _build.launch_counts["closest_hit_streamed"] == before + 1
     rt, ri = tpi.closest_hit_streamed_reference(*args, **modes)
     torch.cuda.synchronize()
     tri = lambda bi: torch.where(bi >= 0, packed.tri_map[bi.long().clamp(min=0)], -1)
@@ -842,9 +844,9 @@ def test_streamed_modes_kernel_matches_plain_version(device, budget, subtiles, f
     args = tpi.prepare_rays_streamed(o, d, packed, alive=alive)
     init_t, init_i = tpi.closest_hit_streamed(*args, budget=1)
     modes = dict(init_t=init_t, init_i=init_i, budget=budget or None, subtiles=subtiles, fresh=fresh, with_done=True)
-    before = tpi.closest_hit_streamed.launches
+    before = _build.launch_counts["closest_hit_streamed"]
     got = tpi.closest_hit_streamed(*args, **modes)
-    assert tpi.closest_hit_streamed.launches == before + 1
+    assert _build.launch_counts["closest_hit_streamed"] == before + 1
     want = tpi.closest_hit_streamed_reference(*args, **modes)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -891,7 +893,7 @@ def test_test_counter_on_the_main_path_rays(device, streamed, precision):
                                               device=device)
     packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
     packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary or settings.tri_block)
-    assert tpi.is_resident(packed) != streamed
+    assert tpi.route(packed.w.shape[0], packed.tri_block).streamed == streamed
     prepare = tpi.prepare_rays_streamed if streamed else tpi.prepare_rays
     kernel = tpi.closest_hit_streamed if streamed else tpi.closest_hit
     plain = tpi.closest_hit_streamed_reference if streamed else tpi.closest_hit_reference
@@ -974,22 +976,22 @@ def test_pcg_kernels_equal_plain_route(device, r):
     random_keys[0] = 2**32 - 1
     keys = [random_keys]
     for key_data, sample in (((0, 2**32 - 1), 2**32 - 1), ((2**32 - 1, 2**32 - 2), 2**32 - 2), ((0, 1234), 0)):
-        before = pcg.launches
+        before = _build.launch_counts["pcg"]
         got = pcg.path_keys(key_data, pixels.to(device), sample)
-        assert pcg.launches == before + 1
+        assert _build.launch_counts["pcg"] == before + 1
         want = pcg.path_keys(key_data, pixels, sample)
         assert torch.equal(got.cpu(), want)
         keys.append(want)
     for k in keys:
         for c in (0, 0xA11A, 0x11EE, 7919, 2**32 - 1):
-            before = pcg.launches
+            before = _build.launch_counts["pcg"]
             folded = pcg.fold(k.to(device), c)
-            assert pcg.launches == before + 1
+            assert _build.launch_counts["pcg"] == before + 1
             want = pcg.fold(k, c)
             assert torch.equal(folded.cpu(), want)
             for n in (1, 2, 3, 4):
                 u = pcg.uniform(folded, n)
-                assert pcg.launches == before + 1 + n
+                assert _build.launch_counts["pcg"] == before + 1 + n
                 assert u.dtype == torch.float32 and u.shape == (r, n)
                 assert torch.equal(_bits(u).cpu(), _bits(pcg.uniform(want, n)))
 
@@ -1000,7 +1002,7 @@ def test_pcg_kernels_reject_what_they_do_not_take(device):
     from gpupathtracer_tpu_torch.ops.sampling import PcgSampler as pcg
 
     keys = pcg.path_keys((0, 7), torch.arange(64, device=device), 1)
-    before = pcg.launches
+    before = _build.launch_counts["pcg"]
     bad = [torch.cat([keys, keys], dim=1)[:, :4], keys.t().contiguous().t(), keys.to(torch.int32),
            keys[:, :3].contiguous(), keys.reshape(32, 8)]
     for k in bad:
@@ -1012,7 +1014,7 @@ def test_pcg_kernels_reject_what_they_do_not_take(device):
         pcg.path_keys((0, 7), torch.arange(64, device=device, dtype=torch.int32), 1)
     with pytest.raises(ValueError):
         pcg.uniform(keys, 5)
-    assert pcg.launches == before
+    assert _build.launch_counts["pcg"] == before
 
 
 def test_pcg_path_keys_take_unaligned_pixel_ids(device):
@@ -1062,24 +1064,24 @@ def test_pcg_kernels_frame_equals_plain_route(device, monkeypatch):
     patched in. The kernel route made 4 x (1 + 2) = 12 PCG launches, the
     path keys and the jitter's fold and draw, and 4 x 4 = 16 shade
     launches, which draw each bounce's fold and draw inline."""
-    from gpupathtracer_tpu_torch.ops import sampling, shade
+    from gpupathtracer_tpu_torch.ops import sampling
     from gpupathtracer_tpu_torch.render import integrator
 
     scene, camera, settings = load_scene_file(SCENE, device=device)
     camera = dataclasses.replace(camera, width=64, height=64)
     settings = dataclasses.replace(settings, width=64, height=64, spp=4)
     assert settings.bounces == 4 and settings.rng == "pcg"
-    before, shades = sampling.PcgSampler.launches, shade.naive_shade.launches
+    before, shades = _build.launch_counts["pcg"], _build.launch_counts["shade"]
     got = render_frame(scene, camera, settings)
-    assert sampling.PcgSampler.launches == before + 12
-    assert shade.naive_shade.launches == shades + 16
+    assert _build.launch_counts["pcg"] == before + 12
+    assert _build.launch_counts["shade"] == shades + 16
     for name in ("path_keys", "fold", "uniform"):
         monkeypatch.setattr(sampling, f"_{name}_kernel", getattr(sampling, f"_{name}_plain"))
     monkeypatch.setattr(integrator, "shade_route", lambda *args: "ops")
     want = render_frame(scene, camera, settings)
     torch.cuda.synchronize()
-    assert sampling.PcgSampler.launches == before + 12
-    assert shade.naive_shade.launches == shades + 16
+    assert _build.launch_counts["pcg"] == before + 12
+    assert _build.launch_counts["shade"] == shades + 16
     assert torch.isfinite(got).all() and got.abs().sum() > 0
     assert torch.equal(_bits(got), _bits(want))
 
@@ -1129,7 +1131,6 @@ def test_fused_shade_step_equals_ops_route(device, config, bounce_idx, rr_start,
     hits: one launch, ``alive``, ``prev_nee`` and the keys exact, and every
     float output bit-equal (the kernel rounds each operation as the torch op
     it replaces, csrc/shade.cu)."""
-    from gpupathtracer_tpu_torch.ops import shade
     from gpupathtracer_tpu_torch.render import integrator
 
     import chip_smoke
@@ -1138,13 +1139,13 @@ def test_fused_shade_step_equals_ops_route(device, config, bounce_idx, rr_start,
     scene, opts, state, hit = _shade_setup(device, path, bounce_idx, rr_start)
     assert integrator.shade_route(opts, state.o.device) == "fused"
     step = integrator.make_bounce_fn(scene, opts, intersect_fn=lambda o, d, alive=None: hit)
-    before = shade.naive_shade.launches
+    before = _build.launch_counts["shade"]
     got = step(state, bounce_idx, compact_now=False)
-    assert shade.naive_shade.launches == before + 1
+    assert _build.launch_counts["shade"] == before + 1
     monkeypatch.setattr(integrator, "shade_route", lambda *args: "ops")
     want = step(state, bounce_idx, compact_now=False)
     torch.cuda.synchronize()
-    assert shade.naive_shade.launches == before + 1
+    assert _build.launch_counts["shade"] == before + 1
     assert got.keys is state.keys
     assert torch.equal(got.alive, want.alive) and torch.equal(got.prev_nee, want.prev_nee)
     assert 0 < int(got.alive.sum()) < _SHADE_LANES
@@ -1165,18 +1166,16 @@ def test_fused_shade_launches_a_frame(device, config, spp, shades, pcg_launches)
     """A naive frame makes one shade launch a bounce of each sample (4 x 4
     for config 3 at spp 4, 2 x 4 for config 6 at spp 2) and leaves the PCG
     sampler's kernels the path keys and the jitter's fold and draw."""
-    from gpupathtracer_tpu_torch.ops import sampling, shade
-
     import chip_smoke
 
     scene, camera, settings = _small_frame(chip_smoke.SCENE if config == "config3" else chip_smoke.STREAM_SCENE,
                                            device, spp=spp)
     assert settings.bounces == 4
-    before, pcg_before = shade.naive_shade.launches, sampling.PcgSampler.launches
+    before, pcg_before = _build.launch_counts["shade"], _build.launch_counts["pcg"]
     img = render_frame(scene, camera, settings)
     torch.cuda.synchronize()
-    assert shade.naive_shade.launches == before + shades
-    assert sampling.PcgSampler.launches == pcg_before + pcg_launches
+    assert _build.launch_counts["shade"] == before + shades
+    assert _build.launch_counts["pcg"] == pcg_before + pcg_launches
     assert torch.isfinite(img).all() and img.abs().sum() > 0
 
 
@@ -1188,7 +1187,6 @@ def test_fused_shade_bypassed(device, case):
     light draws add two a bounce), and the albedo gets its gradient (the
     naive radiance does not depend on ``v0``). Under no_grad the leaves'
     frame takes the kernel."""
-    from gpupathtracer_tpu_torch.ops import sampling, shade
 
     scene, camera, settings = _small_frame(SCENE, device, spp=4)
     if case == "nee":
@@ -1197,17 +1195,17 @@ def test_fused_shade_bypassed(device, case):
         v0 = scene.v0.detach().clone().requires_grad_()
         albedo = scene.materials.albedo.detach().clone().requires_grad_()
         scene = dataclasses.replace(scene, v0=v0, materials=dataclasses.replace(scene.materials, albedo=albedo))
-    before, pcg_before = shade.naive_shade.launches, sampling.PcgSampler.launches
+    before, pcg_before = _build.launch_counts["shade"], _build.launch_counts["pcg"]
     img = render_frame(scene, camera, settings)
     torch.cuda.synchronize()
-    assert shade.naive_shade.launches == before
-    assert sampling.PcgSampler.launches == pcg_before + (44 if case != "nee" else 44 + 4 * 4 * 2)
+    assert _build.launch_counts["shade"] == before
+    assert _build.launch_counts["pcg"] == pcg_before + (44 if case != "nee" else 44 + 4 * 4 * 2)
     if case != "nee":
         (g_albedo,) = torch.autograd.grad(img.square().mean(), (albedo,))
         assert torch.isfinite(g_albedo).all() and g_albedo.abs().sum() > 0
     with torch.no_grad():
         render_frame(scene, camera, settings)
-    assert shade.naive_shade.launches == before + (16 if case != "nee" else 0)
+    assert _build.launch_counts["shade"] == before + (16 if case != "nee" else 0)
 
 
 def test_fused_shade_span_records_its_route(device):
@@ -1264,8 +1262,8 @@ def test_fused_shade_kernel_rejects_what_it_does_not_take(device):
     bad = {"d": state.d.t().contiguous().t(), "throughput": state.throughput.double(), "alive": state.alive.int(),
            "tri": hit.tri.int(), "keys": state.keys[:, :3].contiguous(), "albedo": scene.materials.albedo[:, :2],
            "o": state.o[::2]}
-    before = shade.naive_shade.launches
+    before = _build.launch_counts["shade"]
     for name, x in bad.items():
         with pytest.raises(ValueError):
             shade._naive_kernel(**{**args, name: x}, bg_r=0.0, bg_g=0.0, bg_b=0.0, bounce=0, flags=3)
-    assert shade.naive_shade.launches == before
+    assert _build.launch_counts["shade"] == before

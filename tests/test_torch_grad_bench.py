@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from test_torch_grad import RTOL, assert_grad_close
 from test_torch_render import _resized
-from test_torch_stream import force_streamed
+from test_torch_stream import force_streamed, is_streamed
 
 from gpupathtracer_tpu.render.renderer import render_frame as j_render
 from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
@@ -59,7 +59,7 @@ def test_streamed_bench_loss_gradients_match_jax(change, monkeypatch):
     """The same on the streamed route (K3 and K4's plain versions here),
     forced at small size as ``tests/test_torch_stream.py`` forces it."""
     force_streamed(monkeypatch, budget=1 << 20)
-    assert not tpi.is_resident(tpi.pack_scene(_resized("config3_icosphere.toml", 8, 1)[1][0], tri_block=128))
+    assert is_streamed(tpi.pack_scene(_resized("config3_icosphere.toml", 8, 1)[1][0], tri_block=128))
     img, want_loss, want, got = _bench_loss_grads("config3_icosphere.toml", 12, 1, change)
     np.testing.assert_allclose(img.mean().item(), want_loss, rtol=RTOL)
     for g, w, name in zip(got, want, ("v0", "albedo")):

@@ -18,6 +18,7 @@ from gpupathtracer_tpu.utils.config import load_scene_file as j_load
 from gpupathtracer_tpu_torch import interop
 from gpupathtracer_tpu_torch.models.materials import MaterialTable
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
+from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops import intersect as t_intersect
 from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
 
@@ -150,10 +151,10 @@ def test_closest_hit_on_cpu_runs_plain_version(stand_in):
     _, ts, (o, d), _ = stand_in
     tp = tpi.pack_scene(ts, tri_block=128)
     args = tpi.prepare_rays(torch.tensor(o), torch.tensor(d), tp) + (tp.w, tpi.DEFAULT_RAY_TILE)
-    before = tpi.closest_hit.launches
+    before = _build.launch_counts["closest_hit"]
     bt, bi = tpi.closest_hit(*args[:4], args[4], args[5])
     rt, ri = tpi.closest_hit_reference(*args[:4], args[4], args[5])
-    assert tpi.closest_hit.launches == before  # no kernel launch on the CPU
+    assert _build.launch_counts["closest_hit"] == before  # no kernel launch on the CPU
     assert torch.equal(bt, rt) and torch.equal(bi, ri)
     assert bi.dtype == torch.int32 and bt.dtype == torch.float32
 
@@ -233,9 +234,9 @@ def test_occluded_on_cpu_runs_plain_version(stand_in):
     maxt = torch.where(torch.arange(o2.shape[0]) % 4 == 0, 0.0, 3.0)
     args = tpi.prepare_shadow_rays(torch.tensor(o2), torch.tensor(d2), maxt, tp)
     assert args[2].shape[0] % tpi.DEFAULT_RAY_TILE == 0 and (args[3][o2.shape[0]:] == 0).all()
-    before = tpi.occluded.launches
+    before = _build.launch_counts["occlusion"]
     occ = tpi.occluded(*args, tp.w)
-    assert tpi.occluded.launches == before
+    assert _build.launch_counts["occlusion"] == before
     ref, work = tpi.occluded_reference(*args, tp.w, count_work=True)
     assert occ.dtype == torch.int32 and torch.equal(occ, ref)
     assert 0 < occ.sum() < (maxt > 0).sum() and work["blocks"] > 0 and work["lane_blocks"] > 0

@@ -21,7 +21,7 @@ import pytest
 import torch
 from test_torch_grad import RTOL, assert_grad_close
 from test_torch_render import _resized, assert_image_bar
-from test_torch_stream import force_streamed
+from test_torch_stream import force_streamed, is_streamed
 
 from gpupathtracer_tpu.models import scene as j_scene
 from gpupathtracer_tpu.models.camera import Camera as JCamera
@@ -135,7 +135,7 @@ def test_compact_modes_equal_permute(mode, streamed, change, monkeypatch):
         force_streamed(monkeypatch, budget=4096)
     (_, _), (ts, tc) = _scenes("mixed")
     st = RenderSettings(**{**KW, **change})
-    assert tpi.is_resident(tpi.pack_scene(ts, tri_block=64)) != streamed
+    assert is_streamed(tpi.pack_scene(ts, tri_block=64)) == streamed
     want = render_frame(ts, tc, st, device="cpu")
     got = render_frame(ts, tc, dataclasses.replace(st, compact_mode=mode), device="cpu")
     assert torch.equal(got, want)

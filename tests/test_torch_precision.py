@@ -25,7 +25,7 @@ import pytest
 import torch
 from test_torch_intersect import HIT_AGREE, assert_hit_bar, random_scene, to_port
 from test_torch_render import _resized, assert_image_bar
-from test_torch_stream import force_streamed
+from test_torch_stream import force_streamed, is_streamed
 
 from gpupathtracer_tpu.ops import pallas_intersect as jpi
 from gpupathtracer_tpu.render.renderer import RenderSettings as JSettings
@@ -111,7 +111,7 @@ def test_closest_hit_matches_pallas_at_precision(case, mode, streamed, monkeypat
         force_streamed(monkeypatch, cluster_bytes=64 * 1024)
     js, ts, o, d, _ = case
     jp, tp = jpi.pack_scene(js, tri_block=TB), tpi.pack_scene(ts, tri_block=TB)
-    assert tpi.is_resident(tp) != streamed
+    assert is_streamed(tp) == streamed
     tp = same_w(jp, tp)
     jh = jpi.intersect_pallas(jnp.asarray(o), jnp.asarray(d), jp, interpret=True, precision=mode)
     th = tpi.intersect_packed(torch.as_tensor(o), torch.as_tensor(d), tp, precision=mode)
@@ -216,9 +216,7 @@ def test_streamed_operands_are_split_once_per_pack(case, monkeypatch):
     monkeypatch.setattr(tpi, "CLUSTER_TARGET_BYTES", bpc * K * NSCALARS * TB * 4)
     staged = []
     monkeypatch.setattr(tpi, "_kernel_device", lambda feats, name: feats.device)
-    monkeypatch.setattr(tpi, "_launch", lambda name, library, dev, tensors, *args: staged.append((library, tensors)))
-    for search in (tpi.closest_hit_streamed, tpi.occluded_streamed):
-        monkeypatch.setattr(search, "launches", search.launches)
+    monkeypatch.setattr(tpi._build, "launch", lambda library, fn, dev, *args: staged.append((library, args)))
     o, d, max_t = (torch.as_tensor(x) for x in (o, d, max_t))
 
     def operands():

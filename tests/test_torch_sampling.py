@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from gpupathtracer_tpu.ops import sampling as js
+from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops import sampling as ts
 
 SEEDS = [0, 1, 1234, 2**31 - 1, 2**31, 2**32 - 1, -1]
@@ -58,12 +59,12 @@ def test_pcg_kernel_ops_take_card_tensors_only(name):
 
 def test_pcg_calls_on_cpu_tensors_launch_nothing():
     """CPU tensors take the plain version: no kernel is launched or built."""
-    before = ts.PcgSampler.launches
+    before = _build.launch_counts["pcg"]
     keys = ts.path_keys(1234, torch.arange(300), 3)
     for c in (0, 0xA11A, 2**32 - 1):
         for n in (1, 2, 3, 4):
             assert ts.PcgSampler.uniform(ts.PcgSampler.fold(keys, c), n).shape == (300, n)
-    assert ts.PcgSampler.launches == before
+    assert _build.launch_counts["pcg"] == before
 
 
 def test_uniform_rejects_more_than_four():

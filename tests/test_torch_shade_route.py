@@ -66,13 +66,13 @@ def test_cpu_frames_take_the_ops_route(monkeypatch):
     scene, camera, settings = load_scene_file(SCENE, device="cpu")
     camera = dataclasses.replace(camera, width=12, height=12)
     settings = dataclasses.replace(settings, width=12, height=12, spp=2)
-    before = shade.naive_shade.launches
+    before = _build.launch_counts["shade"]
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
         img = render_frame(scene, camera, settings, device="cpu")
     spans = [e for e in prof.events() if e.name == "render.shade"]
     assert len(spans) == settings.spp * settings.bounces
     assert all(list(e.concrete_inputs) == [integrator.SHADE_ROUTES.index("ops")] for e in spans)
-    assert shade.naive_shade.launches == before
+    assert _build.launch_counts["shade"] == before
     assert torch.isfinite(img).all()
 
 
@@ -117,10 +117,10 @@ def test_shade_kernel_refuses_what_it_does_not_take(case):
     (so on the CPU too) on inputs of another dtype, shape or layout."""
     args = _launch_args()
     args.update(BAD[case](args))
-    before = shade.naive_shade.launches
+    before = _build.launch_counts["shade"]
     with pytest.raises(ValueError):
         shade._naive_launch(**args)
-    assert shade.naive_shade.launches == before
+    assert _build.launch_counts["shade"] == before
 
 
 def test_shade_kernel_refuses_tensors_on_two_devices():

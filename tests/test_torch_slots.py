@@ -74,7 +74,7 @@ def _streamed_pack(monkeypatch):
                          plane_spec((0.0, -2.0, 0.0), (90.0, 0.0, 0.0), (20.0, 20.0, 20.0))],
                         [{"type": "diffuse"}], pad_to_multiple=64, device="cpu")
     packed = tpi.pack_scene(scene, tri_block=64)
-    assert not tpi.is_resident(packed)
+    assert tpi.route(packed.w.shape[0], packed.tri_block).streamed
     o = torch.zeros((64, 3))
     d = torch.nn.functional.normalize(torch.ones((64, 3)), dim=1)
     w = tpi.prepare_rays_streamed(o, d, packed)[-1]

@@ -23,9 +23,11 @@ from gpupathtracer_tpu.ops.intersect import Hit as JHit
 from gpupathtracer_tpu.render.renderer import narrow_settings as j_narrow
 from gpupathtracer_tpu.render.renderer import render_frame as j_render
 from gpupathtracer_tpu_torch.models import scene as t_scene
+from gpupathtracer_tpu_torch.ops import _build
 from gpupathtracer_tpu_torch.ops import intersect as t_intersect
 from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
 from gpupathtracer_tpu_torch.ops.intersect import Hit
+from gpupathtracer_tpu_torch.render.renderer import RenderSettings
 from gpupathtracer_tpu_torch.render.renderer import narrow_settings as t_narrow
 from gpupathtracer_tpu_torch.render.renderer import render_frame
 
@@ -37,6 +39,11 @@ def force_streamed(monkeypatch, cluster_bytes=None, budget=1024):
         monkeypatch.setattr(mod, "RESIDENT_BUDGET_BYTES", budget)
         if cluster_bytes is not None:
             monkeypatch.setattr(mod, "CLUSTER_TARGET_BYTES", cluster_bytes)
+
+
+def is_streamed(packed) -> bool:
+    """Whether ``packed`` takes the streamed route (``tpi.route``)."""
+    return tpi.route(packed.w.shape[0], packed.tri_block).streamed
 
 
 def _icosphere_scenes(subdivisions=3):
@@ -71,9 +78,9 @@ def test_plan_and_padding_equal_jax(streamed_case, tb, cluster_bytes, monkeypatc
     js, ts, _, _, _ = streamed_case
     jp, tp = jpi.pack_scene(js, tri_block=tb), tpi.pack_scene(ts, tri_block=tb)
     nb = tp.w.shape[0]
-    bpc = tpi._plan_stream_shape(nb, tb)
+    bpc = tpi.route(nb, tb).bpc
     assert bpc == jpi._plan_stream_shape(nb, 640, 64, tb)[1]
-    assert not tpi.is_resident(tp)
+    assert is_streamed(tp)
     jpad, tpad = jpi._pad_blocks(jp, bpc), tpi._pad_blocks(tp, bpc)
     assert tpad.w.shape[0] % bpc == 0 and tpad.w.shape == tuple(jpad.w.shape)
     np.testing.assert_array_equal(tpad.tri_map.numpy(), np.asarray(jpad.tri_map))
@@ -93,7 +100,7 @@ def test_cluster_schedule_equal_jax(streamed_case, tb, cluster_bytes, alive_shar
     o, d = o[:960], d[:960]
     alive = None if alive_share is None else np.random.default_rng(3).uniform(size=960) < alive_share
     jp, tp = jpi.pack_scene(js, tri_block=tb), tpi.pack_scene(ts, tri_block=tb)
-    bpc = tpi._plan_stream_shape(tp.w.shape[0], tb)
+    bpc = tpi.route(tp.w.shape[0], tb).bpc
     jpad, tpad = jpi._pad_blocks(jp, bpc), tpi._pad_blocks(tp, bpc)
     rt = 960 // 64
     jm, je = jpi.tile_block_mask(jnp.asarray(o), jnp.asarray(d), jpad, 64,
@@ -123,9 +130,9 @@ def test_streamed_hits_match_pallas(streamed_case, tb, cluster_bytes, monkeypatc
     js, ts, o, d, alive = streamed_case
     jp, tp = jpi.pack_scene(js, tri_block=tb), tpi.pack_scene(ts, tri_block=tb)
     jh = jpi.intersect_pallas(jnp.asarray(o), jnp.asarray(d), jp, interpret=True, alive=jnp.asarray(alive))
-    before = tpi.closest_hit_streamed.launches
+    before = _build.launch_counts["closest_hit_streamed"]
     th = tpi.intersect_packed(torch.tensor(o), torch.tensor(d), tp, alive=torch.tensor(alive))
-    assert tpi.closest_hit_streamed.launches == before  # no kernel launch on the CPU
+    assert _build.launch_counts["closest_hit_streamed"] == before  # no kernel launch on the CPU
     assert np.asarray(jh.hit).mean() > 0.3 and not th.hit.numpy()[~alive].any()
     assert_hit_bar(th, jh.t, jh.tri, jh.hit)
 
@@ -165,7 +172,7 @@ def test_streamed_occlusion_matches_pallas_and_oracle(tb, cluster_bytes, monkeyp
     dead = rng.uniform(size=t_ref.shape) < 1 / 3
     max_t = np.where(dead, 0.0, max_t).astype(np.float32)
     jp, tp = jpi.pack_scene(js, tri_block=tb), tpi.pack_scene(ts, tri_block=tb)
-    assert not tpi.is_resident(tp)
+    assert is_streamed(tp)
     want = np.asarray(jpi.intersect_pallas_occluded(jnp.asarray(o), jnp.asarray(d), jnp.asarray(max_t), jp,
                                                     interpret=True))
     got = tpi.intersect_packed_occluded(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(max_t), tp).numpy()
@@ -277,3 +284,27 @@ def test_streamed_searches_run_only_on_streamed_packs(monkeypatch, config, budge
     img = render_frame(ts_, tc, dataclasses.replace(tst, **change), device="cpu")
     assert torch.isfinite(img).all()
     assert tuple(s.calls for s in stubs) == calls
+
+
+@pytest.mark.parametrize("over", [False, True], ids=["just_under", "just_over"])
+def test_one_route_rule_for_sort_autos_and_searches(streamed_case, over, monkeypatch):
+    """``narrow_settings``' sort autos and the route that the searches take
+    follow one rule (``tpi.route``): with the resident budget patched so that
+    the primary pack lies just under it, neither sorts nor streams; one byte
+    lower, both do."""
+    _, ts, o, d, _ = streamed_case
+    tb = 64
+    packed = tpi.pack_scene(ts, tri_block=tb)
+    monkeypatch.setattr(tpi, "RESIDENT_BUDGET_BYTES", packed.w.numel() * 4 - int(over))
+    narrowed = t_narrow(ts, RenderSettings(tri_block=tb))
+    assert (narrowed.sort_rays, narrowed.sort_key) == ((True, "origin") if over else (False, "dir"))
+    stubs = [
+        _counting(monkeypatch, "closest_hit", tpi.closest_hit_reference),
+        _counting(monkeypatch, "occluded", tpi.occluded_reference),
+        _counting(monkeypatch, "closest_hit_streamed", tpi.closest_hit_streamed_reference),
+        _counting(monkeypatch, "occluded_streamed", tpi.occluded_streamed_reference),
+    ]
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    tpi.intersect_packed(o, d, packed)
+    tpi.intersect_packed_occluded(o, d, torch.full((o.shape[0],), 5.0), packed)
+    assert tuple(s.calls for s in stubs) == ((0, 0, 1, 1) if over else (1, 1, 0, 0))

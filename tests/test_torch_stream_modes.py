@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_intersect import assert_hit_bar
-from test_torch_stream import _icosphere_scenes
+from test_torch_stream import _icosphere_scenes, is_streamed
 
 from gpupathtracer_tpu.ops import pallas_intersect as jpi
 from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
@@ -54,7 +54,7 @@ def streamed_case():
     rays = (torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(alive))
     with pytest.MonkeyPatch.context() as mp:
         _with_overrides(mp)
-        assert not tpi.is_resident(tp)
+        assert is_streamed(tp)
         ref = tpi.intersect_packed(*rays[:2], tp, alive=rays[2])
         prepared = tpi.prepare_rays_streamed(*rays[:2], tp, alive=rays[2])
     assert ref.hit.double().mean() > 0.5

@@ -32,7 +32,7 @@ out = {}
 for name, path in (("K1", chip_smoke.SCENE), ("K3", chip_smoke.STREAM_SCENE)):
     scene, camera, settings = load_scene_file(path, device="cuda")
     packs = [tpi.pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary)]
-    streamed = not tpi.is_resident(packs[0])
+    streamed = tpi.route(packs[0].w.shape[0], packs[0].tri_block).streamed
     for i, ((o, d), pack) in enumerate(zip(chip_smoke.main_path_rays(scene, camera, settings, packs[0]), packs)):
         if streamed:
             args = tpi.prepare_rays_streamed(o, d, pack) + (tpi.STREAM_RAY_TILE,)

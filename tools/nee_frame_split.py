@@ -4,7 +4,7 @@
 
 Loads the configuration as the benchmark does (``load_scene_file``, spp
 from ``--spp``), renders two warm-up frames, counting the search launches
-of the second (the wrappers' ``.launches``), then renders ``--frames``
+of the second (``_build.launch_counts``), then renders ``--frames``
 frames, each under its own ``torch.profiler`` session. For each frame it
 prints the K3 and K4 launches in order with their device ms, the device's
 busy time (the union of every kernel, copy and fill), and two shares of it:
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gpupathtracer_tpu_torch.ops import packed_intersect as tpi
+    from gpupathtracer_tpu_torch.ops import _build
     from gpupathtracer_tpu_torch.render.renderer import render_frame
     from gpupathtracer_tpu_torch.utils.config import load_scene_file
 
@@ -59,10 +59,11 @@ def main(argv=None) -> int:
     frame = lambda seed: render_frame(scene, camera, settings, seed=seed, device="cuda")
     frame(1)
     torch.cuda.synchronize()
-    before = tpi.closest_hit_streamed.launches, tpi.occluded_streamed.launches
+    before = _build.launch_counts["closest_hit_streamed"], _build.launch_counts["occlusion_streamed"]
     frame(2)
     torch.cuda.synchronize()
-    launches = {"k3": tpi.closest_hit_streamed.launches - before[0], "k4": tpi.occluded_streamed.launches - before[1]}
+    launches = {"k3": _build.launch_counts["closest_hit_streamed"] - before[0],
+                "k4": _build.launch_counts["occlusion_streamed"] - before[1]}
     print(json.dumps({"card": card, "config": os.path.relpath(a.config, ROOT), "spp": settings.spp,
                       "bounces": settings.bounces, "estimator": settings.estimator,
                       "launches_per_frame": launches}), flush=True)

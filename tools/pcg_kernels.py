@@ -30,7 +30,6 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from gpupathtracer_tpu_torch.ops import _build, sampling  # noqa: E402
-from gpupathtracer_tpu_torch.ops.sampling import PcgSampler  # noqa: E402
 from gpupathtracer_tpu_torch.render.renderer import render_frame  # noqa: E402
 from gpupathtracer_tpu_torch.utils.config import load_scene_file  # noqa: E402
 
@@ -51,9 +50,9 @@ def profile_frames(path: str, spp: int, frames: int) -> None:
         raise AssertionError(f"{path}: the frame differs from the plain route's")
     print(f"frame {os.path.basename(path)} spp {spp}: bit-equal to the plain route's", flush=True)
     for i in range(frames):
-        before = PcgSampler.launches
+        before = _build.launch_counts[_build.PCG]
         row = chip_smoke.profile_frame(lambda: float(render_frame(scene, camera, settings, seed=100 + i).sum()))
-        row["pcg_launches"] = PcgSampler.launches - before
+        row["pcg_launches"] = _build.launch_counts[_build.PCG] - before
         print(f"frame {os.path.basename(path)} spp {spp}: {json.dumps(row)}", flush=True)
 
 
