@@ -4,9 +4,9 @@
 
 Phases, one line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds the six kernel sources of csrc/ from this checkout
-   (the four searches, the PCG sampler's pcg.cu and the naive shade step's
-   shade.cu), all started together,
+2. build: nvcc builds the seven kernel sources of csrc/ from this checkout
+   (the four searches, the PCG sampler's pcg.cu, the naive shade step's
+   shade.cu and the searches' schedule.cu), all started together,
    with ptxas's registers and shared memory per kernel, and each kernel's launch shape at its ray tile (128 rays for K1
    and K2, 64 for K3 and K4) with its resident CTAs and warps per SM, for
    every precision mode's instantiation (and K3's traversal-mode kernel),
@@ -243,6 +243,16 @@ and the kernels' remaining modes:
     and both routes' render.shade spans split by the profiler (host ms,
     device ms and device ops a call, mean of 5) and their untraced wall ms
     a bounce (mean of 20 back to back);
+48. right after phase 47: the search schedule's kernel (csrc/schedule.cu)
+    through packed_intersect.prepare on the camera and bounce-1 rays of
+    phases 3 and 9 (the config 3 stand-in's resident packs, tri_block 128
+    and 512; the config 6 stand-in's streamed packs, 256 and 1024) against
+    the torch ops on the same rays, bit for bit (order, entry bounds,
+    enter_blk, features, lane values, padded rays), with its device ms
+    (CUDA events, mean of 200 launches cycling through 150 MB of input
+    rays), host ms a call, bytes bound at 3.35 TB/s and registers, and the
+    torch ops' device and host ms (mean of 5 calls); every full frame also
+    checks the schedule kernel's launches against one a search;
 then the total wall time, a JSON line that summarises every kernel under
 every mode, and a JSON result line last. Lines starting "elapsed:" mark
 where the time of the run goes.
@@ -887,26 +897,32 @@ def expect_shade_launches(settings, fused: bool) -> int:
     return settings.spp * settings.bounces if fused else 0
 
 
-# Each full frame's PCG and shade-kernel launches by its label, for the
-# summary line.
+def expect_schedule_launches(expect: dict) -> int:
+    """The schedule kernel's launches in one frame of the search launches
+    ``expect``: one a search, each of whose schedules is one launch."""
+    return sum(expect.values())
+
+
+# Each full frame's PCG, shade-kernel and schedule-kernel launches by its
+# label, for the summary line.
 PCG_LAUNCHES_BY_PATH: dict[str, int] = {}
 SHADE_LAUNCHES_BY_PATH: dict[str, int] = {}
+SCHEDULE_LAUNCHES_BY_PATH: dict[str, int] = {}
 
 
 def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: int = 3, profiled: bool = False) -> dict:
-    """A path at full size: launches of each kernel and of the PCG sampler in
-    one frame (the counts set to 0 just before it) against their expected
-    counts, a finite image, frame time; optionally one more frame under the
-    profiler."""
+    """A path at full size: launches of each kernel, of the PCG sampler, the
+    shade step and the schedule in one frame (the counts set to 0 just
+    before it) against their expected counts, a finite image, frame time;
+    optionally one more frame under the profiler."""
     device = scene.v0.device
     for k in KERNELS.values():
         _build.launch_counts[k["library"]] = 0
-    pcg_before, shade_before = _build.launch_counts[_build.PCG], _build.launch_counts[_build.SHADE]
+    before = {lib: _build.launch_counts[lib] for lib in (_build.PCG, _build.SHADE, _build.SCHEDULE)}
     img = render_frame(scene, camera, settings)
     _sync(device)
     launches = {name: _build.launch_counts[k["library"]] for name, k in KERNELS.items()}
-    pcg_launches = _build.launch_counts[_build.PCG] - pcg_before
-    shade_launches = _build.launch_counts[_build.SHADE] - shade_before
+    pcg_launches, shade_launches, schedule_launches = (_build.launch_counts[lib] - n for lib, n in before.items())
     mean = img.mean().item()
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
@@ -917,8 +933,12 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     if shade_launches != expect_shade_launches(settings, fused):
         raise AssertionError(f"{label}: {shade_launches} shade launches, expected "
                              f"{expect_shade_launches(settings, fused)}")
+    if schedule_launches != expect_schedule_launches(expect):
+        raise AssertionError(f"{label}: {schedule_launches} schedule launches, expected "
+                             f"{expect_schedule_launches(expect)}")
     PCG_LAUNCHES_BY_PATH[label] = pcg_launches
     SHADE_LAUNCHES_BY_PATH[label] = shade_launches
+    SCHEDULE_LAUNCHES_BY_PATH[label] = schedule_launches
     if tuple(img.shape) != (settings.height, settings.width, 3):
         raise AssertionError(f"{label}: full frame has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not 0.0 < mean < 10.0:
@@ -932,7 +952,7 @@ def phase_full_frame(label: str, scene, camera, settings, expect: dict, frames: 
     frame_s = statistics.median(times)
     rays = settings.width * settings.height * settings.spp * settings.bounces
     out = {"launches": launches, "pcg_launches": pcg_launches, "shade_launches": shade_launches,
-           "image_mean": mean, "frame_s": frame_s,
+           "schedule_launches": schedule_launches, "image_mean": mean, "frame_s": frame_s,
            "frame_s_all": times, "rays_per_s": rays / frame_s}
     if profiled:
         out["profile"] = profile_frame(lambda: float(render_frame(scene, camera, settings, seed=999).sum()))
@@ -1131,6 +1151,79 @@ def phase_shade(device) -> list:
                      "fused_wall_ms": fused_wall_ms, "ops_wall_ms": ops_wall_ms,
                      "ptxas": ptxas_usage(BUILD_REPORTS.get(_build.SHADE, "")), "exact": True})
     print(f"shade kernel (csrc/shade.cu) at bounce 1, bit-equal to the ops route: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+# Bytes a search's schedule moves once: a lane reads o and d (24) and
+# writes its features and lane value (68), and o and d again where the rays
+# are padded (24); a tile writes each key's order and entry bound (8) and, on
+# the streamed route, each block's entry bound (4); each block's box and
+# live flag are read (25).
+SCHEDULE_LANE_BYTES, SCHEDULE_PAD_BYTES = 24 + 68, 24
+SCHEDULE_KEY_BYTES, SCHEDULE_BLOCK_BYTES, SCHEDULE_BOX_BYTES = 8, 4, 25
+
+
+def _schedule_bits(prepared) -> list:
+    """``prepare``'s rays and every search input but w, floats as their bits."""
+    o, d, _, inputs = prepared
+    return [x.view(torch.int32) if x.dtype == torch.float32 else x for x in (o, d) + inputs[:-1]]
+
+
+def phase_schedule(device) -> list:
+    """Phase 48: the search schedule's kernel (csrc/schedule.cu) through
+    ``prepare`` on the camera and bounce-1 rays of the config 3 stand-in
+    (resident packs) and the config 6 stand-in (streamed packs), against the
+    torch ops on the same rays, bit for bit; its device ms with its input
+    rays cycled through PCG_ROTATE_BYTES and its outputs kept alive, against
+    the bytes bound, its host ms a call, and the torch ops' device and host
+    ms."""
+    rule, ops_route = packed_intersect.schedule_route, lambda *args: "ops"
+    rows = []
+    for label, path in (("config3", SCENE), ("config6", STREAM_SCENE)):
+        scene, camera, settings = load_scene_file(path, device=device)
+        packs = [pack_scene(scene, tri_block=tb) for tb in (settings.tri_block, settings.tri_block_secondary)]
+        for rays, (o, d), packed in zip(("camera", "bounce-1"), main_path_rays(scene, camera, settings, packs[0]),
+                                        packs):
+            way = packed_intersect.route(packed.w.shape[0], packed.tri_block)
+            call = lambda c, packed=packed, way=way: packed_intersect.prepare(c[0], c[1], None, packed, way)
+            got = call((o, d))
+            packed_intersect.schedule_route = ops_route
+            try:
+                want = call((o, d))
+                ops_ms, ops_host_ms = _device_and_host_ms(lambda: call((o, d)), 5)
+            finally:
+                packed_intersect.schedule_route = rule
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(_schedule_bits(got), _schedule_bits(want))]
+            if not all(same):
+                raise AssertionError(f"schedule {label} {rays}: the kernel's inputs differ from the torch ops': {same}")
+            copies = [(o.clone(), d.clone()) for _ in range(max(2, -(-PCG_ROTATE_BYTES // (2 * o.nbytes))))]
+            outs, i = [call(c) for c in copies], [0]
+
+            def timed():
+                k = i[0] % len(copies)
+                outs[k] = call(copies[k])
+                i[0] += 1
+
+            before = _build.launch_counts[_build.SCHEDULE]
+            ms, host_ms = _device_and_host_ms(timed, 200)
+            if _build.launch_counts[_build.SCHEDULE] - before != 201:
+                raise AssertionError(f"schedule {label} {rays}: "
+                                     f"{_build.launch_counts[_build.SCHEDULE] - before} launches in 201 calls")
+            del outs, copies
+            order, r_pad, nb = got[3][0], got[3][-2].shape[0], got[2].w.shape[0]
+            tiles, keys = order.shape
+            nbytes = r_pad * (SCHEDULE_LANE_BYTES + (SCHEDULE_PAD_BYTES if r_pad != o.shape[0] else 0))
+            nbytes += tiles * (keys * SCHEDULE_KEY_BYTES + (nb * SCHEDULE_BLOCK_BYTES if way.streamed else 0))
+            b = bound(0, nbytes + nb * SCHEDULE_BOX_BYTES)
+            rows.append({"name": f"schedule {label} {rays}", "rays": o.shape[0],
+                         "route": "streamed" if way.streamed else "resident", "tri_block": packed.tri_block,
+                         "tiles": tiles, "keys": keys, "blocks": nb, "scheduled": int((order < keys).sum()),
+                         "ms": ms, "host_ms": host_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                         "share_of_bound": b["bound_ms"] / ms, "ops_ms": ops_ms, "ops_host_ms": ops_host_ms,
+                         "ptxas": ptxas_usage(BUILD_REPORTS.get(_build.SCHEDULE, "")), "exact": True})
+    print(f"schedule kernel (csrc/schedule.cu) on the main-path rays, bit-equal to the torch ops: {json.dumps(rows)}",
+          flush=True)
     return rows
 
 
@@ -2502,6 +2595,7 @@ def main() -> None:
     phase_build()
     pcg_rows = phase_pcg(device)
     shade_rows = phase_shade(device)
+    schedule_rows = phase_schedule(device)
     phase_native_build()
 
     elapsed("naive path")
@@ -2748,6 +2842,8 @@ def main() -> None:
                  "launches_by_path": dict(PCG_LAUNCHES_BY_PATH)} for r in pcg_rows]
     summary += [{**r, "route": "cuda", "source": "gpupathtracer_tpu_torch/csrc/shade.cu", "replaces": None,
                  "launches_by_path": dict(SHADE_LAUNCHES_BY_PATH)} for r in shade_rows]
+    summary += [{**r, "route": "cuda", "source": "gpupathtracer_tpu_torch/csrc/schedule.cu", "replaces": None,
+                 "launches_by_path": dict(SCHEDULE_LAUNCHES_BY_PATH)} for r in schedule_rows]
     mask_rows = {"closest_hit": k1_mask_row, "occluded": k2_mask_row, "closest_hit_streamed": k3_mask_row,
                  "occluded_streamed": k4_mask_row}
     print(json.dumps({"mask_mode_checks": {k: {f: r[f] for f in ("ms", "max_abs_err", "bound_ms")}

@@ -4,7 +4,8 @@ Each kernel source in ``csrc/`` (the searches ``closest_hit.cu``,
 ``occlusion.cu``, ``closest_hit_streamed.cu``, ``occlusion_streamed.cu``,
 which all include ``stream_stage.cuh``, which includes ``decision.cuh``; the
 PCG sampler's ``pcg.cu`` and the naive shade step's ``shade.cu``, which both
-include ``pcg.cuh``) has a plain C interface. ``nvcc`` compiles it for
+include ``pcg.cuh``; the searches' schedule ``schedule.cu``) has a plain C
+interface. ``nvcc`` compiles it for
 Hopper (``sm_90a``) into its own shared library in
 ``gpupathtracer_tpu_torch/build/`` at first use, and the library is loaded
 with ``ctypes``. The file name carries a hash of the source, the shared
@@ -54,6 +55,9 @@ _P, _I, _I64, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c
 # the draw's word count, then the stream. The shade step's ``shade.cu`` has
 # one: o and its row stride, 18 more input and 7 output pointers, the lane
 # count, the background's three floats, the bounce, the flags, the stream.
+# The schedule's ``schedule.cu`` has one: o and its row stride, d, the lane
+# input and its kind, the three block inputs, 7 output pointers and the
+# sort's scratch, the lane count, rt, ray_tile, nb, bpc, the stream.
 LAUNCHES = {
     "closest_hit": {"closest_hit_launch": [_P] * 10 + [_I] * 7 + [_P]},
     "occlusion": {"occlusion_launch": [_P] * 8 + [_I] * 7 + [_P]},
@@ -65,15 +69,17 @@ LAUNCHES = {
         "pcg_uniform_launch": [_P, _P, _I64, _I, _P],
     },
     "shade": {"shade_naive_launch": [_P, _I64] + [_P] * 25 + [_I64, _F, _F, _F, _U32, _I, _P]},
+    "schedule": {"tile_schedule_launch": [_P, _I64, _P, _P, _I] + [_P] * 11 + [_I64, _I, _I, _I, _I, _P]},
 }
 PCG = "pcg"
 SHADE = "shade"
+SCHEDULE = "schedule"
 # The searches, which include HEADERS, also export ``<name>_occupancy``:
 # resident CTAs per SM at a launch shape, -1 if the kernel does not take it.
 # It takes the launch's ray_tile, groups, rays a thread or m-tiles a warp,
-# precision (and for K3 modes) ints; here, their count. ``pcg.cu`` and
-# ``shade.cu`` include none of HEADERS, so they build in seconds and an edit
-# to the searches does not rebuild them.
+# precision (and for K3 modes) ints; here, their count. ``pcg.cu``,
+# ``shade.cu`` and ``schedule.cu`` include none of HEADERS, so they build in
+# seconds and an edit to the searches does not rebuild them.
 OCCUPANCY = {"closest_hit": 4, "occlusion": 4, "closest_hit_streamed": 5, "occlusion_streamed": 4}
 # Kernel launches made so far in this process, by library (``launch``).
 launch_counts = dict.fromkeys(LAUNCHES, 0)

@@ -12,7 +12,10 @@ lower-bounds the hit distance into each survivor (``tile_block_mask``);
 Two routes, chosen per pack as the JAX package chooses them (``route``, which
 the renderer's sort autos also follow): a pack of at most
 ``RESIDENT_BUDGET_BYTES`` takes the resident route, a larger one the
-streamed route. ``prepare`` makes a search's inputs on either route. The
+streamed route. ``prepare`` makes a search's inputs on either route: with
+the torch ops below on CPU tensors (and for the plain versions), and in one
+launch of ``csrc/schedule.cu`` (``ops/schedule.py``), the same to the bit,
+on CUDA tensors (``schedule_route``). The
 streamed route pads the blocks to a multiple of ``bpc`` (blocks per
 cluster, about ``CLUSTER_TARGET_BYTES`` each), schedules whole
 clusters front to back, skips single blocks inside a cluster by their own
@@ -62,7 +65,7 @@ import torch
 
 from gpupathtracer_tpu_torch.core.tensors import TensorCache, to_device
 from gpupathtracer_tpu_torch.models.scene import TriangleScene
-from gpupathtracer_tpu_torch.ops import _build
+from gpupathtracer_tpu_torch.ops import _build, schedule
 from gpupathtracer_tpu_torch.ops.compaction import morton_codes, partition_alive
 from gpupathtracer_tpu_torch.ops.intersect import BIG, EPSILON, Hit
 from gpupathtracer_tpu_torch.ops.plucker import K, LIVE_SLOTS, NSCALARS, pack_rays
@@ -78,6 +81,11 @@ INF = float("inf")
 RESIDENT_BUDGET_BYTES = 16 * 1024 * 1024
 CLUSTER_TARGET_BYTES = 1024 * 1024
 STREAM_RAY_TILE = 64
+
+# A search's schedule has two routes (``schedule_route``), which the
+# render.schedule span records by index: the torch ops, and one launch of
+# csrc/schedule.cu (``ops/schedule.py``).
+SCHEDULE_ROUTES = ("ops", "kernel")
 
 # The streamed closest hit's traversal modes, the JAX package's, all off by
 # default and read at call time. STREAM_PHASE1_BUDGET > 0 caps the clusters
@@ -500,33 +508,31 @@ def _pad_blocks(packed: PackedScene, bpc: int) -> PackedScene:
     """The pack with its block axis padded to a multiple of ``bpc`` by dead
     blocks: zero columns, box lo 0 and hi -1, ``block_live`` False.
     ``tri_map`` is not padded (no hit lands in a dead block). Zero columns
-    keep ``live_slots_only``."""
-    nb = packed.w.shape[0]
-    pad = (-nb) % bpc
+    keep ``live_slots_only``. Cached on ``w`` (as the live-slot mark is),
+    keyed on ``bpc``, the pack's fields, its other tensors and every
+    tensor's version counter, so that every streamed search of a pack
+    reuses one padded pack and the precision operands that
+    ``_kernel_operands`` caches on its ``w``, and the copy is freed with
+    ``w``; an in-place edit of any of the pack's tensors makes it anew. A
+    ``w`` that requires grad is padded anew each time."""
+    w = packed.w
+    pad = (-w.shape[0]) % bpc
     if pad == 0:
         return packed
-    return dataclasses.replace(
+    others = (packed.tri_map, packed.box_lo, packed.box_hi, packed.block_live)
+    key = (bpc, packed.tri_block, packed.live_slots_only, w._version) + tuple(x._version for x in others)
+    cached = getattr(w, "_padded", None)
+    if cached is not None and cached[0] == key and all(x is y for x, y in zip(cached[1], others)):
+        return cached[2]
+    padded = dataclasses.replace(
         packed,
-        w=_padded_w(packed.w, pad),
+        w=torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))]),
         box_lo=torch.cat([packed.box_lo, packed.box_lo.new_zeros((pad, 3))]),
         box_hi=torch.cat([packed.box_hi, packed.box_hi.new_full((pad, 3), -1.0)]),
         block_live=torch.cat([packed.block_live, packed.block_live.new_zeros((pad,))]),
     )
-
-
-def _padded_w(w: torch.Tensor, pad: int) -> torch.Tensor:
-    """``w`` with ``pad`` zero blocks after its last, cached on ``w`` keyed
-    on ``pad`` and its version counter (as the live-slot mark is), so that
-    every streamed search of a pack reuses one padded copy and the
-    precision operands that ``_kernel_operands`` caches on it. A ``w`` that
-    requires grad is padded anew each time."""
-    key = (pad, w._version)
-    cached = getattr(w, "_padded", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    padded = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
     if not w.requires_grad:
-        w._padded = (key, padded)
+        w._padded = (key, others, padded)
     return padded
 
 
@@ -1052,7 +1058,28 @@ def occluded_streamed(order, enter, enter_blk, feats, maxt, w, ray_tile: int = S
     return _search(_OCCLUDED_STREAMED, (order, enter, enter_blk), feats, maxt, w, ray_tile, precision, tests)
 
 
-def prepare(o, d, lanes, packed: PackedScene, way: Route, any_hit: bool = False):
+def schedule_route(device: torch.device, plain: bool = False) -> str:
+    """The route of a search's schedule (``SCHEDULE_ROUTES``): "kernel" (one
+    launch of csrc/schedule.cu, which takes float32 rays) for rays on a CUDA
+    ``device``; "ops" (the torch ops, the plain version that the CPU tests
+    hold to the JAX package) on the CPU, and with ``plain``, where the
+    search too runs its plain version."""
+    return "kernel" if device.type == "cuda" and not plain else "ops"
+
+
+def _tile_schedule(o, d, live, packed: PackedScene, way: Route, how: str):
+    """The schedule of rays already padded to whole tiles (``packed`` padded
+    to whole clusters on the streamed route) with live lanes ``live`` (bool,
+    None: all): ``(order, enter_sorted)``, or ``(order, enter_sorted,
+    enter_blk)`` streamed, by the route ``how``."""
+    if how == "kernel":
+        out = schedule.tile_schedule(o, d, live, packed, way.bpc if way.streamed else 0, way.ray_tile, rays=False)
+        return out[:3] if way.streamed else out[:2]
+    mask, enter = tile_block_mask(o, d, packed, way.ray_tile, alive=live)
+    return cluster_schedule(mask, enter, way.bpc) if way.streamed else plan_block_order(mask, enter)
+
+
+def prepare(o, d, lanes, packed: PackedScene, way: Route, any_hit: bool = False, plain: bool = False):
     """A search's inputs for rays (R, 3) with unit directions on the route
     ``way``: ``(o, d, packed, inputs)``, with the rays padded to a multiple
     of ``way.ray_tile`` and, on the streamed route, the pack's blocks padded
@@ -1063,27 +1090,43 @@ def prepare(o, d, lanes, packed: PackedScene, way: Route, any_hit: bool = False)
     live; int32 in ``inputs``), or with ``any_hit`` the cutoffs ``max_t``
     (R,) (float32 in ``inputs``). The tile frustums follow the live lanes,
     or the lanes with ``max_t`` > 0. Padded lanes carry o = 0, d = (1, 1, 1)
-    and lane value 0: dead, or never tested."""
-    if way.streamed:
-        packed = _pad_blocks(packed, way.bpc)
-    everyone = lanes is None and not any_hit
-    if any_hit:
-        lanes = lanes.to(torch.float32)
-    elif everyone:
-        lanes = torch.ones((o.shape[0],), dtype=torch.int32, device=o.device)
-    else:
-        lanes = lanes.to(torch.int32)
-    feats = pack_rays(o, d)
-    pad = (-o.shape[0]) % way.ray_tile
-    if pad:
-        feats = torch.cat([feats, feats.new_zeros((pad, K))])
-        o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, d.new_ones((pad, 3))])
-        lanes = torch.cat([lanes, lanes.new_zeros((pad,))])
-    lanes = lanes.contiguous()
-    mask, enter = tile_block_mask(o, d, packed, way.ray_tile, alive=None if everyone and not pad else lanes > 0)
-    schedule = cluster_schedule(mask, enter, way.bpc) if way.streamed else plan_block_order(mask, enter)
-    return o, d, packed, (*schedule, feats, lanes, packed.w)
+    and lane value 0: dead, or never tested.
+
+    Runs in a ``render.schedule`` span whose input is the route
+    (``schedule_route`` of the device and ``plain``, ``SCHEDULE_ROUTES``):
+    on the kernel route one launch makes every input but ``w``, the same to
+    the bit."""
+    how = schedule_route(o.device, plain)
+    with scope("render.schedule", SCHEDULE_ROUTES.index(how)):
+        if way.streamed:
+            packed = _pad_blocks(packed, way.bpc)
+        if how == "kernel":
+            dtypes = (torch.float32,) if any_hit else (torch.bool, torch.int32)
+            if lanes is not None and lanes.dtype not in dtypes:
+                lanes = lanes.to(dtypes[-1])
+            order, enter, enter_blk, feats, lanes, o_pad, d_pad = schedule.tile_schedule(
+                o, d, lanes, packed, way.bpc if way.streamed else 0, way.ray_tile, any_hit)
+            if o_pad.shape[0]:
+                o, d = o_pad, d_pad
+            sched = (order, enter, enter_blk) if way.streamed else (order, enter)
+            return o, d, packed, (*sched, feats, lanes, packed.w)
+        everyone = lanes is None and not any_hit
+        if any_hit:
+            lanes = lanes.to(torch.float32)
+        elif everyone:
+            lanes = torch.ones((o.shape[0],), dtype=torch.int32, device=o.device)
+        else:
+            lanes = lanes.to(torch.int32)
+        feats = pack_rays(o, d)
+        pad = (-o.shape[0]) % way.ray_tile
+        if pad:
+            feats = torch.cat([feats, feats.new_zeros((pad, K))])
+            o = torch.cat([o, o.new_zeros((pad, 3))])
+            d = torch.cat([d, d.new_ones((pad, 3))])
+            lanes = torch.cat([lanes, lanes.new_zeros((pad,))])
+        lanes = lanes.contiguous()
+        sched = _tile_schedule(o, d, None if everyone and not pad else lanes > 0, packed, way, how)
+        return o, d, packed, (*sched, feats, lanes, packed.w)
 
 
 def _streamed(packed: PackedScene, ray_tile: int) -> Route:
@@ -1115,21 +1158,21 @@ def prepare_shadow_rays_streamed(o, d, max_t, packed: PackedScene, ray_tile: int
     return prepare(o, d, max_t, packed, _streamed(packed, ray_tile), any_hit=True)[-1]
 
 
-def _regroup_stragglers(search, prepared, way: Route, best_t, best_i, done, **modes):
+def _regroup_stragglers(search, prepared, way: Route, best_t, best_i, done, plain: bool, **modes):
     """Phase 2 of the two-phase streamed search, as the JAX package's
     ``intersect_pallas`` runs it: the live lanes that phase 1 left undone
     are packed densely into fresh tiles (a stable partition, which keeps
     the caller's coherence order), scheduled anew and resumed from their
     partial hits with no cluster cap; tiles of finished lanes cull
-    everything. ``prepared`` is ``prepare``'s. Returns the merged
-    ``(best_t, best_i)``."""
+    everything. ``prepared`` is ``prepare``'s, ``plain`` as there. Returns
+    the merged ``(best_t, best_i)``."""
     o, d, padded, (_, _, _, feats, alive_i, w) = prepared
-    with scope("render.schedule"):
+    how = schedule_route(o.device, plain)
+    with scope("render.schedule", SCHEDULE_ROUTES.index(how)):
         undone = (alive_i > 0) & (done == 0)
         perm, inv = partition_alive(undone)
         und_p = undone[perm]
-        mask, enter = tile_block_mask(o[perm], d[perm], padded, way.ray_tile, alive=und_p)
-        order, enter_sorted, enter_blk = cluster_schedule(mask, enter, way.bpc)
+        order, enter_sorted, enter_blk = _tile_schedule(o[perm], d[perm], und_p, padded, way, how)
     with scope("render.search.closest"):
         bt2, bi2 = search(order, enter_sorted, enter_blk, feats[perm], und_p.to(torch.int32), w, way.ray_tile,
                           init_t=torch.where(und_p, best_t[perm], -INF), init_i=best_i[perm], **modes)
@@ -1157,7 +1200,8 @@ def intersect_packed(
     ``STREAM_FRESH_WORST``: with a budget, the lanes phase 1 leaves undone
     are regrouped and resumed (``_regroup_stragglers``). ``alive`` (R,)
     bool: dead lanes are left out of the tile frustums and report no hit.
-    ``plain=True`` runs the plain versions on any device. ``precision``:
+    ``plain=True`` runs the plain versions on any device, the schedule's
+    torch ops too. ``precision``:
     the decision product (``resolve_precision``).
 
     The search is discrete: it runs on detached rays and the ``Hit`` never
@@ -1170,8 +1214,7 @@ def intersect_packed(
     precision = resolve_precision(precision)
     tests = frame_tests()
     way = route(packed.w.shape[0], packed.tri_block, ray_tile)
-    with scope("render.schedule"):
-        prepared = prepare(o, d, alive, packed, way)
+    prepared = prepare(o, d, alive, packed, way, plain=plain)
     modes = {"precision": precision, "tests": tests}
     search = closest_hit_reference if plain else closest_hit
     if way.streamed:
@@ -1182,7 +1225,7 @@ def intersect_packed(
         with scope("render.search.closest"):
             best_t, best_i, done = search(*prepared[-1], way.ray_tile, budget=STREAM_PHASE1_BUDGET, with_done=True,
                                           **modes)
-        best_t, best_i = _regroup_stragglers(search, prepared, way, best_t, best_i, done, **modes)
+        best_t, best_i = _regroup_stragglers(search, prepared, way, best_t, best_i, done, plain, **modes)
         with scope("render.search.closest"):
             return _hits(best_t, best_i, packed, o.shape[0])
     with scope("render.search.closest"):
@@ -1207,8 +1250,7 @@ def intersect_packed_occluded(
     search, count = (occluded_reference if plain else occluded), {}
     if way.streamed:
         search, count = (occluded_streamed_reference if plain else occluded_streamed), {"tests": frame_anyhit_tests()}
-    with scope("render.schedule"):
-        inputs = prepare(o, d, max_t, packed, way, any_hit=True)[-1]
+    inputs = prepare(o, d, max_t, packed, way, any_hit=True, plain=plain)[-1]
     with scope("render.search.any"):
         return search(*inputs, way.ray_tile, precision=precision, **count)[: o.shape[0]] > 0
 

@@ -32,7 +32,9 @@ the one it names; a span's device time includes its children's):
   permutation around a search, in a bounce (or around the later bounces
   for ``compact_mode="hybrid"``);
 - ``render.schedule``: ray features, tile culling and the block or cluster
-  schedule of a search, and the straggler regroup's schedule;
+  schedule of a search, and the straggler regroup's schedule; its recorded
+  input is the route it took (``packed_intersect.SCHEDULE_ROUTES``: 0 the
+  torch ops, 1 the kernel);
 - ``render.search.closest``: the closest-hit launch or launches and the
   hits they give;
 - ``render.search.any``: the any-hit launch;

@@ -1267,3 +1267,207 @@ def test_fused_shade_kernel_rejects_what_it_does_not_take(device):
         with pytest.raises(ValueError):
             shade._naive_kernel(**{**args, name: x}, bg_r=0.0, bg_g=0.0, bg_b=0.0, bounce=0, flags=3)
     assert _build.launch_counts["shade"] == before
+
+
+# The search schedule's kernel (csrc/schedule.cu) against the torch ops.
+
+_MAIN_RAYS = {}
+
+
+def _main_path(device, config):
+    """The config 3 or config 6 stand-in, its two packs (camera at tri_block,
+    bounce at tri_block_secondary: 128/512 and 256/1024) and chip_smoke's
+    sample 0 camera and bounce-1 rays, made once a module; the scene under
+    "scene"."""
+    import chip_smoke
+
+    if config not in _MAIN_RAYS:
+        scene, camera, settings = load_scene_file(chip_smoke.SCENE if config == "config3" else chip_smoke.STREAM_SCENE,
+                                                  device=device)
+        packed = tpi.pack_scene(scene, tri_block=settings.tri_block)
+        packed2 = tpi.pack_scene(scene, tri_block=settings.tri_block_secondary or settings.tri_block)
+        rays = chip_smoke.main_path_rays(scene, camera, settings, packed)
+        _MAIN_RAYS[config] = {"camera": (packed, *rays[0]), "bounce": (packed2, *rays[1]), "scene": scene}
+    return _MAIN_RAYS[config]
+
+
+_SCHEDULE_NAMES = ("o", "d", "order", "enter_sorted", "enter_blk", "feats", "lanes")
+
+
+def _schedule_both_routes(o, d, lanes, packed, way, any_hit, monkeypatch):
+    """``prepare`` on the kernel route (one launch) and on the torch ops'
+    route; every input but w bit-equal. Returns both."""
+    before = _build.launch_counts[_build.SCHEDULE]
+    got = tpi.prepare(o, d, lanes, packed, way, any_hit=any_hit)
+    assert _build.launch_counts[_build.SCHEDULE] == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(tpi, "schedule_route", lambda *args: "ops")
+        want = tpi.prepare(o, d, lanes, packed, way, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[_build.SCHEDULE] == before + 1
+    names = [n for n in _SCHEDULE_NAMES if way.streamed or n != "enter_blk"]
+    for name, a, b in zip(names, got[:2] + got[3][:-1], want[:2] + want[3][:-1]):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        raw = (lambda x: x.view(torch.int32)) if a.dtype == torch.float32 else (lambda x: x)
+        assert torch.equal(raw(a), raw(b)), (name, int((raw(a) != raw(b)).sum()))
+    return got, want
+
+
+def _lanes(kind, r, ray_tile, device, seed=0):
+    """``(rays kept, lanes, any_hit)``: every lane live; alive with 80% live
+    lanes, the first two tiles dead and a count that needs padding; cutoffs
+    with 30% zeros, the first tile all zero, and padding."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "all":
+        return r, None, False
+    keep = r - 37
+    u = torch.rand(keep, generator=g)
+    if kind == "alive":
+        alive = u < 0.8
+        alive[: 2 * ray_tile] = False
+        return keep, alive.to(device), False
+    max_t = torch.where(u < 0.3, 0.0, 10.0)
+    max_t[:ray_tile] = 0.0
+    return keep, max_t.to(device), True
+
+
+@pytest.mark.parametrize("lanes_kind", ["all", "alive", "cutoff"])
+@pytest.mark.parametrize("rays", ["camera", "bounce"])
+@pytest.mark.parametrize("config", ["config3", "config6"])
+def test_schedule_kernel_equals_torch_ops(device, config, rays, lanes_kind, monkeypatch):
+    """The schedule kernel on the config 3 stand-in's resident packs
+    (tri_block 128 and 512, K1) and the config 6 stand-in's streamed packs
+    (256 and 1024, K3 and K4), on chip_smoke's camera and bounce-1 rays:
+    one launch, and ``order``, ``enter_sorted``, ``enter_blk``, ``feats``,
+    ``lanes`` and the padded rays bit-equal to the torch ops'; all-live,
+    partly dead and all-dead tiles, padding, and cutoffs with zeros. The
+    search on either schedule gives the same hits or flags."""
+    packed, o, d = _main_path(device, config)[rays]
+    way = tpi.route(packed.w.shape[0], packed.tri_block)
+    assert way.streamed == (config == "config6")
+    keep, lanes, any_hit = _lanes(lanes_kind, o.shape[0], way.ray_tile, device)
+    got, want = _schedule_both_routes(o[:keep], d[:keep], lanes, packed, way, any_hit, monkeypatch)
+    assert (got[3][0] < got[3][0].shape[1]).any()
+    if any_hit:
+        search = tpi.occluded_streamed if way.streamed else tpi.occluded
+    else:
+        search = tpi.closest_hit_streamed if way.streamed else tpi.closest_hit
+    a, b = search(*got[3], way.ray_tile), search(*want[3], way.ray_tile)
+    torch.cuda.synchronize()
+    a, b = (a,) if any_hit else a, (b,) if any_hit else b
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+    assert (a[-1] > 0).any() if any_hit else (a[1] >= 0).any()
+
+
+_EDGE_CASES = ["axis-aligned", "signed zeros", "nan lane", "corner origins"]
+
+
+@pytest.mark.parametrize("case", _EDGE_CASES)
+@pytest.mark.parametrize("ray_tile", [32, 128, 1024])
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_schedule_kernel_edge_rays(device, streamed, ray_tile, case, monkeypatch):
+    """Rays that meet the torch ops' corner cases, bit-equal on both
+    routes: directions with exact zeros (divisors that touch 0), -0.0
+    components, a NaN origin in one lane (its tile culls every block), and
+    origins on the corners of the pack's boxes (bounds of exactly 0), at
+    ray tiles of 32, 128 and 1024."""
+    scene, o, d = _random_scene(device, seed=31, rays=5000)
+    packed = tpi.pack_scene(scene, tri_block=64)
+    nb = packed.w.shape[0]
+    way = tpi.Route(True, 3, ray_tile) if streamed else tpi.Route(False, 0, ray_tile)
+    o, d = o.clone(), d.clone()
+    if case == "axis-aligned":
+        d[::3, 0] = 0.0
+        d[1::5, 2] = 0.0
+        d[: 4 * ray_tile] = torch.tensor([0.0, 0.0, 1.0], device=device)
+    elif case == "signed zeros":
+        d[::2, 1] = -0.0
+        o[::3, 0] = -0.0
+        d[: 2 * ray_tile, 0] = -0.0
+    elif case == "nan lane":
+        o[ray_tile + 3, 1] = float("nan")
+    else:
+        n = min(ray_tile * 4, o.shape[0])
+        o[:n] = packed.box_lo[torch.arange(n, device=device) // ray_tile % nb]
+        d[:n] = d[:n].abs()
+    d = torch.where(d == 0, d, d / d.norm(dim=1, keepdim=True))
+    got, _ = _schedule_both_routes(o, d, None, packed, way, False, monkeypatch)
+    if case == "nan lane":
+        assert (got[3][0][1] == got[3][0].shape[1]).all()
+
+
+@pytest.mark.parametrize("ray_tile", [64, 128])
+def test_schedule_kernel_regroup_schedule(device, ray_tile):
+    """The straggler regroup's schedule (rays already padded, a schedule
+    alone) from the kernel equals the torch ops'."""
+    scene, o, d = _random_scene(device, seed=33, rays=4000)
+    packed = tpi._pad_blocks(tpi.pack_scene(scene, tri_block=64), 3)
+    way = tpi.Route(True, 3, ray_tile)
+    r = o.shape[0] // ray_tile * ray_tile
+    live = (torch.rand(r, generator=torch.Generator().manual_seed(4)) < 0.4).to(device)
+    before = _build.launch_counts[_build.SCHEDULE]
+    got = tpi._tile_schedule(o[:r], d[:r], live, packed, way, "kernel")
+    want = tpi._tile_schedule(o[:r], d[:r], live, packed, way, "ops")
+    torch.cuda.synchronize()
+    assert _build.launch_counts[_build.SCHEDULE] == before + 1 and len(got) == 3
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_schedule_kernel_sorts_past_shared_memory(device, streamed, monkeypatch):
+    """Tiles of more keys than shared memory holds sort in the global
+    scratch: the config 6 stand-in packed at tri_block 128 (2,560 blocks),
+    as one key a block resident and as clusters of one block streamed, on
+    its camera rays with partly dead tiles, bit-equal to the torch ops."""
+    from gpupathtracer_tpu_torch.ops import schedule
+
+    main = _main_path(device, "config6")
+    packed = tpi.pack_scene(main["scene"], tri_block=128)
+    _, o, d = main["camera"]
+    assert packed.w.shape[0] > schedule.SHARED_KEYS
+    way = tpi.Route(True, 1, 64) if streamed else tpi.Route(False, 0, 128)
+    keep, alive, _ = _lanes("alive", o.shape[0], way.ray_tile, device, seed=3)
+    got, _ = _schedule_both_routes(o[:keep], d[:keep], alive, packed, way, False, monkeypatch)
+    assert (got[3][0] < got[3][0].shape[1]).any()
+
+
+def test_schedule_kernel_plain_frames_take_the_ops(device):
+    """A card frame through the plain versions (intersector "plucker")
+    schedules every search with the torch ops: route 0 in each span and no
+    schedule launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, camera, settings = _small_frame(SCENE, device, size=64, spp=2)
+    settings = dataclasses.replace(settings, intersector="plucker")
+    render_frame(scene, camera, settings)
+    before = _build.launch_counts[_build.SCHEDULE]
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        render_frame(scene, camera, settings)
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events() if e.name == "render.schedule" and e.device_type == DeviceType.CPU]
+    assert len(spans) == settings.spp * settings.bounces
+    assert all(list(e.concrete_inputs) == [tpi.SCHEDULE_ROUTES.index("ops")] for e in spans)
+    assert _build.launch_counts[_build.SCHEDULE] == before
+
+
+def test_schedule_kernel_in_the_frames_span(device):
+    """A card frame takes the kernel for every search: each render.schedule
+    span records route 1, one launch a search, and the kernel runs inside
+    the span (a dispatcher op, so the profiler links it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, camera, settings = _small_frame(SCENE, device, size=64, spp=2)
+    render_frame(scene, camera, settings)
+    before = _build.launch_counts[_build.SCHEDULE]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        render_frame(scene, camera, settings)
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events() if e.name == "render.schedule" and e.device_type == DeviceType.CPU]
+    assert len(spans) == settings.spp * settings.bounces
+    assert all(list(e.concrete_inputs) == [tpi.SCHEDULE_ROUTES.index("kernel")] for e in spans)
+    assert _build.launch_counts[_build.SCHEDULE] == before + len(spans)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and "tile_schedule_kernel" in e.name()]
+    assert len(kernels) == len(spans)
